@@ -8,9 +8,9 @@ in phases that each raise on failure (non-zero exit, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi) and
    turn TF32 off;
-2. (and a) build the three kernels from kernels/csrc at once, one nvcc
-   each -- K1 mesh_traverse, K2 mesh_traverse_stream, K3 coherence_keys --
-   and print each build's time and ptxas's registers and spills; require
+2. (and a) build the four kernels from kernels/csrc at once, one nvcc
+   each -- K1 mesh_traverse, K2 mesh_traverse_stream, K3 coherence_keys,
+   K4 sphere_traverse -- and print each build's time and ptxas's registers and spills; require
    the native cluster builder (the reference's), print its library, and
    hold both scenes' cluster tables against their pinned digests;
 3. hold K1 against its plain PyTorch version on the teapot scene's own
@@ -39,10 +39,31 @@ e. render scenes/teapot_hires.yaml at 640x640, 16 spp, pool 196,608, max
    tonemapped mean against a JAX CPU render; rays/s;
 f. render teapot_hires 64x64 at 8 spp with HRT_KEY_MODE "auto" and then
    "pallas" (set in-process): K3 launched in the second render, and the
-   two images equal per pixel.
+   two images equal per pixel;
+g. hold K4 against its plain version on scenes/scattered_balls.yaml's own
+   sphere tables (485 spheres, K = 4) at 196,608 camera and
+   after-one-bounce rays: t and ids bitwise equal; time both, and the
+   dense sphere scan on the same rays beside them;
+h. K4's route against the dense route (intersect_spheres_clustered vs
+   intersect_spheres) on the same rays: hit masks and materials equal but
+   for counted grazing rays, hit points and normals within tolerance;
+i. render scattered_balls at 640x640, 16 spp, pool 196,608, max depth 50
+   with Russian roulette, by the default route (the dense scan: no kernel
+   launched) and with SPHERE_KERNEL on (K4 launched, K1-K3 not): every
+   sample retired, finite images, the tonemapped mean against a JAX CPU
+   render; rays/s of both;
+j. render the balls 64x64 at 8 spp through K4 and with the sphere find
+   forced to the plain version, and compare.
 
-The second-to-last line is a JSON object with each kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with each kernel's numbers: its
+launches in its path's render, its time and its plain version's at 196,608
+rays, and `bound_ms`, the least time the card could take for the same work
+(the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
+of float32; the operations are those this run's rays need: one scan of the
+K slab tests per ray and one leaf test for every cluster a ray enters
+before its final hit). No single PyTorch call computes any of the four
+functions, so `library_ms` is null. The last line is
+{"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -53,6 +74,7 @@ import time
 
 SCENE = "scenes/teapot_scene.yaml"
 HIRES = "scenes/teapot_hires.yaml"
+BALLS = "scenes/scattered_balls.yaml"
 DEVICE = "cuda:0"
 WIDTH = HEIGHT = 640
 SPP = 16
@@ -69,42 +91,111 @@ JAX_CPU_MEAN = 0.3438
 # 0.34658, 0.34339, 0.34447, 0.33986, 0.34246, 0.34334; their mean is
 # 0.3434.
 JAX_CPU_MEAN_HIRES = 0.3434
+# The same for scenes/scattered_balls.yaml on a square image (JAX CPU, the
+# dense sphere scan, same settings). The mean falls a little as the image
+# grows: seeds 0 and 1 gave 0.63269, 0.63291 at 64x64 and 0.62756, 0.62733
+# at 96x96, seed 2 0.62415 at 128x128, and seeds 3, 4, 5 gave 0.62090,
+# 0.61945, 0.61820 at 192x192, 256x256 and 320x320; the mean of those last
+# three is 0.6195.
+JAX_CPU_MEAN_BALLS = 0.6195
 MEAN_BAND = 0.05
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores, for `bound_ms`
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+# float32 operations of one slab test (6 subtractions, 6 products, 7 min or
+# max, the window compares), one Moller-Trumbore test (two cross products,
+# four dot products, a reciprocal, the barycentric window) and one sphere
+# quadratic (3 subtractions, two dot products, the discriminant, a square
+# root, two roots, the window), counted from the kernels' sources
+SLAB_OPS = 20
+TRIANGLE_OPS = 45
+SPHERE_OPS = 30
 T_RTOL = 1e-5
 T_ATOL = 1e-6
 # the 64x64 renders of phase f may differ only by the order of the
 # framebuffer's atomic adds
 F_ATOL = 1e-5
 HIRES_PREFIX = 40_000   # triangles of the phase c mesh
+# phase h, K4's route against the dense scan: the dense scan counts a ray
+# with disc == 0 as a hit and the clustered find does not, and the replay
+# sums its dot products in another order, so a grazing ray may hit on one
+# route only (at most ROUTE_MAX_OFF of the live rays). Elsewhere the two
+# hit points, |dt| * |d| apart, are compared: for the ground sphere (radius
+# 1000) c = |oc|^2 - r^2 is of order 1e6 and rounds to 0.06, which moves a
+# grazing bounce ray's hit by millimetres of a scene 20 units wide, so the
+# points agree within ROUTE_P_ATOL on every hit and within ROUTE_P_ATOL99
+# on 99% of them; the normal, that error over a radius of 0.2, agrees
+# within ROUTE_N_ATOL
+ROUTE_MAX_OFF = 1e-3
+ROUTE_P_ATOL = 1e-2
+ROUTE_P_ATOL99 = 1e-3
+ROUTE_N_ATOL = 2e-2
 # sha256 of each scene's cluster tables (table_digest) as the native SAH
 # builds them on the host, byte-identical to the JAX package's build
-# (tests/test_torch_host.py::test_build_scene_native_matches_reference
-# holds the port's tables against the JAX ones and against these digests)
+# (tests/test_torch_host.py::test_build_scene_native_matches_reference and
+# ::test_build_scene_new_scenes_match_reference hold the port's tables
+# against the JAX ones and against these digests)
 TABLE_SHA256 = {
     SCENE: "9d1ca0e72fc7fef4ede9e7818b4cff9256a35bb4452ac5aab982f2675a156516",
     HIRES: "ea19e62d105d97afad20374241c39ef74b892b2fb345313bf1619e6484ad2244",
+    # the sphere pool's cluster tables (numpy median split, K = 4)
+    BALLS: "588ceea6a76a98b7ee1ca587d74e33b0e69c06fac27ce1de00055ec61d6eecfa",
 }
 
 
-def table_digest(mesh):
-    """sha256 of a mesh's cluster tables: cluster ids, tri_soa, bounds8."""
+def table_digest(geom):
+    """sha256 of a mesh's cluster tables (cluster ids, tri_soa, bounds8) or
+    of a sphere table's (kernel_ids, kernel_table, kernel_bounds)."""
     h = hashlib.sha256()
-    for t in (mesh.cluster_id, mesh.tri_soa, mesh.bounds8):
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    names = (("cluster_id", "tri_soa", "bounds8") if hasattr(geom, "tri_soa")
+             else ("kernel_ids", "kernel_table", "kernel_bounds"))
+    for name in names:
+        h.update(getattr(geom, name).detach().cpu().contiguous().numpy()
+                 .tobytes())
     return h.hexdigest()
 
 
 def load_scene(path):
-    """build_scene on the host; its cluster tables must match the pinned
-    digest (the native builder ran, as in the reference)."""
+    """build_scene on the host; its cluster tables (the mesh's, or the
+    sphere pool's in a scene without a mesh) must match the pinned digest
+    (the native C++ cluster build ran, as in the reference)."""
     from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
     job = build_scene(load_scene_desc(path))
-    mesh = next(i for i in job.scene.instances if i.kind == "mesh").mesh
-    digest = table_digest(mesh)
+    meshes = [i.mesh for i in job.scene.instances if i.kind == "mesh"]
+    geom = meshes[0] if meshes else job.scene.spheres
+    digest = table_digest(geom)
     check(digest == TABLE_SHA256[path],
           f"{path}: cluster tables {digest} differ from the reference's")
-    print(f"[tables] {path}: K = {mesh.bounds8.shape[1]}, sha256 {digest}")
+    k_clusters = (geom.bounds8 if meshes else geom.kernel_bounds).shape[1]
+    print(f"[tables] {path}: K = {k_clusters}, sha256 {digest}")
     return job
+
+
+def entered_clusters(rays8, bounds8, t_final, t_max=1e30, chunk=16_384):
+    """How many (ray, cluster) pairs have a slab entry below the ray's
+    final t: the leaf visits these rays need whatever the visit order."""
+    from hobbyraytracer_tpu_torch.kernels.mesh_traverse import slab_entries
+    total = 0
+    for s in range(0, rays8.shape[0], chunk):
+        r = rays8[s:s + chunk]
+        entry = slab_entries(r[:, 0:3], r[:, 3:6], r[:, 6] > 0.0, bounds8,
+                             t_max)
+        total += int((entry < t_final[s:s + chunk, None]).sum())
+    return total
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the float32 operations over its peak rate."""
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n_ops / H100_F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check(ok, msg):
@@ -181,11 +272,13 @@ def compare_exact(out_a, id_a, out_b, id_b, label):
     return err
 
 
-def pool_ray_sets(scene, camera, mesh_inst, sort_key):
-    """The pool's first two segments' rays in the mesh instance's space:
-    camera rays, then the rays after one bounce (the queue starts at the
-    lower image rows, which see the teapot), packed and sorted by
-    sort_key(o, d, active) as intersect_mesh_clustered_fused sorts them."""
+def pool_ray_sets(scene, camera, mesh_inst=None, sort_key=None):
+    """The pool's first two segments' rays: camera rays, then the rays
+    after one bounce (the queue starts at the lower image rows, which see
+    the teapot), packed as rays8. With a mesh instance they are moved into
+    its space and sorted by sort_key(o, d, active) as
+    intersect_mesh_clustered_fused sorts them; without one they stay in
+    world space and pool order, as the sphere find gets them."""
     import torch
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.core.types import Rays
@@ -200,11 +293,15 @@ def pool_ray_sets(scene, camera, mesh_inst, sort_key):
 
     def mesh_rays(st):
         active = (st.item >= 0) & (st.depth >= 0) & ~st.defer
-        r = mesh_inst.transform.ray_to_object(Rays(o=st.o, d=st.d))
+        r = Rays(o=st.o, d=st.d)
+        if mesh_inst is not None:
+            r = mesh_inst.transform.ray_to_object(r)
         rays8 = torch.cat([r.o, r.d, active.float()[:, None],
                            torch.zeros_like(r.o[:, :1])], dim=1)
-        key = sort_key(r.o, r.d, active)
-        return rays8[torch.argsort(key, stable=True)].contiguous()
+        if sort_key is not None:
+            rays8 = rays8[torch.argsort(sort_key(r.o, r.d, active),
+                                        stable=True)]
+        return rays8.contiguous()
 
     wavefront._regenerate(state, camera, WIDTH, HEIGHT, total_items,
                           sampler)
@@ -262,7 +359,9 @@ def main():
     from hobbyraytracer_tpu_torch import native
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.integrator import wavefront
+    from hobbyraytracer_tpu_torch.core.types import Rays
     from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
     from hobbyraytracer_tpu_torch.ops import intersect as isect
     from hobbyraytracer_tpu_torch.scene import objloader
     from hobbyraytracer_tpu_torch.scene.bvh import build_clusters
@@ -280,8 +379,11 @@ def main():
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     check(isect.KEY_MODE == "auto", f"HRT_KEY_MODE is {isect.KEY_MODE!r}; "
           "the smoke test drives the default 'auto'")
+    check(not isect.SPHERE_KERNEL, "HRT_SPHERE_KERNEL is set; the smoke "
+          "test drives the default route first and switches it in-process")
     k1, k2, k3 = kmod.KERNEL, kmod.KERNEL_STREAM, kmod.KEY_KERNEL
-    libs = (k1, k2, k3)
+    k4 = skmod.SPHERE_KERNEL
+    libs = (k1, k2, k3, k4)
 
     # 2 and a. build the kernels from the checkout's sources, all at once
     # (load() builds a missing library; one thread, so one nvcc, each)
@@ -294,7 +396,7 @@ def main():
               f"{lib.build_seconds:.2f} s")
         for line in lib.ptxas_info:
             print(f"  {line}")
-    print(f"[build] all three in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all four in {time.perf_counter() - t0:.2f} s")
     check(native.lib() is not None, "the native cluster builder did not "
           "build: the scenes' tables would not be the reference's")
     print(f"[native] cluster builder {native.library_path()}")
@@ -333,6 +435,14 @@ def main():
         print(f"[K1] need_uv={need_uv}: kernel {times_k1[need_uv][0]:.4f} "
               f"ms, plain {times_k1[need_uv][1]:.4f} ms "
               f"({POOL} rays, K = {k_clusters}; {card})")
+    out_k, id_k = kmod.traverse_clusters(rays8, *args, need_uv=False)
+    visits = entered_clusters(rays8, mesh.bounds8, out_k[:, 0])
+    bound_k1 = bound(
+        nbytes(rays8, *args, out_k, id_k),
+        POOL * k_clusters * SLAB_OPS
+        + visits * mesh.tri_soa.shape[2] * TRIANGLE_OPS)
+    print(f"[K1] bound {bound_k1[0]:.4f} ms by {bound_k1[1]} "
+          f"({visits / POOL:.3f} leaf visits a ray)")
 
     # 4. the main path: a 640x640, 16 spp teapot render
     launches, seconds, mean, rays_per_s, (retired, total) = render(
@@ -348,7 +458,7 @@ def main():
     # 5. the whole render through the kernel vs through the plain version
     imgs = [wavefront.render_image(scene, camera, 64, 64, 8,
                                    Sampler(SEED + 1, dev), pool=POOL,
-                                   plain_mesh=plain)
+                                   plain=plain)
             for plain in (False, True)]
     diff = (imgs[0] - imgs[1]).abs().amax(dim=2)
     agree = (diff < 1e-3).float().mean().item()
@@ -394,6 +504,14 @@ def main():
         print(f"[K2] need_uv={need_uv}: kernel {times_k2[need_uv][0]:.4f} "
               f"ms, plain {times_k2[need_uv][1]:.4f} ms "
               f"({POOL} rays, K = {hk}; {card})")
+    out_k, id_k = kmod.traverse_clusters(rays8, *hargs, need_uv=False)
+    visits = entered_clusters(rays8, hmesh.bounds8, out_k[:, 0])
+    bound_k2 = bound(
+        nbytes(rays8, hmesh.bounds8, hmesh.tri_soa, out_k, id_k),
+        POOL * hk * SLAB_OPS
+        + visits * hmesh.tri_soa.shape[2] * TRIANGLE_OPS)
+    print(f"[K2] bound {bound_k2[0]:.4f} ms by {bound_k2[1]} "
+          f"({visits / POOL:.3f} leaf visits a ray)")
 
     # c. K2 vs K1 bitwise past K1's old cap, both vs plain
     m = objloader.parse_obj("assets/teapot_hires.obj")
@@ -448,6 +566,9 @@ def main():
                         reps=5, warmup=1))
     print(f"[K3] kernel {times_k3[0]:.4f} ms, plain {times_k3[1]:.4f} ms "
           f"({POOL} rays, K = {hk}; {card})")
+    bound_k3 = bound(nbytes(rays8, hmesh.bounds8, e_k, f_k),
+                     POOL * hk * SLAB_OPS)
+    print(f"[K3] bound {bound_k3[0]:.4f} ms by {bound_k3[1]}")
 
     # e. the large-mesh path: a 640x640, 16 spp teapot_hires render
     launches, seconds, mean, rays_per_s, (retired, total) = render(
@@ -482,22 +603,132 @@ def main():
           f"max pixel diff {diff:.3g} (tolerance {F_ATOL})")
     check(diff <= F_ATOL, f"auto and pallas keys give images {diff} apart")
 
+    # g. K4 vs plain on the balls scene's own sphere tables
+    bjob = load_scene(BALLS)
+    bscene = bjob.scene.to(dev)
+    # the scene's camera (built for its 16:9 film) on a square image, as
+    # in the JAX CPU renders behind JAX_CPU_MEAN_BALLS
+    bcamera = bjob.camera.to(dev)
+    sp = bscene.spheres
+    bk = sp.kernel_bounds.shape[1]
+    print(f"[K4] scattered_balls tables: {sp.center.shape[0]} spheres, "
+          f"K = {bk}, table {tuple(sp.kernel_table.shape)}")
+    check(set(bscene.materials.present) == {0, 1, 2},
+          f"balls materials {bscene.materials.present}")
+    bsets = pool_ray_sets(bscene, bcamera)
+    sargs = (sp.kernel_bounds, sp.kernel_table, sp.kernel_ids)
+    t_min = 1e-3
+    for label, rays8 in bsets.items():
+        t_k, id_k = skmod.intersect_spheres_kernel(rays8, *sargs, t_min)
+        t_p, id_p = skmod.intersect_spheres_plain(rays8, *sargs, t_min)
+        torch.cuda.synchronize()
+        n_hit = int((id_p >= 0).sum())
+        check(n_hit > 0, f"K4, {label}: no ray hit a sphere")
+        check(bool(torch.equal(id_k, id_p)),
+              f"K4, {label}: ids differ on {int((id_k != id_p).sum())} rays")
+        check(bool(torch.equal(t_k, t_p)),
+              f"K4, {label}: t differs on {int((t_k != t_p).sum())} rays")
+        print(f"  K4 vs plain, {label}: {len(id_k)} rays, {n_hit} hits, "
+              f"hit masks, ids and t bitwise equal")
+    err_k4 = (t_k - t_p).abs().max().item()
+    rays8 = bsets["after one bounce"]
+    brays = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
+    times_k4 = (
+        cuda_ms(lambda: skmod.intersect_spheres_kernel(rays8, *sargs, t_min)),
+        cuda_ms(lambda: skmod.intersect_spheres_plain(rays8, *sargs, t_min),
+                reps=5, warmup=1),
+        cuda_ms(lambda: isect.intersect_spheres(
+            brays, sp.center, sp.radius, sp.mat_id, t_min, 1e30),
+            reps=5, warmup=1))
+    print(f"[K4] kernel {times_k4[0]:.4f} ms, plain {times_k4[1]:.4f} ms, "
+          f"dense scan (with its hit records) {times_k4[2]:.4f} ms "
+          f"({POOL} rays, K = {bk}; {card})")
+    visits = entered_clusters(rays8, sp.kernel_bounds, t_k)
+    bound_k4 = bound(nbytes(rays8, *sargs, t_k, id_k),
+                     POOL * bk * SLAB_OPS
+                     + visits * sp.kernel_table.shape[2] * SPHERE_OPS)
+    print(f"[K4] bound {bound_k4[0]:.4f} ms by {bound_k4[1]} "
+          f"({visits / POOL:.3f} cluster visits a ray)")
+
+    # h. K4's route vs the dense route on the same rays
+    for label, rays8 in bsets.items():
+        r = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
+        valid = rays8[:, 6] > 0.0
+        h_c = isect.intersect_spheres_clustered(
+            r, sp.center, sp.radius, sp.mat_id, sp.kernel_table,
+            sp.kernel_bounds, sp.kernel_ids, t_min, 1e30, ray_valid=valid)
+        h_d = isect.intersect_spheres(r, sp.center, sp.radius, sp.mat_id,
+                                      t_min, 1e30)
+        torch.cuda.synchronize()
+        check(not bool(h_c.hit[~valid].any()), f"{label}: a dead lane hit")
+        off = valid & ((h_c.hit != h_d.hit) | (h_c.mat_id != h_d.mat_id))
+        n_off = int(off.sum())
+        check(n_off <= ROUTE_MAX_OFF * int(valid.sum()),
+              f"{label}: routes differ on {n_off} rays")
+        m = valid & h_d.hit & ~off
+        dp = (h_c.t[m] - h_d.t[m]).abs() * r.d[m].norm(dim=1)
+        check(bool((dp <= ROUTE_P_ATOL).all()),
+              f"{label}: hit points up to {dp.max().item()} apart")
+        near = (dp <= ROUTE_P_ATOL99).float().mean().item()
+        check(near >= 0.99, f"{label}: only {near:.4%} of hit points within "
+              f"{ROUTE_P_ATOL99}")
+        n_err = (h_c.normal[m] - h_d.normal[m]).abs().max().item()
+        check(n_err <= ROUTE_N_ATOL, f"{label}: normals {n_err} apart")
+        print(f"  clustered vs dense route, {label}: {int(valid.sum())} live "
+              f"rays, {int(m.sum())} hits, {n_off} grazing rays differ, hit "
+              f"points at most {dp.max().item():.3g} apart ({near:.4%} "
+              f"within {ROUTE_P_ATOL99}), max normal err {n_err:.3g}")
+
+    # i. the sphere path: 640x640, 16 spp balls renders by both routes
+    k4_launches = 0
+    for on in (False, True):
+        isect.SPHERE_KERNEL = on
+        launches, seconds, mean, rays_per_s, (retired, total) = render(
+            bscene, bcamera, libs, "scattered_balls", JAX_CPU_MEAN_BALLS)
+        route = "K4 (SPHERE_KERNEL on)" if on else "dense scan (default)"
+        check((launches[k4.name] > 0) == on,
+              f"{route}: K4 launched {launches[k4.name]} times")
+        check(launches[k1.name] == launches[k2.name] == launches[k3.name] == 0,
+              f"the balls render launched a mesh kernel: {launches}")
+        k4_launches = launches[k4.name]
+        print(f"[render] scattered_balls {WIDTH}x{HEIGHT} @ {SPP} spp, pool "
+              f"{POOL}, {route}: {seconds:.3f} s, {rays_per_s:,.0f} primary "
+              f"rays/s, launches {launches}, retired {retired}/{total}, "
+              f"mean {mean:.5f} (JAX CPU {JAX_CPU_MEAN_BALLS}) on {card}")
+
+    # j. the whole render through K4 vs through its plain version
+    imgs = [wavefront.render_image(bscene, bcamera, 64, 64, 8,
+                                   Sampler(SEED + 3, dev), pool=POOL,
+                                   plain=plain)
+            for plain in (False, True)]
+    isect.SPHERE_KERNEL = False
+    diff = (imgs[0] - imgs[1]).abs().amax(dim=2)
+    agree = (diff < 1e-3).float().mean().item()
+    print(f"[agreement] scattered_balls 64x64 @ 8 spp, K4 vs plain sphere "
+          f"find: {agree:.4%} of pixels within 1e-3, max diff "
+          f"{diff.max().item():.3g}")
+    check(agree >= 0.99, f"only {agree:.4%} of pixels agree")
+
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
+
+    def row(lib, source, replaces, launches, err, ms, plain_ms, bnd):
+        return {"name": lib.name, "route": "cuda",
+                "source": f"{csrc}/{source}", "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": k1.name, "route": "cuda",
-         "source": f"{csrc}/mesh_traverse.cu", "replaces": f"{ref}:298",
-         "launches": k1_launches, "max_abs_err": err_k1,
-         "ms": times_k1[False][0], "plain_ms": times_k1[False][1]},
-        {"name": k2.name, "route": "cuda",
-         "source": f"{csrc}/mesh_traverse_stream.cu",
-         "replaces": f"{ref}:357", "launches": k2_launches,
-         "max_abs_err": err_k2, "ms": times_k2[False][0],
-         "plain_ms": times_k2[False][1]},
-        {"name": k3.name, "route": "cuda",
-         "source": f"{csrc}/coherence_keys.cu", "replaces": f"{ref}:583",
-         "launches": k3_launches, "max_abs_err": err_k3,
-         "ms": times_k3[0], "plain_ms": times_k3[1]}]}))
+        row(k1, "mesh_traverse.cu", f"{ref}:298", k1_launches, err_k1,
+            *times_k1[False], bound_k1),
+        row(k2, "mesh_traverse_stream.cu", f"{ref}:357", k2_launches,
+            err_k2, *times_k2[False], bound_k2),
+        row(k3, "coherence_keys.cu", f"{ref}:583", k3_launches, err_k3,
+            *times_k3, bound_k3),
+        row(k4, "sphere_traverse.cu",
+            "hobbyraytracer_tpu/kernels/sphere_traverse.py:51", k4_launches,
+            err_k4, *times_k4[:2], bound_k4)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,13 +8,17 @@ counterpart there:
 - scene tables are `nn.Module`s holding buffers (`scene.to(device)`);
 - rays, hits and the wavefront pool state are dataclasses of tensors;
 - randomness goes through explicit `torch.Generator`s (`core/rng.py`);
-- the fused mesh traversal is a hand-written CUDA kernel for Hopper
-  (`kernels/csrc/mesh_traverse.cu`) with a plain PyTorch version beside it
-  that runs for CPU tensors.
+- the four TPU kernels are hand-written CUDA kernels for Hopper
+  (`kernels/csrc/`: the fused mesh traversal in its resident and streaming
+  layouts, the coherence keys, the clustered sphere find), each with a
+  plain PyTorch version beside it that runs for CPU tensors.
 
 Every entry point takes an explicit device; nothing falls back to the CPU.
-The slice covers the wavefront main path on `scenes/teapot_scene.yaml`;
-what it leaves out raises `NotImplementedError` naming its ROADMAP item.
+Ported so far: the wavefront renderer for spheres, rects, boxes and
+clustered OBJ meshes with all seven material types (six of the eight
+scenes in `scenes/`); what is left out (media, the batch integrator, the
+fit, distribution, checkpoints) raises `NotImplementedError` naming its
+ROADMAP item.
 """
 
 __version__ = "0.1.0"

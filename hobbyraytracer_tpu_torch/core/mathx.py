@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+EPS_F32 = 1.1920929e-07  # FLT_EPSILON
 NEAR_ZERO = 1e-8  # reference nearZero (hobbyraytracer.h:34-38)
 T_MIN = 1e-3      # shadow epsilon (main.cpp:45)
 BIG = 1e30        # stand-in for +INFINITY in closest-hit windows
@@ -33,6 +34,34 @@ def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
 def near_zero(v: torch.Tensor) -> torch.Tensor:
     """True where every component is below 1e-8 in magnitude."""
     return (v.abs() < NEAR_ZERO).all(dim=-1)
+
+
+def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """glm::reflect: i - 2*dot(n, i)*n (the caller passes a unit n)."""
+    return i - 2.0 * dot(n, i)[..., None] * n
+
+
+def refract(i: torch.Tensor, n: torch.Tensor,
+            eta: torch.Tensor) -> torch.Tensor:
+    """glm::refract (material.h:225): i unit incident, n normal, eta =
+    n1/n2 (...,). k = 1 - eta^2 * (1 - dot(n, i)^2); the zero vector where
+    k < 0 (total internal reflection). sqrt runs on 1 where k <= 0, as in
+    the reference, so a masked lane carries no inf into a gradient."""
+    cos_i = dot(n, i)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    k_safe = torch.where(k > 0.0, k, 1.0)
+    out = eta[..., None] * i - (eta * cos_i + torch.sqrt(k_safe))[..., None] * n
+    return torch.where((k < 0.0)[..., None], torch.zeros_like(out), out)
+
+
+def schlick(cosine: torch.Tensor, ref_idx: torch.Tensor) -> torch.Tensor:
+    """Schlick's reflectance approximation (material.h:236-241), pow(x, 5)
+    as the reference's multiply chain."""
+    r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
+    r0 = r0 * r0
+    x = 1.0 - cosine
+    x2 = x * x
+    return r0 + (1.0 - r0) * (x2 * x2 * x)
 
 
 def safe_arccos(x: torch.Tensor) -> torch.Tensor:

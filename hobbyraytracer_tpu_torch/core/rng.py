@@ -7,7 +7,7 @@ stream; here a `Sampler(seed, device)` seeds a fresh generator for each
 stream from (seed, purpose, iteration) through a fixed 64-bit mixing
 function (splitmix64). The draws are not the reference's bits: parity tests
 inject identical noise into both packages instead (a subclass overriding
-`uniform` / `unit_sphere`).
+`uniform` / `unit_sphere` / `in_ball`).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 # Stable purpose tags, the same numbers as the reference's.
 PIXEL_JITTER_U = 0
 PIXEL_JITTER_V = 1
-SCATTER_SPHERE = 2   # unit-sphere offsets (lambertian fuzz)
+SCATTER_SPHERE = 2   # unit-sphere offsets (lambertian/metal/dielectric fuzz)
 SCATTER_BALL = 3     # isotropic phase function
 DIELECTRIC_CHOICE = 4
 MEDIUM_FLIGHT = 5
@@ -44,8 +44,9 @@ def stream_seed(seed: int, purpose: int, iteration: int) -> int:
 
 
 class Sampler:
-    """Random draws for one render: `uniform` / `unit_sphere` return
-    float32 tensors on `device`, from the stream of (purpose, iteration)."""
+    """Random draws for one render: `uniform` / `unit_sphere` / `in_ball`
+    return float32 tensors on `device`, from the stream of (purpose,
+    iteration)."""
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
@@ -56,19 +57,30 @@ class Sampler:
         g.manual_seed(stream_seed(self.seed, purpose, int(iteration)))
         return g
 
-    def uniform(self, purpose: int, iteration: int, shape) -> torch.Tensor:
-        """U[0, 1) float32 (glm::linearRand(0, 1))."""
+    def _rand(self, purpose: int, iteration: int, shape) -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self.generator(
             purpose, iteration), dtype=torch.float32, device=self.device)
+
+    def uniform(self, purpose: int, iteration: int, shape) -> torch.Tensor:
+        """U[0, 1) float32 (glm::linearRand(0, 1))."""
+        return self._rand(purpose, iteration, shape)
 
     def unit_sphere(self, purpose: int, iteration: int,
                     shape) -> torch.Tensor:
         """Uniform on the unit sphere (glm::sphericalRand(1)): shape + (3,),
         from z = 2*U1 - 1 and phi = 2*pi*U2 as in the reference."""
-        u = torch.rand((2,) + tuple(shape), generator=self.generator(
-            purpose, iteration), dtype=torch.float32, device=self.device)
-        z = u[0] * 2.0 - 1.0
-        phi = u[1] * (2.0 * math.pi)
-        r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-        return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z],
-                           dim=-1)
+        return _on_sphere(*self._rand(purpose, iteration,
+                                      (2,) + tuple(shape)))
+
+    def in_ball(self, purpose: int, iteration: int, shape) -> torch.Tensor:
+        """Uniform inside the unit ball (glm::ballRand(1)): shape + (3,), a
+        unit-sphere direction times cbrt(U3), as in the reference."""
+        u = self._rand(purpose, iteration, (3,) + tuple(shape))
+        return _on_sphere(u[0], u[1]) * torch.pow(u[2], 1.0 / 3.0)[..., None]
+
+
+def _on_sphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    z = u1 * 2.0 - 1.0
+    phi = u2 * (2.0 * math.pi)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)

@@ -146,7 +146,7 @@ def _regenerate(state: PoolState, camera: Camera, width: int, height: int,
 def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
              height: int, sampler, max_depth: int, samples: int,
              sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-             plain_mesh: bool = False) -> PoolState:
+             plain: bool = False) -> PoolState:
     """Trace one path segment for every active lane, roll finished samples
     into the next sample of their chunk, and retire finished chunks into
     the framebuffer. Updates `state` in place; it advances by one."""
@@ -156,7 +156,7 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
     active = (state.item >= 0) & (state.depth >= 0) & ~state.defer
     r = Rays(o=state.o, d=state.d)
     hits = scene_ir.intersect_scene(scene, r, ray_valid=active,
-                                    plain_mesh=plain_mesh)
+                                    plain=plain)
 
     miss = active & ~hits.hit
     rad = state.rad + torch.where(miss[:, None],
@@ -227,14 +227,14 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  steps_per_call: int = 8,
                  progress_cb: Optional[Callable[[int, int], None]] = None,
                  sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-                 plain_mesh: bool = False) -> PoolState:
+                 plain: bool = False) -> PoolState:
     """Run the pool to completion on `sampler.device` (scene and camera
     must already be there); fb holds the radiance SUM over `samples`.
 
     Completion (retired == W*H*samples) is read on the host after every
     `steps_per_call` iterations, where progress_cb(retired, total) fires.
-    plain_mesh=True runs the mesh find through the kernel's plain PyTorch
-    version (a comparison switch)."""
+    plain=True runs the mesh find and the clustered sphere find through the
+    kernels' plain PyTorch versions (a comparison switch)."""
     wh = width * height
     _, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
     total_items = wh * n_chunks
@@ -245,7 +245,7 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
         for _ in range(steps_per_call):
             _regenerate(state, camera, width, height, total_items, sampler)
             _segment(state, scene, width, height, sampler, max_depth,
-                     samples, sample_chunk, rr, plain_mesh)
+                     samples, sample_chunk, rr, plain)
         retired = int(state.retired)
         if progress_cb is not None:
             progress_cb(retired, total_samples)
@@ -257,12 +257,12 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
                  progress_cb=None, sample_chunk: int = SAMPLE_CHUNK,
-                 rr: bool = True, plain_mesh: bool = False) -> torch.Tensor:
+                 rr: bool = True, plain: bool = False) -> torch.Tensor:
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
     -> ACES -> gamma, as the reference)."""
     state = render_state(scene, camera, width, height, samples, sampler,
                          max_depth=max_depth, pool=pool,
                          progress_cb=progress_cb, sample_chunk=sample_chunk,
-                         rr=rr, plain_mesh=plain_mesh)
+                         rr=rr, plain=plain)
     mean = framebuffer(state) / float(samples)
     return film_ops.tonemap(mean).reshape(height, width, 3)

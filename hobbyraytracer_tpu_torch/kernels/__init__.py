@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version (kernels/mesh_traverse.py):
+version (kernels/mesh_traverse.py, kernels/sphere_traverse.py):
 
 - K1 mesh_traverse: fused cluster-BVH traversal + Moller-Trumbore +
   attribute interpolation over the 24-row resident table (replaces the
@@ -7,7 +7,9 @@ version (kernels/mesh_traverse.py):
 - K2 mesh_traverse_stream: the same over the 32-row streaming table
   (replaces :_kernel_stream);
 - K3 coherence_keys: per-ray nearest cluster entry and first cluster
-  (replaces :_key_kernel).
+  (replaces :_key_kernel);
+- K4 sphere_traverse: nearest sphere of a clustered sphere pool (replaces
+  hobbyraytracer_tpu/kernels/sphere_traverse.py:_kernel).
 
 Nothing here builds or imports a compiler at import time: a kernel is
 compiled by nvcc at its first launch (kernels/build.py).

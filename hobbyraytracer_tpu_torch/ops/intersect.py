@@ -1,6 +1,10 @@
-"""Batched ray/primitive intersection: the parts the main path runs
+"""Batched ray/primitive intersection: the parts the ported paths run
 (counterpart of hobbyraytracer_tpu/ops/intersect.py).
 
+- spheres: `sphere_t` / `intersect_spheres` (the dense scan over chunks of
+  the pool, the default route) and `intersect_spheres_clustered` (the
+  clustered find of kernel K4, then a differentiable replay of the
+  winner's quadratic), chosen by HRT_SPHERE_KERNEL in scene/ir.py;
 - axis-aligned rects: `rect_t` / `intersect_rects` (aarect.h:5-144);
 - the coherence keys: `cheap_key_from_box` (octant and corridor forms),
   `cheap_coherence_key`, `cluster_entries`, `pack_coherence_key` and
@@ -10,21 +14,26 @@
   fused traversal kernel (K1 or K2 by the table's layout) -> undo the sort;
 - the kernel branch of `intersect_triangles_bvh`.
 
-Spheres, the dense and watertight triangle paths and the lockstep XLA
-traversal are ROADMAP Queue 1 items 5 and 10.
+The dense and watertight triangle paths and the lockstep traversal are
+ROADMAP Queue 1 items 5 and 10. The reference's MXU sphere scan
+(HRT_SPHERE_MXU), its sphere block size (HRT_SPHERE_BLOCK) and the packed
+row gathers of its sphere attributes are TPU cost choices and have no
+counterpart here: plain indexing gives the same values.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 
-from ..core.mathx import BIG, ray_at
+from ..core.mathx import BIG, ray_at, safe_arccos
 from ..core.types import Hits, Rays, set_face_normal
 from ..kernels import mesh_traverse as kmod
+from ..kernels import sphere_traverse as skmod
 
-# rects processed per step of the running-min scan (bounds the (R, chunk)
-# intermediate, as in the reference)
+# primitives (spheres, rects) processed per step of the running-min scan
+# (bounds the (R, chunk) intermediate, as in the reference)
 DEFAULT_CHUNK = 128
 # The reference's key knobs, read once at import with its defaults. They
 # stay module attributes read at call time, so a caller may switch them
@@ -37,12 +46,157 @@ if KEY_MODE not in KEY_MODES:
     raise ValueError(f"HRT_KEY_MODE={KEY_MODE!r}: expected 'auto', "
                      "'cheap', 'corridor' or 'pallas'")
 CORRIDOR_MIN_K = int(os.environ.get("HRT_CORRIDOR_MIN_K", "256"))
+# HRT_SPHERE_KERNEL=1: pooled spheres that carry cluster tables go through
+# the clustered find of kernel K4 instead of the dense scan (off by default,
+# as in the reference). Read at import, switchable in-process like KEY_MODE.
+SPHERE_KERNEL = os.environ.get("HRT_SPHERE_KERNEL", "0") != "0"
 
 # rect normal axis n -> in-plane axes (a, b): yz_rect n=0 (a=y, b=z),
 # xz_rect n=1 (a=x, b=z), xy_rect n=2 (a=x, b=y)
 _AXIS_A = (1, 0, 0)
 _AXIS_B = (2, 2, 1)
 
+
+def _first_min(tc: torch.Tensor):
+    """Row minimum of (R, C) and the lowest column index at it."""
+    t_c = tc.min(dim=1).values
+    lane = torch.arange(tc.shape[1], device=tc.device)
+    i_c = torch.where(tc == t_c[:, None], lane, tc.shape[1]).min(dim=1).values
+    return t_c, i_c
+
+
+# ---------------------------------------------------------------- spheres
+
+def sphere_t(rays: Rays, center, radius, t_min, t_max):
+    """Candidate t per (ray, sphere): the half-b quadratic with the two-root
+    window test of sphere.cpp:20-49. center (S, 3), radius (S,) -> (R, S),
+    BIG where missed. The square root runs on 1 where disc <= 0 (no inf in
+    a masked lane's gradient), and a ray counts as hitting from disc >= 0,
+    both as in the reference's dense scan."""
+    ox, oy, oz = (rays.o[:, i, None] for i in range(3))   # (R, 1)
+    dx, dy, dz = (rays.d[:, i, None] for i in range(3))
+    cx, cy, cz = (center[None, :, i] for i in range(3))   # (1, S)
+    ocx = ox - cx
+    ocy = oy - cy
+    ocz = oz - cz
+    a = dx * dx + dy * dy + dz * dz                       # (R, 1)
+    half_b = ocx * dx + ocy * dy + ocz * dz               # (R, S)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz
+         - (radius * radius)[None, :])
+    disc = half_b * half_b - a * c
+    sqrtd = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    inv_a = 1.0 / a
+    r1 = (-half_b - sqrtd) * inv_a
+    r2 = (-half_b + sqrtd) * inv_a
+    in1 = (r1 >= t_min) & (r1 <= t_max)
+    in2 = (r2 >= t_min) & (r2 <= t_max)
+    root = torch.where(in1, r1, torch.where(in2, r2, BIG))
+    return torch.where(disc >= 0.0, root, BIG)
+
+
+def sphere_uv(outward_normal: torch.Tensor) -> torch.Tensor:
+    """getSphereUV (sphere.cpp:4-18): theta = acos(-n.y), phi =
+    atan2(-n.z, n.x) + pi -> (..., 2) [phi / 2pi, theta / pi]."""
+    theta = safe_arccos(-outward_normal[..., 1])
+    phi = torch.atan2(-outward_normal[..., 2],
+                      outward_normal[..., 0]) + math.pi
+    return torch.stack([phi / (2.0 * math.pi), theta / math.pi], dim=-1)
+
+
+def _sphere_attribs(rays: Rays, center, radius, mat_id, t, idx) -> Hits:
+    """Hit record from a sphere find's (t, winning index): the winner's
+    center, radius and material, then p, normal and uv (sphere.cpp:50-57)."""
+    n = center.shape[0]
+    hit = (t < BIG) & (idx >= 0)
+    safe = torch.clamp(idx, 0, n - 1).long()
+    c = center[safe]
+    r = torch.clamp(radius[safe], min=1e-20)
+    p = ray_at(rays.o, rays.d, torch.where(hit, t, 1.0))
+    outward = (p - c) / r[:, None]
+    normal, front = set_face_normal(rays.d, outward)
+    return Hits(hit=hit, t=torch.where(hit, t, BIG), p=p, normal=normal,
+                uv=sphere_uv(outward), front_face=front,
+                mat_id=torch.where(hit, mat_id[safe], -1).to(torch.int32))
+
+
+def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
+                      chunk: int = DEFAULT_CHUNK) -> Hits:
+    """Closest sphere per ray by the dense scan: a running strict-< minimum
+    over chunks of `chunk` spheres (the last chunk padded with spheres at
+    1e30 of radius 0, which never hit), then the winner's hit record."""
+    n_rays = rays.o.shape[0]
+    n = center.shape[0]
+    dev = rays.o.device
+    if n == 0:
+        return Hits.none(n_rays, dev)
+    chunk = min(chunk, n)
+    pad = -n % chunk
+    if pad:
+        center_p = torch.cat([center, center.new_full((pad, 3), 1e30)])
+        radius_p = torch.cat([radius, radius.new_zeros((pad,))])
+    else:
+        center_p, radius_p = center, radius
+    t_best = torch.full((n_rays,), BIG, dtype=torch.float32, device=dev)
+    i_best = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
+    for s in range(0, n + pad, chunk):
+        t_c, i_c = _first_min(sphere_t(rays, center_p[s:s + chunk],
+                                       radius_p[s:s + chunk], t_min, t_max))
+        take = t_c < t_best
+        t_best = torch.where(take, t_c, t_best)
+        i_best = torch.where(take, i_c + s, i_best)
+    return _sphere_attribs(rays, center, radius, mat_id, t_best, i_best)
+
+
+def intersect_spheres_clustered(rays: Rays, center, radius, mat_id,
+                                kernel_table, kernel_bounds, kernel_ids,
+                                t_min, t_max, ray_valid=None,
+                                plain: bool = False) -> Hits:
+    """Closest sphere per ray through the clustered find of kernel K4
+    (kernels/sphere_traverse.py; its plain PyTorch version when plain=True,
+    a comparison switch).
+
+    The find runs without gradients on detached rays and gives (t, winning
+    id). The winner's quadratic is then replayed from center and radius
+    with the dense scan's guards, so gradients reach center, radius and the
+    rays as on the dense route. A grazing hit can miss on the replay (its
+    dot products are summed in another order than the kernel's): such a
+    lane keeps the kernel's t."""
+    n_rays = rays.o.shape[0]
+    dev = rays.o.device
+    if ray_valid is None:
+        ray_valid = torch.ones((n_rays,), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        rays8 = torch.cat([rays.o.detach(), rays.d.detach(),
+                           ray_valid.to(torch.float32)[:, None],
+                           torch.zeros((n_rays, 1), dtype=torch.float32,
+                                       device=dev)], dim=1)
+        find = (skmod.intersect_spheres_plain if plain
+                else skmod.intersect_spheres_kernel)
+        t_nd, idx = find(rays8, kernel_bounds, kernel_table, kernel_ids,
+                         float(t_min), float(t_max))
+    found = idx >= 0
+    safe = torch.clamp(idx, 0, center.shape[0] - 1).long()
+    c = center[safe]
+    r = radius[safe]
+    oc = rays.o - c
+    a = (rays.d * rays.d).sum(dim=-1)
+    half_b = (oc * rays.d).sum(dim=-1)
+    cc = (oc * oc).sum(dim=-1) - r * r
+    disc = half_b * half_b - a * cc
+    sqrtd = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    inv_a = 1.0 / a
+    r1 = (-half_b - sqrtd) * inv_a
+    r2 = (-half_b + sqrtd) * inv_a
+    in1 = (r1 >= t_min) & (r1 <= t_max)
+    in2 = (r2 >= t_min) & (r2 <= t_max)
+    t_rep = torch.where(in1, r1, torch.where(in2, r2, BIG))
+    t_rep = torch.where(disc > 0.0, t_rep, BIG)
+    t = torch.where(found & (t_rep < BIG), t_rep,
+                    torch.where(found, t_nd, BIG))
+    return _sphere_attribs(rays, center, radius, mat_id, t, idx)
+
+
+# ------------------------------------------------------------------ rects
 
 def rect_t(rays: Rays, axis, a0, a1, b0, b1, k, t_min, t_max):
     """Candidate t per (ray, rect): (R, Q), BIG where missed. axis (Q,)
@@ -87,13 +241,10 @@ def intersect_rects(rays: Rays, axis, a0, a1, b0, b1, k, mat_id,
         sl = slice(s, s + chunk)
         tc = rect_t(rays, axis[sl], a0[sl], a1[sl], b0[sl], b1[sl], k[sl],
                     t_min, t_max)
-        t_c = tc.min(dim=1).values
-        lane = torch.arange(tc.shape[1], device=dev)
-        i_c = torch.where(tc == t_c[:, None], lane,
-                          tc.shape[1]).min(dim=1).values + s
+        t_c, i_c = _first_min(tc)
         take = t_c < t_best
         t_best = torch.where(take, t_c, t_best)
-        i_best = torch.where(take, i_c, i_best)
+        i_best = torch.where(take, i_c + s, i_best)
     hit = t_best < BIG
     safe = torch.clamp(i_best, 0, n - 1)
     ax = axis[safe].long()

@@ -2,9 +2,11 @@
 counterpart of hobbyraytracer_tpu/ops/shade.py).
 
 MatVec3/MatScalar (constant-or-texture) become (constant, tex_id) pairs
-with tex_id == -1 meaning "use the constant". The slice ports the
-lambertian and diffuse_light lobes; a table holding any other material
-type raises NotImplementedError (ROADMAP Queue 1 item 7).
+with tex_id == -1 meaning "use the constant". All seven lobes of the
+reference are here: lambertian, metal, dielectric, diffuse_light,
+isotropic, PBR and UVTest. The reference gathers every per-lane material
+channel as one packed row (a TPU cost choice); plain indexing gives the
+same values here.
 """
 from __future__ import annotations
 
@@ -25,7 +27,6 @@ MAT_ISOTROPIC = 4
 MAT_PBR = 5
 MAT_UVTEST = 6
 
-PORTED_TYPES = (MAT_LAMBERTIAN, MAT_DIFFUSE_LIGHT)
 _CHANNELS = ("albedo", "roughness", "strength", "metallness")
 
 
@@ -42,11 +43,6 @@ class MaterialTable(nn.Module):
                  present, textured, tex_types):
         super().__init__()
         present = tuple(int(t) for t in present)
-        unported = sorted(set(present) - set(PORTED_TYPES))
-        if unported:
-            raise NotImplementedError(
-                f"material types {unported} are not ported yet (only "
-                "lambertian and diffuse_light): ROADMAP Queue 1 item 7")
         i32, f32 = torch.int32, torch.float32
         for name, val, dt in (
                 ("mtype", mtype, i32), ("albedo", albedo, f32),
@@ -138,21 +134,103 @@ def emitted(mats: MaterialTable, tab: tex_ops.TextureTable,
 def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
             hits: Hits, sampler, bounce: int) -> tuple:
     """Batched Material::scatter over the wavefront, drawing from `sampler`
-    (stream SCATTER_SPHERE, `bounce`).
+    at iteration `bounce`.
 
     Returns (did_scatter (N,) bool, attenuation (N, 3), new_d (N, 3)); the
-    new origin is hits.p. Lambertian (material.h:132-157): normal +
-    unit_sphere with the near-zero fallback to the raw (unnormalized) hit
-    normal; diffuse_light absorbs."""
+    new origin is hits.p for every material. Each lobe follows its
+    reference implementation (see the comments); a lobe whose type is not
+    in `mats.present` computes and draws nothing, so the streams a scene
+    uses are the reference's. Discrete decisions (absorb, reflect or
+    refract) carry no gradient."""
     n = hits.t.shape[0]
+    dev = hits.t.device
     mid = torch.clamp(hits.mat_id, min=0).long()
     mt = mats.mtype[mid]
     u, v = hits.uv[..., 0], hits.uv[..., 1]
+    p = hits.p
     nrm = hits.normal
+    present = set(mats.present)
+    has_metal = MAT_METAL in present
+    has_dielectric = MAT_DIELECTRIC in present
+    has_isotropic = MAT_ISOTROPIC in present
+    has_pbr = MAT_PBR in present
+    has_uvtest = MAT_UVTEST in present
+
     albedo = _vec3_value(mats.albedo[mid], mats.albedo_tex[mid], tab, u, v,
-                         hits.p, "albedo" in mats.textured, mats.tex_types)
+                         p, "albedo" in mats.textured, mats.tex_types)
+    if has_metal or has_dielectric or has_pbr:
+        rough = _scalar_value(mats.roughness[mid], mats.roughness_tex[mid],
+                              tab, u, v, p, "roughness" in mats.textured,
+                              mats.tex_types)
+    else:
+        rough = torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    # one draw per purpose per iteration, shared by the lobes
     sph = sampler.unit_sphere(rng_mod.SCATTER_SPHERE, bounce, (n,))
+
+    unit_d = mathx.normalize(rays.d)
+    unit_n = (mathx.normalize(nrm, eps=1e-12) if has_metal or has_pbr
+              else nrm)
+
+    # Lambertian (material.h:132-157): normal + unit_sphere with the
+    # near-zero fallback to the raw (unnormalized) hit normal
     lam_dir = nrm + sph
     new_d = torch.where(mathx.near_zero(lam_dir)[..., None], nrm, lam_dir)
-    ok = (mt != MAT_DIFFUSE_LIGHT) & hits.hit
-    return ok, albedo, new_d
+    atten = albedo
+    ok = mt != MAT_DIFFUSE_LIGHT
+
+    if has_metal or has_pbr:
+        # Metal (material.h:159-182): reflect(unit_d, unit_n) +
+        # min(|roughness|, 1) * unit_sphere + FLT_EPSILON; absorbed when
+        # dot(scattered, unit_n) <= 0
+        met_rough = torch.clamp(rough.abs(), max=1.0)
+        met_dir = (mathx.reflect(unit_d, unit_n)
+                   + met_rough[..., None] * sph + mathx.EPS_F32)
+        met_ok = mathx.dot(met_dir, unit_n) > 0.0
+        if has_metal:
+            sel = mt == MAT_METAL
+            new_d = torch.where(sel[..., None], met_dir, new_d)
+            ok = torch.where(sel, met_ok, ok)
+
+    if has_dielectric:
+        # Dielectric (material.h:199-242): Schlick + stochastic reflect or
+        # refract with the rough offset; attenuation (1, 1, 1). The raw hit
+        # normal is used, and schlick gets the refraction ratio, both as
+        # the reference passes them
+        u_choice = sampler.uniform(rng_mod.DIELECTRIC_CHOICE, bounce, (n,))
+        ior = mats.ior[mid]
+        ratio = torch.where(hits.front_face, 1.0 / ior, ior)
+        cos_t = torch.clamp(mathx.dot(-unit_d, nrm), max=1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        cannot = ratio * sin_t > 1.0
+        refl_p = mathx.schlick(cos_t, ratio)
+        choose_reflect = (cannot | (refl_p > u_choice)).detach()
+        d_reflect = mathx.reflect(unit_d, nrm)
+        d_refract = mathx.refract(unit_d, nrm, ratio)
+        die_dir = (torch.where(choose_reflect[..., None], d_reflect,
+                               d_refract) + rough[..., None] * sph)
+        sel = mt == MAT_DIELECTRIC
+        new_d = torch.where(sel[..., None], die_dir, new_d)
+        atten = torch.where(sel[..., None], torch.ones_like(atten), atten)
+
+    if has_isotropic:
+        # Isotropic (material.h:73-89): a direction uniform in the ball
+        ball = sampler.in_ball(rng_mod.SCATTER_BALL, bounce, (n,))
+        new_d = torch.where((mt == MAT_ISOTROPIC)[..., None], ball, new_d)
+
+    if has_pbr:
+        # PBR (material.cpp:4-27): |metallness value| > 0.5 -> the metal
+        # lobe, else lambertian; both share the albedo
+        metl = _scalar_value(mats.metallness[mid], mats.metallness_tex[mid],
+                             tab, u, v, p, "metallness" in mats.textured,
+                             mats.tex_types)
+        sel = (mt == MAT_PBR) & (metl.abs() > 0.5)
+        new_d = torch.where(sel[..., None], met_dir, new_d)
+        ok = torch.where(sel, met_ok, ok)
+
+    if has_uvtest:
+        # UVTest (material.h:111-130): lambertian scatter, attenuation =
+        # the raw normal
+        atten = torch.where((mt == MAT_UVTEST)[..., None], nrm, atten)
+
+    return ok & hits.hit, atten, new_d

@@ -2,12 +2,13 @@
 hobbyraytracer_tpu/scene/build.py).
 
 All asset I/O and table building happens here, on the host in numpy; the
-result is built on the CPU and moved with `job.scene.to(device)`. The slice
-builds the object types scenes/teapot_scene.yaml uses: axis rects (pooled,
-or transformed instances), OBJ meshes with an optional transform,
-lambertian and diffuse_light materials, textures and the background.
-Spheres, boxes, triangles and media raise NotImplementedError naming
-their ROADMAP item, never silently.
+result is built on the CPU and moved with `job.scene.to(device)`. Built
+here: spheres (pooled, with the cluster tables of kernel K4 from
+SPHERE_CLUSTER_MIN spheres up, or transformed instances), axis rects and
+boxes (six rects; pooled, or transformed instances), OBJ meshes with an
+optional transform, all seven material types, textures and the
+background. Standalone triangles and media raise NotImplementedError
+naming their ROADMAP item, never silently.
 """
 from __future__ import annotations
 
@@ -23,12 +24,16 @@ from ..ops import shade as shade_ops
 from ..ops import texture as tex_ops
 from ..ops.camera import Camera, make_camera
 from . import ir, meshload
-from .bvh import build_clusters
+from .bvh import build_clusters, build_sphere_clusters
 from .schema import MatValue, SceneDesc, TransformDesc
 
 # meshes below this triangle count take the reference's dense path, which
 # is not ported yet (ROADMAP Queue 1 item 5)
 BVH_MIN_TRIS = 64
+# pooled sphere tables of this many spheres or more get the cluster tables
+# of the sphere kernel (at least 2 clusters of 128); smaller pools have
+# only the dense scan
+SPHERE_CLUSTER_MIN = 129
 BVH_LEAF_SIZE = 128
 
 # The reference's choice between the 24-row resident table and the 32-row
@@ -151,8 +156,6 @@ _MTYPE = {
 }
 _RECT_AXIS = {"yz_rect": 0, "xz_rect": 1, "xy_rect": 2}
 _NOT_PORTED = {
-    "sphere": "ROADMAP Queue 1 item 5 (spheres)",
-    "box": "ROADMAP Queue 1 item 10 (box objects)",
     "triangle": "ROADMAP Queue 1 item 5 (dense triangle path)",
     "constant_medium": "ROADMAP Queue 1 item 10 (media)",
 }
@@ -191,6 +194,32 @@ def _mesh_geom(m: dict, mat_id: int) -> ir.MeshGeom:
         indices=m["indices"], mat_id=mat_id, cluster_id=cl["tri_id"],
         cluster_bmin=cl["bmin"], cluster_bmax=cl["bmax"], tri_soa=tri_soa,
         bounds8=kmod.pack_bounds(cl["bmin"], cl["bmax"]))
+
+
+def _box_rects(bmin, bmax, mat_id) -> List[dict]:
+    """minMaxBox / Box ctor (box.h:11-39): 6 axis-aligned rects."""
+    x0, y0, z0 = bmin
+    x1, y1, z1 = bmax
+    sides = ((2, (x0, x1), (y0, y1), (z1, z0)),     # xy rects at z1, z0
+             (1, (x0, x1), (z0, z1), (y1, y0)),     # xz rects at y1, y0
+             (0, (y0, y1), (z0, z1), (x1, x0)))     # yz rects at x1, x0
+    return [{"axis": axis, "a0": a[0], "a1": a[1], "b0": b[0], "b1": b[1],
+             "k": k, "mat_id": mat_id}
+            for axis, a, b, ks in sides for k in ks]
+
+
+def _sphere_table(centers, radii, mat_ids) -> ir.SphereTable:
+    """A sphere table; from SPHERE_CLUSTER_MIN spheres up with the cluster
+    tables of kernel K4."""
+    center = np.asarray(centers, np.float32).reshape(-1, 3)
+    radius = np.asarray(radii, np.float32).reshape(-1)
+    tables = {}
+    if center.shape[0] >= SPHERE_CLUSTER_MIN:
+        sc = build_sphere_clusters(center, radius)
+        tables = dict(kernel_table=sc["table"], kernel_bounds=sc["bounds8"],
+                      kernel_ids=sc["ids"])
+    return ir.SphereTable(center, radius,
+                          np.asarray(mat_ids, np.int32).reshape(-1), **tables)
 
 
 def _rect_table(rows) -> ir.RectTable:
@@ -236,6 +265,8 @@ def build_scene(desc: SceneDesc) -> RenderJob:
             "metallness": metl, "metallness_tex": metl_t,
         })
 
+    pooled_spheres: Dict[str, list] = {"center": [], "radius": [],
+                                       "mat_id": []}
     pooled_rects: List[dict] = []
     instances: List[ir.Instance] = []
     for o in desc.objects:
@@ -249,7 +280,17 @@ def build_scene(desc: SceneDesc) -> RenderJob:
             continue
         mat_id = mat_by_name[o.material]
         tr = _transform(o.transform) if o.transform else None
-        if o.type in _RECT_AXIS:
+        if o.type == "sphere":
+            if tr is None:
+                pooled_spheres["center"].append(o.params["center"])
+                pooled_spheres["radius"].append(o.params["radius"])
+                pooled_spheres["mat_id"].append(mat_id)
+            else:
+                instances.append(ir.Instance(
+                    "sphere", transform=tr, spheres=_sphere_table(
+                        [o.params["center"]], [o.params["radius"]],
+                        [mat_id])))
+        elif o.type in _RECT_AXIS:
             row = {"axis": _RECT_AXIS[o.type],
                    "a0": o.params["a"][0], "a1": o.params["a"][1],
                    "b0": o.params["b"][0], "b1": o.params["b"][1],
@@ -258,6 +299,13 @@ def build_scene(desc: SceneDesc) -> RenderJob:
                 pooled_rects.append(row)
             else:
                 instances.append(ir.Instance("rect", rects=_rect_table([row]),
+                                             transform=tr))
+        elif o.type == "box":
+            rows = _box_rects(o.params["min"], o.params["max"], mat_id)
+            if tr is None:
+                pooled_rects.extend(rows)
+            else:
+                instances.append(ir.Instance("rect", rects=_rect_table(rows),
                                              transform=tr))
         elif o.type == "mesh":
             path = desc.resolve_path(o.params["path"])
@@ -279,7 +327,10 @@ def build_scene(desc: SceneDesc) -> RenderJob:
         materials=shade_ops.build_table(
             mat_specs, tex_ttypes=[s["type"] for s in texb.specs]),
         textures=tex_ops.build_table(texb.specs),
-        background_tex=bg_id)
+        background_tex=bg_id,
+        spheres=_sphere_table(pooled_spheres["center"],
+                              pooled_spheres["radius"],
+                              pooled_spheres["mat_id"]))
     return RenderJob(scene=scene, camera=make_camera(
         desc.camera["position"], desc.camera["look_at"], desc.camera["up"],
         desc.camera["fov"], desc.film["width"] / desc.film["height"],

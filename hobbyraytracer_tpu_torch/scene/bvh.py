@@ -11,6 +11,9 @@ otherwise or with HRT_NO_NATIVE=1. The two SAH builders pick different
 splits (23 of the teapot's 30 leaves differ), so both packages must take
 the same one for their tables to agree. The constrained SAH split is the
 default, as in the reference; the median split is kept beside it.
+
+`build_sphere_clusters` groups a sphere pool into the clusters that the
+sphere kernel K4 (kernels/sphere_traverse.py) visits.
 """
 from __future__ import annotations
 
@@ -110,3 +113,40 @@ def build_clusters(verts: np.ndarray, indices: np.ndarray,
         bmax[i] = tv[leaf].reshape(-1, 3).max(axis=0) + 1e-4
     return {"tri_verts": tri_verts, "tri_id": tri_id,
             "bmin": bmin, "bmax": bmax}
+
+
+def build_sphere_clusters(center: np.ndarray, radius: np.ndarray,
+                          leaf_size: int = 128) -> dict:
+    """Cluster a sphere table for the sphere kernel: median-split the
+    centers into groups of <= leaf_size, pad each group to exactly
+    leaf_size, and pack
+
+    - table   (K, 8, L) f32 rows [cx cy cz r2 0 0 0 0]; pad spheres carry
+              r2 = -1 (the discriminant stays negative: never hit);
+    - bounds8 (8, K) f32 [bmin.xyz bmax.xyz 0 0], the union of
+              center +- |radius| over the cluster's real spheres;
+    - ids     (K, L) int32 indices into the unpermuted sphere table, -1
+              for padding.
+    """
+    center = np.asarray(center, np.float32)
+    radius = np.asarray(radius, np.float32)
+    groups = median_split_order(center, leaf_size)
+    k = len(groups)
+    table = np.zeros((k, 8, leaf_size), np.float32)
+    table[:, 3, :] = -1.0
+    ids = np.full((k, leaf_size), -1, np.int32)
+    bmin = np.empty((k, 3), np.float32)
+    bmax = np.empty((k, 3), np.float32)
+    for gi, g in enumerate(groups):
+        n = len(g)
+        c = center[g]
+        r = np.abs(radius[g])
+        table[gi, 0:3, :n] = c.T
+        table[gi, 3, :n] = radius[g] * radius[g]
+        ids[gi, :n] = g
+        bmin[gi] = (c - r[:, None]).min(axis=0)
+        bmax[gi] = (c + r[:, None]).max(axis=0)
+    bounds8 = np.concatenate(
+        [bmin.T, bmax.T, np.zeros((2, k), np.float32)], axis=0)
+    return {"table": table, "bounds8": bounds8.astype(np.float32),
+            "ids": ids}

@@ -6,7 +6,8 @@ trace the very same tables (what carrying weights across is for a model).
 The dict layout follows the reference's pytree field names:
 
     scene = {"rects": {axis, a0, a1, b0, b1, k, mat_id},
-             "instances": [{"kind": "rect" | "mesh",
+             "instances": [{"kind": "sphere" | "rect" | "mesh",
+                            "spheres": {...} | None,
                             "rects": {...} | None,
                             "mesh": {verts, normals, uvs, indices, mat_id,
                                      cluster_id, cluster_bmin,
@@ -20,15 +21,17 @@ The dict layout follows the reference's pytree field names:
              "textures": {ttype, solid, solid2, atlas, offset, width,
                           height, bilinear},
              "background_tex": int,
-             "spheres": {center, radius, mat_id},   # must be empty
+             "spheres": {center, radius, mat_id,
+                         kernel_table, kernel_bounds, kernel_ids},
              "media": []}                            # must be empty
     camera = {origin, lower_left_corner, horizontal, vertical, u, v, w,
               lens_radius, use_lens}
 
 A mesh's tri_soa comes across in either layout: the 24-row resident
-table (kernel K1) or the 32-row streaming table (kernel K2). What the port
-does not render yet (spheres, media, dense meshes, bilinear textures, the
-lens) raises NotImplementedError.
+table (kernel K1) or the 32-row streaming table (kernel K2). A sphere
+table's kernel_* entries are the cluster tables of kernel K4, or None (a
+dict without them reads as None). What the port does not render yet (media,
+dense meshes, bilinear textures, the lens) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ from ..ops.shade import MaterialTable
 from ..ops.texture import TextureTable
 from . import ir
 
+SPHERE_FIELDS = ("center", "radius", "mat_id")
+SPHERE_KERNEL_FIELDS = ("kernel_table", "kernel_bounds", "kernel_ids")
 RECT_FIELDS = ("axis", "a0", "a1", "b0", "b1", "k", "mat_id")
 MESH_FIELDS = ("verts", "normals", "uvs", "indices", "mat_id", "cluster_id",
                "cluster_bmin", "cluster_bmax", "tri_soa", "bounds8")
@@ -54,6 +59,23 @@ TRANSFORM_FIELDS = ("translate", "scale", "quat")
 
 def _np(module, fields) -> dict:
     return {f: getattr(module, f).detach().cpu().numpy() for f in fields}
+
+
+def _spheres(d) -> ir.SphereTable:
+    if d is None:
+        return None
+    tables = {f: np.asarray(d[f]) for f in SPHERE_KERNEL_FIELDS
+              if d.get(f) is not None}
+    return ir.SphereTable(**{f: np.asarray(d[f]) for f in SPHERE_FIELDS},
+                          **tables)
+
+
+def _spheres_np(table: ir.SphereTable) -> dict:
+    out = _np(table, SPHERE_FIELDS)
+    for f in SPHERE_KERNEL_FIELDS:
+        t = getattr(table, f)
+        out[f] = None if t is None else t.detach().cpu().numpy()
+    return out
 
 
 def _rects(d: dict) -> ir.RectTable:
@@ -78,10 +100,6 @@ def _mesh(d: dict) -> ir.MeshGeom:
 def scene_from_arrays(d: dict) -> ir.SceneIR:
     """Nested dict of numpy arrays (layout above) -> the port's SceneIR,
     on the CPU."""
-    sp = d.get("spheres")
-    if sp is not None and np.asarray(sp["center"]).reshape(-1, 3).shape[0]:
-        raise NotImplementedError(
-            "spheres are not ported yet: ROADMAP Queue 1 item 5")
     if d.get("media"):
         raise NotImplementedError(
             "participating media are not ported yet: ROADMAP Queue 1 "
@@ -96,6 +114,8 @@ def scene_from_arrays(d: dict) -> ir.SceneIR:
         kind = inst["kind"]
         instances.append(ir.Instance(
             kind,
+            spheres=_spheres(inst.get("spheres")) if kind == "sphere"
+            else None,
             rects=_rects(inst["rects"]) if kind == "rect" else None,
             mesh=_mesh(inst["mesh"]) if kind == "mesh" else None,
             transform=_transform(inst.get("transform"))))
@@ -109,7 +129,8 @@ def scene_from_arrays(d: dict) -> ir.SceneIR:
             tex_types=mats["tex_types"]),
         textures=TextureTable(
             **{f: np.asarray(tex[f]) for f in TEXTURE_FIELDS}),
-        background_tex=int(np.asarray(d["background_tex"])))
+        background_tex=int(np.asarray(d["background_tex"])),
+        spheres=_spheres(d.get("spheres")))
 
 
 def scene_to_arrays(scene: ir.SceneIR) -> dict:
@@ -121,6 +142,8 @@ def scene_to_arrays(scene: ir.SceneIR) -> dict:
             mesh = dict(_np(inst.mesh, MESH_FIELDS), use_bvh=True)
         instances.append({
             "kind": inst.kind,
+            "spheres": _spheres_np(inst.spheres) if inst.kind == "sphere"
+            else None,
             "rects": _np(inst.rects, RECT_FIELDS) if inst.kind == "rect"
             else None,
             "mesh": mesh,
@@ -135,9 +158,7 @@ def scene_to_arrays(scene: ir.SceneIR) -> dict:
         "textures": dict(_np(scene.textures, TEXTURE_FIELDS),
                          bilinear=False),
         "background_tex": int(scene.background_tex),
-        "spheres": {"center": np.zeros((0, 3), np.float32),
-                    "radius": np.zeros((0,), np.float32),
-                    "mat_id": np.zeros((0,), np.int32)},
+        "spheres": _spheres_np(scene.spheres),
         "media": [],
     }
 

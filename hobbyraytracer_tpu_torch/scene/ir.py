@@ -1,20 +1,29 @@
 """Scene tables as `nn.Module`s + world intersection (counterpart of
 hobbyraytracer_tpu/scene/ir.py).
 
-- untransformed rects are pooled into one `RectTable`;
+- untransformed spheres and rects are pooled into one `SphereTable` and
+  one `RectTable`;
 - each transformed object and each mesh is an `Instance` whose TRS
   `Transform` maps rays into object space on entry and hits back on exit;
 - `SceneIR.to(device)` moves every table.
 
 t stays in world units through the transforms (o' = q^-1((o-T)/S),
-d' = q^-1(d/S)), as in the reference. Spheres and participating media are
-not ported yet (ROADMAP Queue 1 items 5 and 10): nothing here holds them,
-and scene/build.py and scene/convert.py refuse scenes that have them.
+d' = q^-1(d/S)), as in the reference. Participating media are not ported
+yet (ROADMAP Queue 1 item 10): nothing here holds them, and scene/build.py
+and scene/convert.py refuse scenes that have them.
+
+The pooled spheres take the reference's routing: the dense scan by
+default, the clustered find of kernel K4 when `ops.intersect.SPHERE_KERNEL`
+is set (HRT_SPHERE_KERNEL=1) and the table carries cluster tables. The
+reference also asks whether its backend can run a Pallas kernel at all;
+here the tensor's device decides (a CUDA tensor launches K4 or raises, a
+CPU tensor runs the plain version), so that check has no counterpart.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -57,6 +66,30 @@ class Transform(nn.Module):
         return quat.rotate(self.quat, n)
 
 
+class SphereTable(nn.Module):
+    """S spheres: center (S, 3), radius (S,) float32, mat_id (S,) int32.
+    Pools of scene/build.py:SPHERE_CLUSTER_MIN spheres or more also carry
+    the cluster tables of kernel K4 (scene/bvh.py:build_sphere_clusters):
+    kernel_table (K, 8, L) float32, kernel_bounds (8, K) float32 and
+    kernel_ids (K, L) int32; None otherwise."""
+
+    def __init__(self, center, radius, mat_id, kernel_table=None,
+                 kernel_bounds=None, kernel_ids=None):
+        super().__init__()
+        f32, i32 = torch.float32, torch.int32
+        _buffers(self, radius=(radius, f32), mat_id=(mat_id, i32))
+        self.register_buffer("center", as_buffer(center, f32).reshape(-1, 3))
+        for name, val, dtype in (("kernel_table", kernel_table, f32),
+                                 ("kernel_bounds", kernel_bounds, f32),
+                                 ("kernel_ids", kernel_ids, i32)):
+            self.register_buffer(
+                name, None if val is None else as_buffer(val, dtype))
+
+    @property
+    def empty(self) -> bool:
+        return self.center.shape[0] == 0
+
+
 class RectTable(nn.Module):
     """Q axis-aligned rects: axis (Q,) int32 normal axis 0/1/2, in-plane
     ranges a0..a1 / b0..b1 and plane offset k (Q,) float32, mat_id (Q,)
@@ -97,30 +130,38 @@ class MeshGeom(nn.Module):
 
 
 class Instance(nn.Module):
-    """One rect table or mesh with an optional Transform."""
+    """One sphere table, rect table or mesh with an optional Transform."""
 
     def __init__(self, kind: str, rects: Optional[RectTable] = None,
                  mesh: Optional[MeshGeom] = None,
-                 transform: Optional[Transform] = None):
+                 transform: Optional[Transform] = None,
+                 spheres: Optional[SphereTable] = None):
         super().__init__()
-        if kind not in ("rect", "mesh"):
-            raise NotImplementedError(
-                f"instance kind {kind!r} is not ported yet (rect and mesh "
-                "only): ROADMAP Queue 1 item 5")
+        if kind not in ("sphere", "rect", "mesh"):
+            raise ValueError(f"instance kind {kind!r}: expected 'sphere', "
+                             "'rect' or 'mesh'")
         self.kind = kind
+        self.spheres = spheres
         self.rects = rects
         self.mesh = mesh
         self.transform = transform
 
 
 class SceneIR(nn.Module):
-    """The whole scene: pooled rects, instances, materials, textures and
-    the background texture id (a () int32 buffer)."""
+    """The whole scene: pooled spheres and rects, instances, materials,
+    textures and the background texture id (a () int32 buffer). `spheres`
+    defaults to an empty table."""
 
     def __init__(self, rects: RectTable, instances: Sequence[Instance],
                  materials: MaterialTable, textures: TextureTable,
-                 background_tex: int):
+                 background_tex: int,
+                 spheres: Optional[SphereTable] = None):
         super().__init__()
+        if spheres is None:
+            spheres = SphereTable(np.zeros((0, 3), np.float32),
+                                  np.zeros((0,), np.float32),
+                                  np.zeros((0,), np.int32))
+        self.spheres = spheres
         self.rects = rects
         self.instances = nn.ModuleList(instances)
         self.materials = materials
@@ -131,9 +172,14 @@ class SceneIR(nn.Module):
 
 def _intersect_instance(inst: Instance, rays: Rays, t_min,
                         ray_valid=None, need_uv: bool = True,
-                        plain_mesh: bool = False) -> Hits:
+                        plain: bool = False) -> Hits:
     r = inst.transform.ray_to_object(rays) if inst.transform else rays
-    if inst.kind == "rect":
+    if inst.kind == "sphere":
+        # a transformed sphere takes the dense scan, as in the reference
+        sp = inst.spheres
+        h = isect.intersect_spheres(r, sp.center, sp.radius, sp.mat_id,
+                                    t_min, BIG)
+    elif inst.kind == "rect":
         rt = inst.rects
         h = isect.intersect_rects(r, rt.axis, rt.a0, rt.a1, rt.b0, rt.b1,
                                   rt.k, rt.mat_id, t_min, BIG)
@@ -141,7 +187,7 @@ def _intersect_instance(inst: Instance, rays: Rays, t_min,
         m = inst.mesh
         h = isect.intersect_triangles_bvh(
             r, m.cluster_id, m.tri_soa, m.bounds8, m.mat_id, BIG,
-            ray_valid=ray_valid, need_uv=need_uv, plain=plain_mesh)
+            ray_valid=ray_valid, need_uv=need_uv, plain=plain)
     if inst.transform is not None:
         p = inst.transform.point_to_world(h.p)
         nrm = inst.transform.normal_to_world(h.normal)
@@ -154,16 +200,29 @@ def _intersect_instance(inst: Instance, rays: Rays, t_min,
 
 
 def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
-                    ray_valid=None, plain_mesh: bool = False) -> Hits:
+                    ray_valid=None, plain: bool = False) -> Hits:
     """Closest hit against the whole scene (vectorized HittableList::hit):
-    pooled rects, then every instance, min-merged.
+    pooled spheres, pooled rects, then every instance, min-merged.
 
     ray_valid: optional (N,) bool of live wavefront lanes; dead lanes open
-    no mesh clusters and report no mesh hit. plain_mesh=True runs the mesh
-    find through the kernel's plain PyTorch version (a comparison switch).
+    no mesh or sphere clusters and report no hit there. plain=True runs the
+    mesh find and the clustered sphere find through the kernels' plain
+    PyTorch versions (a comparison switch).
     """
     n = rays.o.shape[0]
     best = Hits.none(n, rays.o.device)
+    if not scene.spheres.empty:
+        sp = scene.spheres
+        # the reference's routing: the clustered find is opt-in
+        # (isect.SPHERE_KERNEL) and needs the pool's cluster tables
+        if isect.SPHERE_KERNEL and sp.kernel_table is not None:
+            best = closer(best, isect.intersect_spheres_clustered(
+                rays, sp.center, sp.radius, sp.mat_id, sp.kernel_table,
+                sp.kernel_bounds, sp.kernel_ids, t_min, BIG,
+                ray_valid=ray_valid, plain=plain))
+        else:
+            best = closer(best, isect.intersect_spheres(
+                rays, sp.center, sp.radius, sp.mat_id, t_min, BIG))
     if not scene.rects.empty:
         rt = scene.rects
         best = closer(best, isect.intersect_rects(
@@ -176,5 +235,5 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
         best = closer(best, _intersect_instance(inst, rays, t_min,
                                                 ray_valid=ray_valid,
                                                 need_uv=need_uv,
-                                                plain_mesh=plain_mesh))
+                                                plain=plain))
     return best

@@ -7,7 +7,9 @@
                                     [--trace build/profile/trace.json]
 
 Renders a scene (default scenes/teapot_scene.yaml; scenes/teapot_hires.yaml
-runs the streaming kernel K2) on one CUDA card: warms up over the first
+runs the streaming kernel K2; scenes/scattered_balls.yaml runs the dense
+sphere scan, or the sphere kernel K4 with HRT_SPHERE_KERNEL=1 in the
+environment) on one CUDA card: warms up over the first
 `--steps` iterations of the render, then times the next `--steps`
 iterations (regenerate + segment) three ways:
 
@@ -17,8 +19,8 @@ iterations (regenerate + segment) three ways:
   kernel time, and the device's idle share of the window.
 
 Prints the card's name and power limit beside the numbers, the share of
-device time taken by each traversal kernel (K1, K2) and the key kernel
-(K3), and writes the profiler's chrome trace to --trace.
+device time taken by each traversal kernel (K1, K2), the key kernel (K3)
+and the sphere kernel (K4), and writes the profiler's chrome trace to --trace.
 """
 import argparse
 import os
@@ -46,6 +48,7 @@ def main() -> int:
 
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.integrator import wavefront
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
     from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
 
     if not torch.cuda.is_available():
@@ -101,6 +104,10 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"{card}")
+    if not scene.spheres.empty:
+        print("sphere route: " + (
+            "kernel K4 (HRT_SPHERE_KERNEL=1)" if isect.SPHERE_KERNEL
+            and scene.spheres.kernel_table is not None else "dense scan"))
     print(f"{os.path.basename(args.scene)} {w}x{h} @ {spp} spp, pool {state.item.shape[0]}, "
           f"iterations {args.steps}..{2 * args.steps}: wall {wall:.3f} "
           f"ms/segment (host clock), stream span {span:.3f} ms/segment "
@@ -113,7 +120,8 @@ def main() -> int:
           f"{max(0.0, 1 - busy / window):.1%}")
     kernels = {"K1 mesh_traverse": "traverse_kernel<24",
                "K2 mesh_traverse_stream": "traverse_kernel<32",
-               "K3 coherence_keys": "coherence_keys_kernel"}
+               "K3 coherence_keys": "coherence_keys_kernel",
+               "K4 sphere_traverse": "sphere_traverse_kernel"}
     for label, pattern in kernels.items():
         ms = sum(r[0] for r in rows if pattern in r[2])
         if ms:

@@ -5,6 +5,8 @@ the name does not start with test_).
   numpy arrays that hobbyraytracer_tpu_torch.scene.convert reads;
 - random meshes, rays and the teapot's cluster tables for the mesh-find
   tests, and the agreement check between two mesh finds;
+- the scattered-balls scene's sphere pool and a random pool with their
+  cluster tables, for the sphere-find tests;
 - `Noise`: seeded numpy noise per (purpose, iteration), fed identically
   to the port (through a Sampler subclass) and to the JAX package
   (through a monkeypatch of hobbyraytracer_tpu.core.rng).
@@ -27,6 +29,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCENES = os.path.join(ROOT, "scenes")
 TEAPOT = os.path.join(SCENES, "teapot_scene.yaml")
 HIRES = os.path.join(SCENES, "teapot_hires.yaml")
+BALLS = os.path.join(SCENES, "scattered_balls.yaml")
 
 
 def np_tree(x):
@@ -43,6 +46,13 @@ def jax_scene_arrays(scene) -> dict:
              "metallness_tex")
     tex_f = ("ttype", "solid", "solid2", "atlas", "offset", "width",
              "height")
+    sphere_f = ("center", "radius", "mat_id", "kernel_table",
+                "kernel_bounds", "kernel_ids")
+
+    def spheres(table):
+        return {f: (None if getattr(table, f) is None
+                    else np_tree(getattr(table, f))) for f in sphere_f}
+
     instances = []
     for inst in scene.instances:
         mesh = None
@@ -53,6 +63,8 @@ def jax_scene_arrays(scene) -> dict:
         tr = inst.transform
         instances.append({
             "kind": inst.kind,
+            "spheres": (spheres(inst.spheres) if inst.spheres is not None
+                        else None),
             "rects": ({f: np_tree(getattr(inst.rects, f)) for f in rect_f}
                       if inst.rects is not None else None),
             "mesh": mesh,
@@ -71,9 +83,7 @@ def jax_scene_arrays(scene) -> dict:
                           for f in tex_f},
                          bilinear=bool(scene.textures.bilinear)),
         "background_tex": int(np.asarray(scene.background_tex)),
-        "spheres": {"center": np_tree(scene.spheres.center),
-                    "radius": np_tree(scene.spheres.radius),
-                    "mat_id": np_tree(scene.spheres.mat_id)},
+        "spheres": spheres(scene.spheres),
         "media": list(scene.media),
     }
 
@@ -131,6 +141,14 @@ class Noise:
             np.float32)
 
 
+    def in_ball(self, purpose, iteration, shape) -> np.ndarray:
+        g = self._rng(purpose, iteration, shape, "b")
+        d = g.normal(size=tuple(shape) + (3,))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return (d * np.cbrt(g.random(tuple(shape)))[..., None]).astype(
+            np.float32)
+
+
 class NoiseSampler(Sampler):
     """The port's Sampler drawing from a `Noise` instead of generators."""
 
@@ -147,6 +165,11 @@ class NoiseSampler(Sampler):
             purpose, iteration, shape)).to(self.device)
 
 
+    def in_ball(self, purpose, iteration, shape):
+        return torch.from_numpy(self.noise.in_ball(
+            purpose, iteration, shape)).to(self.device)
+
+
 def patch_jax_rng(monkeypatch, noise: Noise) -> None:
     """Route hobbyraytracer_tpu.core.rng draws to `noise` (eager calls
     only: the stream index is read as a Python int)."""
@@ -160,6 +183,8 @@ def patch_jax_rng(monkeypatch, noise: Noise) -> None:
                         jnp.asarray(noise.uniform(k[0], k[1], shape)))
     monkeypatch.setattr(rng, "unit_sphere", lambda k, shape=(), span=None:
                         jnp.asarray(noise.unit_sphere(k[0], k[1], shape)))
+    monkeypatch.setattr(rng, "in_ball", lambda k, shape=(), span=None:
+                        jnp.asarray(noise.in_ball(k[0], k[1], shape)))
 
 
 def random_mesh(seed, n_tris=500, spread=3.0):
@@ -240,3 +265,22 @@ def assert_find_match(t_p, id_p, n_p, uv_p, t_j, id_j, n_j, uv_j, need_uv):
         assert np.abs(uv_p[hit_p]).max() > 0
     else:
         assert (uv_p == 0).all() and (uv_j == 0).all()
+
+
+def sphere_pool(seed, n, spread=10.0):
+    """A random sphere pool: center (n, 3), radius (n,), mat_id (n,)."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-spread, spread, (n, 3)).astype(np.float32),
+            rng.uniform(0.2, 1.5, (n,)).astype(np.float32),
+            rng.integers(0, 5, (n,)).astype(np.int32))
+
+
+def balls_pool():
+    """scenes/scattered_balls.yaml's pooled spheres (485, the ground sphere
+    of radius 1000 among them) as numpy: center, radius, mat_id and the
+    cluster tables table (4, 8, 128), bounds8 (8, 4), ids (4, 128)."""
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    sp = build_scene(load_scene_desc(BALLS)).scene.spheres
+    return tuple(getattr(sp, f).numpy() for f in (
+        "center", "radius", "mat_id", "kernel_table", "kernel_bounds",
+        "kernel_ids"))

@@ -1,6 +1,6 @@
 """The CUDA kernels of the port on the card: K1 (resident table), K2
-(streaming table) and K3 (coherence keys), each against its plain PyTorch
-version, and K2 against K1. All are built with -fmad=false and round op
+(streaming table), K3 (coherence keys) and K4 (clustered sphere find), each
+against its plain PyTorch version, and K2 against K1. All are built with -fmad=false and round op
 for op as PyTorch does, so kernel and plain version are equal (tolerance
 0), not only within the parity tolerances. Every test here needs a CUDA
 card and skips without one; the file imports neither JAX nor the JAX
@@ -17,17 +17,24 @@ import torch
 from hobbyraytracer_tpu_torch.core.rng import Sampler
 from hobbyraytracer_tpu_torch.integrator import wavefront
 from hobbyraytracer_tpu_torch.kernels import mesh_traverse as pk
+from hobbyraytracer_tpu_torch.kernels import sphere_traverse as sk
+from hobbyraytracer_tpu_torch.scene.bvh import build_sphere_clusters
 from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
 
-from _torch_parity import (HIRES, TEAPOT, aimed_rays, assert_find_match,
-                           cluster_tables, hires_tables, pack_rays8,
-                           random_mesh, random_rays, teapot_tables)
+from _torch_parity import (BALLS, HIRES, TEAPOT, aimed_rays,
+                           assert_find_match, balls_pool, cluster_tables,
+                           hires_tables, pack_rays8, random_mesh, random_rays,
+                           sphere_pool, teapot_tables)
 
 torch.set_num_threads(2)
 
 # kSmemMaxK in csrc/mesh_traverse.cuh: up to this K the kernels stage the
 # cluster boxes in shared memory, past it they read them from global memory
 SMEM_MAX_K = 2048
+# kSphereSmemBytes in csrc/sphere_traverse.cu: K4 stages a sphere pool's
+# 6K + 5KL words in shared memory while they fit this, and reads them from
+# global memory past it
+SPHERE_SMEM_BYTES = 48 * 1024
 
 pytestmark = pytest.mark.cuda
 
@@ -205,7 +212,7 @@ def test_render_through_kernel_matches_plain(dev):
     pk.KERNEL.launches = 0
     imgs = [wavefront.render_image(scene, camera, 32, 32, 4,
                                    Sampler(3, dev), pool=2048,
-                                   plain_mesh=plain)
+                                   plain=plain)
             for plain in (False, True)]
     assert pk.KERNEL.launches > 0
     assert torch.isfinite(imgs[0]).all()
@@ -226,7 +233,7 @@ def test_hires_render_goes_through_k2(dev, monkeypatch):
         pk.KEY_KERNEL.launches = 0
         imgs.append(wavefront.render_image(scene, camera, 16, 16, 4,
                                            Sampler(5, dev), pool=1024,
-                                           plain_mesh=plain))
+                                           plain=plain))
         assert pk.KERNEL.launches == 0
         assert (pk.KERNEL_STREAM.launches > 0) == (not plain)
         assert (pk.KEY_KERNEL.launches > 0) == (mode == "pallas"
@@ -234,3 +241,104 @@ def test_hires_render_goes_through_k2(dev, monkeypatch):
     assert torch.isfinite(imgs[0]).all()
     for img in imgs[1:]:
         torch.testing.assert_close(img, imgs[0], rtol=1e-5, atol=1e-5)
+
+
+def _sphere_case(name):
+    """(bounds8, table, ids, (o, d, valid), staged in shared memory?)."""
+    if name == "balls":          # K = 4: the scene's own tables
+        _, _, _, table, bounds8, ids = balls_pool()
+        rays = aimed_rays(21, 20_000, center=(0.0, 0.5, 0.0), half=6.0,
+                          spread=12.0)
+        rays[2][::7] = False
+        return bounds8, table, ids, rays, True
+    n, leaf = (5000, 128) if name == "random-5000" else (3000, 16)
+    center, radius, _ = sphere_pool(22, n, spread=20.0)
+    sc = build_sphere_clusters(center, radius, leaf_size=leaf)
+    return (sc["bounds8"], sc["table"], sc["ids"],
+            random_rays(23, 20_000, spread=25.0, valid_every=2), False)
+
+
+@pytest.mark.parametrize("pool", ["balls", "random-5000", "random-3000-leaf16"])
+def test_sphere_kernel_matches_plain(dev, pool):
+    """K4 vs its plain version: t and ids bitwise equal (tolerance 0), on
+    the balls scene's tables (K = 4, staged in shared memory) and on random
+    pools of 5,000 spheres (K = 64) and 3,000 on 16-sphere leaves (K = 256),
+    both past the staging, read from global memory. Dead lanes give 1e30
+    and -1."""
+    bounds8, table, ids, rays, staged = _sphere_case(pool)
+    k_clusters, _, leaf = table.shape
+    assert ((6 * k_clusters + 5 * k_clusters * leaf) * 4
+            <= SPHERE_SMEM_BYTES) == staged
+    assert staged or table.shape[0] >= 40
+    rays8, b8, tab, idt = _on(dev, pack_rays8(*rays), bounds8, table, ids)
+    before = sk.SPHERE_KERNEL.launches
+    t_k, id_k = sk.intersect_spheres_kernel(rays8, b8, tab, idt, 1e-3)
+    assert sk.SPHERE_KERNEL.launches == before + 1
+    t_p, id_p = sk.intersect_spheres_plain(rays8, b8, tab, idt, 1e-3)
+    torch.cuda.synchronize()
+    assert t_k.shape == id_k.shape == (rays8.shape[0],)
+    assert id_k.dtype == torch.int32 and t_k.dtype == torch.float32
+    hit = id_k >= 0
+    assert 0.05 < hit.float().mean() < 1.0
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    dead = rays8[:, 6] <= 0
+    assert dead.any() and (t_k[dead] == 1e30).all() and (id_k[dead] == -1).all()
+    assert (t_k[~hit] == 1e30).all() and (t_k[hit] < 1e30).all()
+    # a narrower window is honoured (far roots and misses past t_max)
+    t_w, id_w = sk.intersect_spheres_kernel(rays8, b8, tab, idt, 0.5, 9.0)
+    t_q, id_q = sk.intersect_spheres_plain(rays8, b8, tab, idt, 0.5, 9.0)
+    assert torch.equal(t_w, t_q) and torch.equal(id_w, id_q)
+    assert ((t_w >= 0.5) & (t_w <= 9.0) | (id_w < 0)).all()
+
+
+def test_sphere_kernel_argument_checks(dev):
+    _, _, _, table, bounds8, ids = balls_pool()
+    o, d, valid = random_rays(24, 64, spread=8.0)
+    rays8, b8, tab, idt = _on(dev, pack_rays8(o, d, valid), bounds8, table,
+                              ids)
+    with pytest.raises(TypeError):
+        sk.intersect_spheres_kernel(rays8.double(), b8, tab, idt, 1e-3)
+    with pytest.raises(TypeError):
+        sk.intersect_spheres_kernel(rays8, b8, tab, idt.long(), 1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.intersect_spheres_kernel(rays8, b8, tab.transpose(1, 2)
+                                    .contiguous().transpose(1, 2), idt, 1e-3)
+    with pytest.raises(ValueError, match="is on"):
+        sk.intersect_spheres_kernel(rays8, b8, tab, idt.cpu(), 1e-3)
+    with pytest.raises(ValueError, match="8, L"):
+        sk.intersect_spheres_kernel(rays8, b8, tab[:, :4].contiguous(), idt,
+                                    1e-3)
+    with pytest.raises(ValueError, match="bounds8"):
+        sk.intersect_spheres_kernel(rays8, b8[:, :-1].contiguous(), tab, idt,
+                                    1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.intersect_spheres_kernel(rays8.to("meta"), b8, tab, idt, 1e-3)
+    t, i = sk.intersect_spheres_kernel(rays8[:0], b8, tab, idt, 1e-3)
+    assert t.shape == (0,) and i.shape == (0,)
+    t, i = sk.intersect_spheres_kernel(rays8.reshape(4, 16, 8), b8, tab, idt,
+                                       1e-3)
+    assert t.shape == (4, 16) and i.shape == (4, 16)
+
+
+def test_balls_render_routes(dev, monkeypatch):
+    """A tiny scattered_balls render by the default route (dense scan, K4
+    never launched), through K4 (SPHERE_KERNEL on) and through K4's plain
+    version: the two clustered renders agree; the dense one agrees with
+    them but for tangent rays and rounding (>= 99% of pixels within 1e-3)."""
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    job = build_scene(load_scene_desc(BALLS))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    imgs = {}
+    for name, on, plain in (("dense", False, False), ("k4", True, False),
+                            ("plain", True, True)):
+        monkeypatch.setattr(pisect, "SPHERE_KERNEL", on)
+        sk.SPHERE_KERNEL.launches = 0
+        imgs[name] = wavefront.render_image(scene, camera, 32, 24, 4,
+                                            Sampler(7, dev), pool=2048,
+                                            plain=plain)
+        assert (sk.SPHERE_KERNEL.launches > 0) == (name == "k4")
+        assert torch.isfinite(imgs[name]).all()
+    near = (imgs["k4"] - imgs["plain"]).abs().amax(dim=2) < 1e-3
+    assert near.float().mean() >= 0.99
+    near = (imgs["k4"] - imgs["dense"]).abs().amax(dim=2) < 1e-3
+    assert near.float().mean() >= 0.99

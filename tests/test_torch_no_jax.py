@@ -66,6 +66,7 @@ def test_every_module_imports_without_jax():
     names = proc.stdout.split("MODULES", 1)[1].split()
     for mod in ("hobbyraytracer_tpu_torch.native",
                 "hobbyraytracer_tpu_torch.kernels.mesh_traverse",
+                "hobbyraytracer_tpu_torch.kernels.sphere_traverse",
                 "hobbyraytracer_tpu_torch.kernels.build",
                 "hobbyraytracer_tpu_torch.ops.intersect"):
         assert mod in names, (mod, names)
@@ -176,3 +177,41 @@ def test_stream_and_key_wrappers_raise_instead_of_falling_back(monkeypatch,
                              bounds8, 1e30)
     assert (kmod.KERNEL.launches, kmod.KERNEL_STREAM.launches,
             kmod.KEY_KERNEL.launches) == (0, 0, 0)
+
+
+def test_sphere_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """K4 on tensors off the CPU, called directly and through
+    intersect_spheres_clustered and intersect_scene with SPHERE_KERNEL on:
+    when the kernel cannot be built the wrapper raises; neither its plain
+    version nor the dense scan takes over."""
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    from hobbyraytracer_tpu_torch.scene import ir as pir
+    from _torch_parity import BALLS
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def other(*args, **kwargs):
+        raise AssertionError("fell back from the kernel")
+
+    monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(skmod, "SPHERE_KERNEL",
+                        kbuild.KernelLibrary("sphere_traverse"))
+    monkeypatch.setattr(skmod, "intersect_spheres_plain", other)
+    monkeypatch.setattr(pisect, "intersect_spheres", other)
+    monkeypatch.setattr(pisect, "SPHERE_KERNEL", True)
+    meta = dict(device="meta")
+    rays8 = torch.empty((256, 8), **meta)
+    tables = (torch.empty((8, 4), **meta), torch.empty((4, 8, 128), **meta),
+              torch.empty((4, 128), dtype=torch.int32, **meta))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        skmod.intersect_spheres_kernel(rays8, *tables, 1e-3)
+    scene = build_scene(load_scene_desc(BALLS)).scene.to("meta")
+    rays = Rays(o=rays8[:, 0:3], d=rays8[:, 3:6])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pir.intersect_scene(scene, rays)
+    assert skmod.SPHERE_KERNEL.launches == 0

@@ -1,24 +1,34 @@
 """The port's wavefront main path against the JAX package's, on the teapot
-scene carried across from the JAX build (scene/convert.py):
+scene and the scattered-balls scene (spheres, metal, dielectric) carried
+across from the JAX build (scene/convert.py):
 
 (a) segment for segment, with identical injected noise and the JAX mesh
     find running the Pallas kernel in interpret mode;
 (b) statistically, a full render against JAX's wavefront.render_image;
-(c) the pool drains exactly, including a partial last sample chunk.
+(c) the pool drains exactly, including a partial last sample chunk;
+(d) the same two comparisons on the balls scene, by the dense sphere scan
+    and by the clustered find (JAX: the Pallas sphere kernel in interpret
+    mode; the port: the plain version of kernel K4).
 """
 import jax
 import numpy as np
 import pytest
 import torch
 
+from hobbyraytracer_tpu.core.types import Rays as JRays
 from hobbyraytracer_tpu.integrator import wavefront as jwf
+from hobbyraytracer_tpu.ops import intersect as jisect
+from hobbyraytracer_tpu.scene import ir as jir
 from hobbyraytracer_tpu.scene import build_scene as jax_build_scene
 from hobbyraytracer_tpu.scene import load_scene_desc as jax_load_scene_desc
 from hobbyraytracer_tpu_torch.core.rng import Sampler
+from hobbyraytracer_tpu_torch.core.types import Rays
 from hobbyraytracer_tpu_torch.integrator import wavefront as pwf
+from hobbyraytracer_tpu_torch.ops import intersect as pisect
 from hobbyraytracer_tpu_torch.scene import convert
+from hobbyraytracer_tpu_torch.scene import ir as pir
 
-from _torch_parity import (TEAPOT, Noise, NoiseSampler, jax_camera_arrays,
+from _torch_parity import (BALLS, TEAPOT, Noise, NoiseSampler, jax_camera_arrays,
                            jax_scene_arrays, patch_jax_rng)
 
 torch.set_num_threads(2)
@@ -163,3 +173,103 @@ def test_trailing_iterations_are_noops(teapot):
         pwf._segment(state, scene, w, h, sampler, 4, 2)
     for f, v in before.items():
         assert torch.equal(getattr(state, f), v), f
+
+
+@pytest.fixture(scope="module")
+def balls():
+    job = jax_build_scene(jax_load_scene_desc(BALLS))
+    scene = convert.scene_from_arrays(jax_scene_arrays(job.scene))
+    camera = convert.camera_from_arrays(jax_camera_arrays(job.camera))
+    return job, scene, camera
+
+
+def _sphere_route(monkeypatch, clustered):
+    """Both packages on the dense scan, or on the clustered find (JAX's
+    Pallas kernel in interpret mode)."""
+    monkeypatch.setattr(jisect, "SPHERE_KERNEL", clustered)
+    monkeypatch.setattr(pisect, "SPHERE_KERNEL", clustered)
+    if clustered:
+        monkeypatch.setenv("HRT_PALLAS_INTERPRET", "1")
+
+
+@pytest.mark.parametrize("clustered", [False, True],
+                         ids=["dense", "clustered"])
+def test_balls_segments_match_jax(monkeypatch, balls, clustered):
+    """3 segments of a 16x12 balls render on a 192-lane pool at 2 spp with
+    identical injected noise, by either sphere route. Dielectric and metal
+    paths re-hit the sphere they leave at t_min, and the ground sphere's
+    quadratic cancels, so a lane whose nearest sphere differs between the
+    packages (rounding at a grazing or re-hit ray) is marked from the hits
+    before the segment and left out from then on, and so is a lane whose
+    int fields differ or whose floats (o, d, thr, rad) drift past
+    2e-3 + 1e-3 * |x|: t's relative error under XLA's FMAs reaches 5e-4 at
+    t ~ 10, and the normal of a ball of radius 0.2 is that error in p times
+    5, so a few lanes drift by rounding alone and stay apart. After each of
+    the 3 segments at least 94% of the lanes agree state for state, and
+    counter is equal."""
+    _sphere_route(monkeypatch, clustered)
+    noise = Noise(13)
+    patch_jax_rng(monkeypatch, noise)
+    job, scene, camera = balls
+    assert scene.spheres.kernel_table.shape == (4, 8, 128)
+    w, h, spp = 16, 12, 2
+    pool, max_depth = 192, 50
+    _, n_chunks, _ = jwf._chunk_geometry(spp, jwf.SAMPLE_CHUNK)
+    total = w * h * n_chunks
+    key = jax.random.PRNGKey(0)
+    js = jwf.init_state(w, h, pool)
+    ps = pwf.init_state(w, h, pool, "cpu")
+    sampler = NoiseSampler(noise)
+    off = np.zeros((pool,), bool)
+    for seg in range(3):
+        js = jwf._regenerate(js, job.camera, w, h, total, key)
+        pwf._regenerate(ps, camera, w, h, total, sampler)
+        hj = jir.intersect_scene(job.scene, JRays(o=js.o, d=js.d), key,
+                                 js.it, mesh_backend="auto")
+        hp = pir.intersect_scene(scene, Rays(o=ps.o, d=ps.d))
+        off |= np.asarray(hj.mat_id) != hp.mat_id.numpy()
+        js = jwf._segment(js, job.scene, w, h, key, max_depth, spp)
+        pwf._segment(ps, scene, w, h, sampler, max_depth, spp)
+        assert ps.it == int(js.it) == seg + 1
+        assert int(ps.counter) == int(js.counter), seg
+        for f in _INT_FIELDS:
+            off |= np.asarray(getattr(js, f)) != getattr(ps, f).numpy()
+        for f in _FLOAT_FIELDS:
+            a, b = getattr(ps, f).numpy(), np.asarray(getattr(js, f))
+            off |= (np.abs(a - b) > 2e-3 + 1e-3 * np.abs(b)).any(axis=1)
+        assert off.mean() <= 0.06, (seg, off.sum())
+    if not off.any():
+        assert int(ps.retired) == int(js.retired)
+    assert int(ps.retired) > 0
+    # the materials of the scene were all met
+    mats = set(np.asarray(job.scene.materials.mtype)[
+        np.maximum(np.asarray(hj.mat_id), 0)].tolist())
+    assert mats >= {0, 1}
+
+
+def test_balls_render_matches_jax_statistically(monkeypatch, balls):
+    """32x18 @ 16 spp through both renderers with independent random
+    streams (the port by both sphere routes): image means within 5%, 2x2
+    block means correlate > 0.9; the port's two routes agree closely (same
+    seed: only grazing rays differ)."""
+    job, scene, camera = balls
+    w, h, spp = 32, 18, 16
+    img_j = np.asarray(jwf.render_image(job.scene, job.camera, w, h, spp,
+                                        jax.random.PRNGKey(0), max_depth=12,
+                                        pool=1024))
+    imgs = {}
+    for clustered in (False, True):
+        monkeypatch.setattr(pisect, "SPHERE_KERNEL", clustered)
+        imgs[clustered] = pwf.render_image(
+            scene, camera, w, h, spp, Sampler(1, "cpu"), max_depth=12,
+            pool=1024).numpy()
+    bj = img_j.reshape(9, 2, 16, 2, 3).mean(axis=(1, 3, 4))
+    for img_p in imgs.values():
+        assert img_p.shape == img_j.shape == (h, w, 3)
+        assert np.isfinite(img_p).all()
+        mj, mp = img_j.mean(), img_p.mean()
+        assert abs(mp - mj) / mj < 0.05, (mp, mj)
+        bp = img_p.reshape(9, 2, 16, 2, 3).mean(axis=(1, 3, 4))
+        assert np.corrcoef(bj.ravel(), bp.ravel())[0, 1] > 0.9
+    near = np.abs(imgs[False] - imgs[True]).max(axis=2) < 1e-3
+    assert near.mean() >= 0.95, near.mean()
