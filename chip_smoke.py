@@ -16,8 +16,9 @@ in phases that each raise on failure (non-zero exit, no result line):
 3. hold K1 against its plain PyTorch version on the teapot scene's own
    tables (K = 30 clusters) at the main path's shape: 196,608 rays of the
    pool's first segments (camera rays, then bounce rays), coherence-sorted
-   as the main path sorts them, with need_uv off and on; time both
-   versions with CUDA events;
+   as the main path sorts them, with need_uv off and on, and the same rays
+   in a seeded random order, bitwise; time both versions with CUDA events,
+   the kernel on the unsorted rays too;
 4. render scenes/teapot_scene.yaml at 640x640, 16 spp, pool 196,608, max
    depth 50 with Russian roulette, through the function the CLI calls;
    check the image, K1's launch count in that render, that every sample
@@ -26,8 +27,9 @@ in phases that each raise on failure (non-zero exit, no result line):
    and with the mesh find forced to the plain version, and compare;
 b. hold K2 against its plain version on teapot_hires's own 32-row tables
    (K = 822) at 196,608 camera and after-one-bounce rays, sorted by the
-   corridor key as the main path sorts them, need_uv off and on: hit
-   masks, ids, t, normals and uv bitwise equal; time both;
+   corridor key as the main path sorts them, and in a seeded random order,
+   need_uv off and on: hit masks, ids, t, normals and uv bitwise equal;
+   time both, the kernel on the unsorted rays too;
 c. K2 against K1 bitwise, and both against the plain version, on the first
    40,000 triangles of teapot_hires (K = 313, past K1's old cap of 256) in
    the 24-row and 32-row layouts;
@@ -53,7 +55,12 @@ i. render scattered_balls at 640x640, 16 spp, pool 196,608, max depth 50
    sample retired, finite images, the tonemapped mean against a JAX CPU
    render; rays/s of both;
 j. render the balls 64x64 at 8 spp through K4 and with the sphere find
-   forced to the plain version, and compare.
+   forced to the plain version, and compare;
+k. hold K1 and K2 against the plain version, bitwise, on a random mesh of
+   20,000 triangles in 8-triangle leaves (K = 2,500, boxes read from global
+   memory) and 65,536 random rays, of which a counted number (at least
+   1,000) enter more clusters than the kernels' window of pending visits
+   holds, so they use a full window up and scan again.
 
 The second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render, its time and its plain version's at 196,608
@@ -117,6 +124,13 @@ T_ATOL = 1e-6
 # framebuffer's atomic adds
 F_ATOL = 1e-5
 HIRES_PREFIX = 40_000   # triangles of the phase c mesh
+# phase k: kWindow of kernels/csrc/mesh_traverse.cuh (the pending visits a
+# ray keeps from one slab scan), the random mesh and the rays
+WINDOW = 4
+REFILL_TRIS = 20_000
+REFILL_LEAF = 8
+REFILL_RAYS = 65_536
+REFILL_MIN = 1_000
 # phase h, K4's route against the dense scan: the dense scan counts a ray
 # with disc == 0 as a hit and the clustered find does not, and the replay
 # sums its dot products in another order, so a grazing ray may hit on one
@@ -172,17 +186,46 @@ def load_scene(path):
     return job
 
 
-def entered_clusters(rays8, bounds8, t_final, t_max=1e30, chunk=16_384):
-    """How many (ray, cluster) pairs have a slab entry below the ray's
-    final t: the leaf visits these rays need whatever the visit order."""
+def entered_per_ray(rays8, bounds8, t_final, t_max=1e30, chunk=16_384):
+    """(R,) how many clusters each ray enters before its final hit (slab
+    entry below the final t): the leaf visits it needs whatever the visit
+    order."""
+    import torch
     from hobbyraytracer_tpu_torch.kernels.mesh_traverse import slab_entries
-    total = 0
+    counts = []
     for s in range(0, rays8.shape[0], chunk):
         r = rays8[s:s + chunk]
         entry = slab_entries(r[:, 0:3], r[:, 3:6], r[:, 6] > 0.0, bounds8,
                              t_max)
-        total += int((entry < t_final[s:s + chunk, None]).sum())
-    return total
+        counts.append((entry < t_final[s:s + chunk, None]).sum(dim=1))
+    return torch.cat(counts)
+
+
+def entered_clusters(rays8, bounds8, t_final):
+    """The leaf visits all these rays need together."""
+    return int(entered_per_ray(rays8, bounds8, t_final).sum())
+
+
+def random_leaf_tables(seed, n_tris, leaf, spread=3.0):
+    """A random triangle soup in a box of half-size `spread`, clustered
+    into leaves of `leaf` triangles: numpy (bounds8, tri_soa (K, 24, L),
+    tri_id (K, L), stream table (K, 32, L))."""
+    import numpy as np
+    from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    from hobbyraytracer_tpu_torch.scene.bvh import build_clusters
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-spread, spread, (n_tris, 3))
+    verts = np.concatenate([base, base + rng.normal(0, 0.3, (n_tris, 3)),
+                            base + rng.normal(0, 0.3, (n_tris, 3))]).astype(
+                                np.float32)
+    idx = np.arange(3 * n_tris, dtype=np.int32).reshape(3, n_tris).T.copy()
+    normals = rng.normal(0, 1, verts.shape).astype(np.float32)
+    uvs = rng.uniform(0, 1, (len(verts), 2)).astype(np.float32)
+    cl = build_clusters(verts, idx, leaf_size=leaf)
+    corner = idx[cl["tri_id"].clip(min=0)]
+    soa = kmod.pack_mesh_soa(cl["tri_verts"], normals[corner], uvs[corner])
+    return (kmod.pack_bounds(cl["bmin"], cl["bmax"]), soa, cl["tri_id"],
+            kmod.pack_mesh_stream(soa, cl["tri_id"]))
 
 
 def bound(n_bytes, n_ops):
@@ -424,6 +467,19 @@ def main():
             torch.cuda.synchronize()
             err_k1 = max(err_k1, compare(out_k, id_k, out_p, id_p, need_uv,
                                          f"{label}, need_uv={need_uv}"))
+    shuffle = torch.randperm(POOL, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    for label, rays8 in sets.items():
+        unsorted = rays8[shuffle].contiguous()
+        for need_uv in (False, True):
+            out_k, id_k = kmod.traverse_clusters(unsorted, *args,
+                                                 need_uv=need_uv)
+            out_p, id_p = kmod.traverse_clusters_plain(unsorted, *args,
+                                                       need_uv=need_uv)
+            torch.cuda.synchronize()
+            err_k1 = max(err_k1, compare_exact(
+                out_k, id_k, out_p, id_p,
+                f"K1 vs plain, {label} unsorted, need_uv={need_uv}"))
     rays8 = sets["after one bounce"]
     times_k1 = {}
     for need_uv in (False, True):
@@ -432,8 +488,11 @@ def main():
                                                    need_uv=need_uv)),
             cuda_ms(lambda: kmod.traverse_clusters_plain(
                 rays8, *args, need_uv=need_uv), reps=5, warmup=1))
+        ms_unsorted = cuda_ms(lambda: kmod.traverse_clusters(
+            unsorted, *args, need_uv=need_uv))
         print(f"[K1] need_uv={need_uv}: kernel {times_k1[need_uv][0]:.4f} "
-              f"ms, plain {times_k1[need_uv][1]:.4f} ms "
+              f"ms (the same rays unsorted {ms_unsorted:.4f} ms), plain "
+              f"{times_k1[need_uv][1]:.4f} ms "
               f"({POOL} rays, K = {k_clusters}; {card})")
     out_k, id_k = kmod.traverse_clusters(rays8, *args, need_uv=False)
     visits = entered_clusters(rays8, mesh.bounds8, out_k[:, 0])
@@ -493,6 +552,17 @@ def main():
             err_k2 = max(err_k2, compare_exact(
                 out_k, id_k, out_p, id_p,
                 f"K2 vs plain, {label}, need_uv={need_uv}"))
+    for label, rays8 in hsets.items():
+        unsorted = rays8[shuffle].contiguous()
+        for need_uv in (False, True):
+            out_k, id_k = kmod.traverse_clusters(unsorted, *hargs,
+                                                 need_uv=need_uv)
+            out_p, id_p = kmod.traverse_clusters_plain(unsorted, *hargs,
+                                                       need_uv=need_uv)
+            torch.cuda.synchronize()
+            err_k2 = max(err_k2, compare_exact(
+                out_k, id_k, out_p, id_p,
+                f"K2 vs plain, {label} unsorted, need_uv={need_uv}"))
     rays8 = hsets["after one bounce"]
     times_k2 = {}
     for need_uv in (False, True):
@@ -501,8 +571,11 @@ def main():
                                                    need_uv=need_uv)),
             cuda_ms(lambda: kmod.traverse_clusters_plain(
                 rays8, *hargs, need_uv=need_uv), reps=3, warmup=1))
+        ms_unsorted = cuda_ms(lambda: kmod.traverse_clusters(
+            unsorted, *hargs, need_uv=need_uv))
         print(f"[K2] need_uv={need_uv}: kernel {times_k2[need_uv][0]:.4f} "
-              f"ms, plain {times_k2[need_uv][1]:.4f} ms "
+              f"ms (the same rays unsorted {ms_unsorted:.4f} ms), plain "
+              f"{times_k2[need_uv][1]:.4f} ms "
               f"({POOL} rays, K = {hk}; {card})")
     out_k, id_k = kmod.traverse_clusters(rays8, *hargs, need_uv=False)
     visits = entered_clusters(rays8, hmesh.bounds8, out_k[:, 0])
@@ -708,6 +781,38 @@ def main():
           f"find: {agree:.4%} of pixels within 1e-3, max diff "
           f"{diff.max().item():.3g}")
     check(agree >= 0.99, f"only {agree:.4%} of pixels agree")
+
+    # k. K1 and K2 vs plain on rays that outrun the window and scan again
+    import numpy as np
+    r_b8, r_soa, r_ids, r_stream = (
+        torch.from_numpy(x).to(dev) for x in random_leaf_tables(
+            SEED + 4, REFILL_TRIS, REFILL_LEAF))
+    rk = r_b8.shape[1]
+    check(rk > 2048, f"phase k mesh has only {rk} clusters")
+    rng = np.random.default_rng(SEED + 5)
+    rays8 = torch.from_numpy(np.concatenate(
+        [rng.uniform(-6.0, 6.0, (REFILL_RAYS, 3)),
+         rng.normal(0, 1, (REFILL_RAYS, 3)), np.ones((REFILL_RAYS, 1)),
+         np.zeros((REFILL_RAYS, 1))], axis=1).astype(np.float32)).to(dev)
+    for need_uv in (False, True):
+        out_p, id_p = kmod.traverse_clusters_plain(rays8, r_b8, r_soa, r_ids,
+                                                   need_uv=need_uv)
+        out_1, id_1 = kmod.traverse_clusters(rays8, r_b8, r_soa, r_ids,
+                                             need_uv=need_uv)
+        out_2, id_2 = kmod.traverse_clusters(rays8, r_b8, r_stream, None,
+                                             need_uv=need_uv)
+        torch.cuda.synchronize()
+        tag = f"K = {rk}, {REFILL_LEAF}-triangle leaves, need_uv={need_uv}"
+        err_k1 = max(err_k1, compare_exact(out_1, id_1, out_p, id_p,
+                                           f"K1 vs plain, {tag}"))
+        err_k2 = max(err_k2, compare_exact(out_2, id_2, out_p, id_p,
+                                           f"K2 vs plain, {tag}"))
+    # a ray that enters more clusters than the window holds uses a full
+    # window of pending visits up and scans the boxes again
+    n_refill = int((entered_per_ray(rays8, r_b8, out_p[:, 0]) > WINDOW).sum())
+    print(f"[refill] {n_refill} of {REFILL_RAYS} rays enter more than "
+          f"{WINDOW} clusters before their final hit and scan again")
+    check(n_refill >= REFILL_MIN, f"only {n_refill} rays refill their window")
 
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"

@@ -44,10 +44,16 @@ def find_nvcc() -> str:
 
 class KernelLibrary:
     """One kernel's shared library, built at first `load()`, and the count
-    of its launches (the wrapper adds one per launch)."""
+    of its launches (the wrapper adds one per launch). `csrc` and
+    `build_dir` default to the package's sources and build directory; a
+    timing script gives others to build the same kernel from another tree
+    (scripts/time_mesh_kernels.py)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, csrc: str | None = None,
+                 build_dir: str | None = None):
         self.name = name
+        self._csrc = csrc
+        self._build_dir = build_dir
         self.launches = 0
         self.build_seconds = 0.0
         self.build_log = ""
@@ -55,18 +61,27 @@ class KernelLibrary:
         self._lock = threading.Lock()
 
     @property
+    def csrc(self) -> str:
+        return self._csrc or CSRC
+
+    @property
+    def build_dir(self) -> str:
+        return self._build_dir or BUILD_DIR
+
+    @property
     def source(self) -> str:
-        return os.path.join(CSRC, f"{self.name}.cu")
+        return os.path.join(self.csrc, f"{self.name}.cu")
 
     @property
     def path(self) -> str:
-        return os.path.join(BUILD_DIR, f"lib{self.name}.so")
+        return os.path.join(self.build_dir, f"lib{self.name}.so")
 
     def _stale(self) -> bool:
         if not os.path.exists(self.path):
             return True
         newest = max(os.path.getmtime(f) for f in
-                     [self.source, *glob.glob(os.path.join(CSRC, "*.cuh"))])
+                     [self.source,
+                      *glob.glob(os.path.join(self.csrc, "*.cuh"))])
         return newest > os.path.getmtime(self.path)
 
     @property
@@ -81,8 +96,8 @@ class KernelLibrary:
         """Compile the source into the library (to a temporary file that is
         renamed into place, so concurrent builders never see half a file)."""
         nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.makedirs(self.build_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
         os.close(fd)
         t0 = time.perf_counter()
         try:

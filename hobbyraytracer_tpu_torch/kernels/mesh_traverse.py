@@ -21,10 +21,20 @@ Visit rule (kernels and plain version): a ray visits its clusters in order
 of (slab entry distance, cluster index) while the entry is below the ray's
 own best t; each visit runs Moller-Trumbore over the cluster's L triangles
 (t > 0, no t_min, as the reference) and folds in a strictly better hit,
-the first minimum lane winning ties. The TPU kernels visit the union of a
-ray block's needs; a ray's own set is a subset of it, so the nearest hit is
-the same except on exact t-ties. The two layouts give the same result bit
-for bit, and any K is taken.
+the lowest triangle slot among those with the smallest t winning ties. The
+TPU kernels visit the union of a ray block's needs; a ray's own set is a
+subset of it, so the nearest hit is the same except on exact t-ties. The
+two layouts give the same result bit for bit, and any K and L are taken.
+
+How each side gets that sequence. The plain version sorts a ray's K
+entries and walks them in lockstep rounds. The kernels (csrc/
+mesh_traverse.cuh) scan the K slab tests once per ray into a window of the
+4 smallest pending (entry, index) pairs and consume it in order, scanning
+again (the warp together, lanes over clusters) only for a ray that used a
+full window up; a visit is made by the ray's whole warp, lanes over the
+leaf's triangle slots, with a warp reduction on (t, slot) for the winner.
+tests/test_torch_traverse_window.py holds a CPU model of that schedule
+against the plain version bit for bit.
 
 K3 replaces :_key_kernel (launched by coherence_keys_pallas): per ray the
 nearest slab entry over all clusters and the lowest cluster index at it.

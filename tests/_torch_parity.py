@@ -284,3 +284,254 @@ def balls_pool():
     return tuple(getattr(sp, f).numpy() for f in (
         "center", "radius", "mat_id", "kernel_table", "kernel_bounds",
         "kernel_ids"))
+
+
+# --- a model of the CUDA mesh traversal's visit schedule -------------------
+#
+# csrc/mesh_traverse.cuh runs only on a card. Its schedule is modelled here
+# in numpy/torch so that the CPU tests can hold it against the plain
+# version: a per-ray window of the `window` smallest pending (entry, index)
+# pairs filled by one scan over the clusters (the kernel's insertion, slot
+# by slot), consumed in order and refilled only when a full window ran out;
+# the scan by the ray's own lane when more than `warp_scan_max` lanes of
+# its warp of 32 want one, else by the warp (lanes over clusters, then
+# `window` reductions on (bits of entry, index)); and the leaf test with
+# lanes over triangle slots (lane j holds slots j, j + 32, ... of a pass
+# of 32 * lane_slots), reduced over the 32 lanes on (bits of t, slot) as
+# the kernel's two integer warp reductions do.
+
+MODEL_LANES = 32
+
+
+def _model_offer(we, wk, e, c, last_e, last_k):
+    """The kernel's `offer`, row-wise: the pairs (e, c) (a row each) go
+    into the rows' sorted windows we, wk (rows, W) where they come after
+    (last_e, last_k) and below the window's last entry."""
+    window = we.shape[1]
+    after = (e > last_e) | ((e == last_e) & (c > last_k))
+    ins = after & (e < we[:, window - 1])
+    for i in range(window - 1, -1, -1):
+        here = ins & (e < we[:, i])
+        left = max(i - 1, 0)
+        shift = here & (e < we[:, left]) & (i > 0)
+        we[:, i] = np.where(here, np.where(shift, we[:, left], e), we[:, i])
+        wk[:, i] = np.where(here, np.where(shift, wk[:, left], c), wk[:, i])
+
+
+def _model_scan(entry, last_e, last_k, best_t, window):
+    """The kernel's scan_window for every ray at once (each by its own
+    lane): entry (R, K) -> (we (R, W) float32, wk (R, W) int64), empty
+    slots k = -1."""
+    n, k_clusters = entry.shape
+    we = np.repeat(best_t[:, None], window, axis=1).astype(np.float32)
+    wk = np.full((n, window), -1, np.int64)
+    for c in range(k_clusters):
+        _model_offer(we, wk, entry[:, c], c, last_e, last_k)
+    return we, wk
+
+
+def _model_scan_warp(entry, last_e, last_k, best_t, window):
+    """The kernel's scan_window_warp for one ray: entry (K,) -> (we (W,),
+    wk (W,)). Lane j offers clusters j, j + 32, ... to a window of its
+    own; then `window` rounds take the smallest (bits of entry, index)
+    pair at the head of any lane's window."""
+    k_clusters = entry.shape[0]
+    pad = -k_clusters % MODEL_LANES
+    lanes = np.concatenate([entry, np.full((pad,), np.inf, np.float32)])
+    lanes = lanes.reshape(-1, MODEL_LANES).T              # (32, K / 32)
+    me = np.full((MODEL_LANES, window), best_t, np.float32)
+    mk = np.full((MODEL_LANES, window), -1, np.int64)
+    for j in range(lanes.shape[1]):                       # the lanes' offers
+        _model_offer(me, mk, lanes[:, j],
+                     j * MODEL_LANES + np.arange(MODEL_LANES), last_e, last_k)
+    none = np.uint32(0xFFFFFFFF)
+    we = np.full((window,), best_t, np.float32)
+    wk = np.full((window,), -1, np.int64)
+    for i in range(window):
+        head = (me[:, 0] + np.float32(0.0)).view(np.uint32)
+        key = np.where(mk[:, 0] < 0, none, head)
+        e_min = key.min()
+        if e_min == none:
+            break
+        k_min = np.where(key == e_min, mk[:, 0], k_clusters).min()
+        we[i] = np.array([e_min], np.uint32).view(np.float32)[0]
+        wk[i] = k_min
+        owner = int(np.flatnonzero((key == e_min) & (mk[:, 0] == k_min))[0])
+        me[owner, :-1] = me[owner, 1:]
+        mk[owner, :-1] = mk[owner, 1:]
+        mk[owner, window - 1] = -1
+    return we, wk
+
+
+def _model_leaf(o, d, blk, ids, t_max, lane_slots):
+    """Lanes-over-slots leaf test of A (ray, cluster) visits: o, d (A, 3),
+    blk (A, 9, L), ids (A, L) -> (t (A,), slot (A,), u (A,), v (A,)), t =
+    1e30 and slot = -1 without a hit. Arithmetic in torch float32, op for
+    op as the kernel (and the plain version) orders it."""
+    a, _, leaf = blk.shape
+    ox, oy, oz = (o[:, c:c + 1] for c in range(3))
+    dx, dy, dz = (d[:, c:c + 1] for c in range(3))
+    v0x, v0y, v0z = blk[:, 0], blk[:, 1], blk[:, 2]
+    e1x, e1y, e1z = blk[:, 3], blk[:, 4], blk[:, 5]
+    e2x, e2y, e2z = blk[:, 6], blk[:, 7], blk[:, 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / torch.where(det == 0.0, 1.0, det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    good = ((det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t > 0.0) & (t <= t_max) & (ids >= 0))
+    t, u, v, good = (x.numpy() for x in (t, u, v, good))
+    big = np.float32(1e30)
+    tc = np.full((a,), big, np.float32)
+    lc = np.full((a,), -1, np.int64)
+    uc = np.zeros((a,), np.float32)
+    vc = np.zeros((a,), np.float32)
+    none = np.uint32(0xFFFFFFFF)
+    rows = np.arange(a)
+    for base in range(0, leaf, MODEL_LANES * lane_slots):   # one pass
+        t_l = np.full((a, MODEL_LANES), big, np.float32)
+        slot_l = np.full((a, MODEL_LANES), none, np.uint32)
+        u_l = np.zeros((a, MODEL_LANES), np.float32)
+        v_l = np.zeros((a, MODEL_LANES), np.float32)
+        for s in range(lane_slots):        # a lane's own slots, ascending
+            lo = base + MODEL_LANES * s
+            width = min(MODEL_LANES, leaf - lo)
+            if width <= 0:
+                break
+            sl = slice(lo, lo + width)
+            take = good[:, sl] & (t[:, sl] < t_l[:, :width])
+            t_l[:, :width] = np.where(take, t[:, sl], t_l[:, :width])
+            u_l[:, :width] = np.where(take, u[:, sl], u_l[:, :width])
+            v_l[:, :width] = np.where(take, v[:, sl], v_l[:, :width])
+            slot_l[:, :width] = np.where(
+                take, np.arange(lo, lo + width, dtype=np.uint32),
+                slot_l[:, :width])
+        bits = t_l.view(np.uint32)         # t > 0: the bits order as uints
+        t_min = bits.min(axis=1)
+        slot = np.where(bits == t_min[:, None], slot_l, none).min(axis=1)
+        owner = (slot & np.uint32(31)).astype(np.int64)
+        better = t_min.view(np.float32) < tc
+        tc = np.where(better, t_min.view(np.float32), tc)
+        lc = np.where(better, slot.astype(np.int64), lc)
+        uc = np.where(better, u_l[rows, owner], uc)
+        vc = np.where(better, v_l[rows, owner], vc)
+    return tc, lc, uc, vc
+
+
+def model_traverse(rays8, bounds8, tri_soa, tri_id, t_max=1e30,
+                   need_uv=True, window=4, lane_slots=4, warp_scan_max=16):
+    """The CUDA traversal's schedule on the CPU (numpy arrays in and out):
+    -> (out (N, 8) float32, id (N,) int32, visits (N,) int64 leaf visits,
+    scans (N,) int64 slab scans of each ray, warp_scans (N,) int64 those
+    of them the ray's warp made together)."""
+    from hobbyraytracer_tpu_torch.kernels.mesh_traverse import slab_entries
+    rays = torch.from_numpy(np.ascontiguousarray(rays8))
+    soa = torch.from_numpy(np.ascontiguousarray(tri_soa[:, :24]))
+    if tri_soa.shape[1] == 32:
+        tri_id = np.ascontiguousarray(tri_soa[:, 24]).view(np.int32)
+    ids_t = torch.from_numpy(np.ascontiguousarray(tri_id))
+    n = rays.shape[0]
+    o, d = rays[:, 0:3], rays[:, 3:6]
+    valid = rays[:, 6] > 0.0
+    entry = slab_entries(o, d, valid, torch.from_numpy(bounds8),
+                         float(t_max)).numpy()
+    big = np.float32(1e30)
+    out = np.zeros((n, 8), np.float32)
+    out[:, 0] = big
+    best_id = np.full((n,), -1, np.int32)
+    last_e = np.full((n,), -1.0, np.float32)
+    last_k = np.full((n,), -1, np.int64)
+    we = np.full((n, window), big, np.float32)
+    wk = np.full((n, window), -1, np.int64)
+    more = np.ones((n,), bool)
+    done = ~valid.numpy()
+    visits = np.zeros((n,), np.int64)
+    scans = np.zeros((n,), np.int64)
+    warp_scans = np.zeros((n,), np.int64)
+    warp_of = np.arange(n) // MODEL_LANES
+    while True:
+        empty = ~done & (wk[:, 0] < 0)
+        scan = np.flatnonzero(empty & more)
+        if scan.size:
+            wanting = np.bincount(warp_of[scan], minlength=warp_of[-1] + 1)
+            own = wanting[warp_of[scan]] > warp_scan_max
+            lone, together = scan[own], scan[~own]
+            we[lone], wk[lone] = _model_scan(
+                entry[lone], last_e[lone], last_k[lone], out[lone, 0],
+                window)
+            for r in together:
+                we[r], wk[r] = _model_scan_warp(
+                    entry[r], last_e[r], last_k[r], out[r, 0], window)
+            more[scan] = wk[scan, window - 1] >= 0
+            scans[scan] += 1
+            warp_scans[together] += 1
+        done = np.where(empty, wk[:, 0] < 0, done)
+        done |= ~done & ~(we[:, 0] < out[:, 0])
+        idx = np.flatnonzero(~done)
+        if idx.size == 0:
+            break
+        kk = wk[idx, 0]
+        tc, lc, uc, vc = _model_leaf(o[idx], d[idx], soa[kk, 0:9],
+                                     ids_t[kk], float(t_max), lane_slots)
+        visits[idx] += 1
+        last_e[idx] = we[idx, 0]
+        last_k[idx] = kk
+        we[idx, :-1] = we[idx, 1:]
+        wk[idx, :-1] = wk[idx, 1:]
+        wk[idx, window - 1] = -1
+        take = tc < out[idx, 0]
+        idx, kk, tc, lc, uc, vc = (x[take] for x in (idx, kk, tc, lc, uc, vc))
+        a = tri_soa[kk, 9:24, lc]                         # (A', 15)
+        w0 = np.float32(1.0) - uc - vc
+        out[idx, 0] = tc
+        for c in range(3):
+            out[idx, 1 + c] = (w0 * a[:, c] + uc * a[:, 3 + c]
+                               + vc * a[:, 6 + c])
+        if need_uv:
+            for c in range(2):
+                out[idx, 4 + c] = (w0 * a[:, 9 + c] + uc * a[:, 11 + c]
+                                   + vc * a[:, 13 + c])
+        best_id[idx] = tri_id[kk, lc]
+    return out, best_id, visits, scans, warp_scans
+
+
+def tie_tables(seed=5, n_tris=400):
+    """Tables built to have exact t-ties: each 64-triangle leaf of a random
+    mesh is doubled to 128 slots with a copy of itself rolled by 5 slots
+    (equal triangles in different lanes of the leaf test, under other ids),
+    and the whole table is doubled (every cluster a second time under a
+    higher index, with an equal box and equal triangles). The winner must
+    be the lowest slot of the lowest cluster. -> (bounds8, tri_soa (2K, 24,
+    128), tri_id (2K, 128))."""
+    bounds8, soa, tri_id, _ = cluster_tables(*random_mesh(seed, n_tris),
+                                             leaf=64)
+    rolled = np.roll(tri_id, 5, axis=1)
+    soa = np.concatenate([soa, np.roll(soa, 5, axis=2)], axis=2)
+    tri_id = np.concatenate(
+        [tri_id, np.where(rolled >= 0, rolled + n_tris, -1)], axis=1)
+    soa = np.concatenate([soa, soa], axis=0)
+    tri_id = np.concatenate(
+        [tri_id, np.where(tri_id >= 0, tri_id + 2 * n_tris, -1)], axis=0)
+    bounds8 = np.concatenate([bounds8, bounds8], axis=1)
+    return (np.ascontiguousarray(bounds8), np.ascontiguousarray(soa),
+            np.ascontiguousarray(tri_id.astype(np.int32)))
+
+
+def refill_rays(rays8, bounds8, t_final, window, t_max=1e30):
+    """How many rays enter more than `window` clusters before their final
+    hit (slab entry below the final t): each of them consumes a full
+    window and scans again."""
+    from hobbyraytracer_tpu_torch.kernels.mesh_traverse import slab_entries
+    rays = torch.as_tensor(rays8)
+    entry = slab_entries(rays[:, 0:3], rays[:, 3:6], rays[:, 6] > 0.0,
+                         torch.as_tensor(bounds8), t_max)
+    entered = (entry < torch.as_tensor(t_final)[:, None]).sum(dim=1)
+    return int((entered > window).sum())

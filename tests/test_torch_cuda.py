@@ -24,13 +24,16 @@ from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
 from _torch_parity import (BALLS, HIRES, TEAPOT, aimed_rays,
                            assert_find_match, balls_pool, cluster_tables,
                            hires_tables, pack_rays8, random_mesh, random_rays,
-                           sphere_pool, teapot_tables)
+                           refill_rays, sphere_pool, teapot_tables)
 
 torch.set_num_threads(2)
 
 # kSmemMaxK in csrc/mesh_traverse.cuh: up to this K the kernels stage the
 # cluster boxes in shared memory, past it they read them from global memory
 SMEM_MAX_K = 2048
+# kWindow in csrc/mesh_traverse.cuh: the pending visits a ray keeps from one
+# slab scan; a ray that enters more clusters than this scans again
+WINDOW = 4
 # kSphereSmemBytes in csrc/sphere_traverse.cu: K4 stages a sphere pool's
 # 6K + 5KL words in shared memory while they fit this, and reads them from
 # global memory past it
@@ -51,12 +54,26 @@ def _on(dev, *arrays):
                  for a in arrays)
 
 
+def _ordered(rays8, b8, order):
+    """The rays as they were drawn ("unsorted": neighbours in a warp go
+    anywhere) or sorted by the coherence key, as the mesh find sorts them
+    before it calls the kernel."""
+    if order == "unsorted":
+        return rays8
+    from hobbyraytracer_tpu_torch.ops.intersect import coherence_key
+    key = coherence_key(rays8[:, 0:3], rays8[:, 3:6], rays8[:, 6] > 0.0, b8,
+                        1e30)
+    return rays8[torch.argsort(key, stable=True)].contiguous()
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
 @pytest.mark.parametrize("need_uv", [False, True])
 @pytest.mark.parametrize("mesh", ["teapot", "random-leaf64"])
-def test_kernel_matches_plain(dev, mesh, need_uv):
-    """Kernel vs plain version on the card. Built with -fmad=false, the
-    kernel rounds op for op as PyTorch does, so outputs are equal, not
-    only within the parity tolerances."""
+def test_kernel_matches_plain(dev, mesh, need_uv, order):
+    """Kernel vs plain version on the card, on rays sorted by the coherence
+    key and in random order. Built with -fmad=false, the kernel rounds op
+    for op as PyTorch does, so outputs are equal, not only within the
+    parity tolerances."""
     if mesh == "teapot":
         bounds8, soa, tri_id, _ = teapot_tables()
         o, d, valid = random_rays(3, 5000, spread=2.0, valid_every=2)
@@ -65,6 +82,7 @@ def test_kernel_matches_plain(dev, mesh, need_uv):
         o, d, valid = random_rays(4, 5000, valid_every=2)
     rays8, b8, tab, ids = _on(dev, pack_rays8(o, d, valid), bounds8, soa,
                               tri_id)
+    rays8 = _ordered(rays8, b8, order)
     before = pk.KERNEL.launches
     out_k, id_k = pk.traverse_clusters(rays8, b8, tab, ids, need_uv=need_uv)
     assert pk.KERNEL.launches == before + 1
@@ -157,17 +175,20 @@ def _mesh_case(name):
     return b8, soa, ids, stream, rays
 
 
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
 @pytest.mark.parametrize("need_uv", [False, True])
 @pytest.mark.parametrize("mesh", ["random-leaf8", "hires-40k",
                                   "teapot_hires", "random-20k-leaf8"])
-def test_stream_kernel_matches_plain_and_resident(dev, mesh, need_uv):
+def test_stream_kernel_matches_plain_and_resident(dev, mesh, need_uv, order):
     """K2 vs its plain version, and K2 vs K1 on the same mesh in its two
-    layouts: all bitwise equal (K > 256 in every case; the boxes staged in
-    shared memory up to K = 2048, read from global memory past it)."""
+    layouts, on sorted and on unsorted rays: all bitwise equal (K > 256 in
+    every case; the boxes staged in shared memory up to K = 2048, read
+    from global memory past it)."""
     b8, soa, ids, stream, rays = _mesh_case(mesh)
     assert b8.shape[1] > 256
     rays8, b8, soa, ids, stream = _on(dev, pack_rays8(*rays), b8, soa, ids,
                                       stream)
+    rays8 = _ordered(rays8, b8, order)
     before = (pk.KERNEL.launches, pk.KERNEL_STREAM.launches)
     out_s, id_s = pk.traverse_clusters(rays8, b8, stream, ids,
                                        need_uv=need_uv)
@@ -184,6 +205,43 @@ def test_stream_kernel_matches_plain_and_resident(dev, mesh, need_uv):
     np.testing.assert_array_equal(id_s, id_p)
     np.testing.assert_array_equal(out_s, out_r)
     np.testing.assert_array_equal(id_s, id_r)
+
+
+@pytest.mark.parametrize("mesh", ["random-leaf8", "random-20k-leaf8"])
+def test_kernels_match_plain_on_refilling_rays(dev, mesh):
+    """Rays that enter more clusters than the kernels' window holds (8-
+    triangle leaves: K = 300 with the boxes in shared memory, K = 2500 with
+    them in global memory) use a full window up and scan again: a counted
+    share of the rays does, and K1, K2 and the plain version still agree
+    bit for bit."""
+    b8, soa, ids, stream, _ = _mesh_case(mesh)
+    rays8, b8, soa, ids, stream = _on(
+        dev, pack_rays8(*random_rays(15, 40_000)), b8, soa, ids, stream)
+    out_p, id_p = pk.traverse_clusters_plain(rays8, b8, soa, ids)
+    n_refill = refill_rays(rays8, b8, out_p[:, 0], WINDOW)
+    assert n_refill >= 1000, f"only {n_refill} of 40000 rays refill"
+    for table in (soa, stream):
+        out_k, id_k = pk.traverse_clusters(rays8, b8, table, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, out_p) and torch.equal(id_k, id_p)
+    assert (id_p >= 0).float().mean() > 0.05
+
+
+@pytest.mark.parametrize("n_rays", [1, 33, 4097])
+def test_kernels_take_any_ray_count(dev, n_rays):
+    """A ray count that fills neither a warp nor a block: the lanes past
+    the last ray idle through the warp's rounds, and K1 and K2 equal the
+    plain version."""
+    b8, soa, ids, stream, rays = _mesh_case("hires-40k")
+    rays8, b8, soa, ids, stream = _on(dev, pack_rays8(*rays)[:n_rays], b8,
+                                      soa, ids, stream)
+    out_p, id_p = pk.traverse_clusters_plain(rays8, b8, soa, ids)
+    for table in (soa, stream):
+        out_k, id_k = pk.traverse_clusters(rays8, b8, table, ids)
+        torch.cuda.synchronize()
+        assert out_k.shape == (n_rays, 8) and id_k.shape == (n_rays,)
+        assert torch.equal(out_k, out_p) and torch.equal(id_k, id_p)
+    assert n_rays == 1 or (id_p >= 0).any()
 
 
 @pytest.mark.parametrize("mesh", ["random-leaf8", "teapot_hires",
