@@ -10,9 +10,10 @@ in phases that each raise on failure (non-zero exit, no result line):
    turn TF32 off;
 2. (and a) build the four kernels from kernels/csrc at once, one nvcc
    each -- K1 mesh_traverse, K2 mesh_traverse_stream, K3 coherence_keys,
-   K4 sphere_traverse -- and print each build's time and ptxas's registers and spills; require
-   the native cluster builder (the reference's), print its library, and
-   hold both scenes' cluster tables against their pinned digests;
+   K4 sphere_traverse -- and print each build's time and ptxas's registers
+   and spills (K3 and K4 must not spill); require the native cluster
+   build (the reference's), print its library, and hold both scenes'
+   cluster tables against their pinned digests;
 3. hold K1 against its plain PyTorch version on the teapot scene's own
    tables (K = 30 clusters) at the main path's shape: 196,608 rays of the
    pool's first segments (camera rays, then bounce rays), coherence-sorted
@@ -44,8 +45,9 @@ f. render teapot_hires 64x64 at 8 spp with HRT_KEY_MODE "auto" and then
    two images equal per pixel;
 g. hold K4 against its plain version on scenes/scattered_balls.yaml's own
    sphere tables (485 spheres, K = 4) at 196,608 camera and
-   after-one-bounce rays: t and ids bitwise equal; time both, and the
-   dense sphere scan on the same rays beside them;
+   after-one-bounce rays, in pool order (the sphere find does not sort)
+   and in a seeded random order: t and ids bitwise equal; time both, the
+   kernel on the random order too, and the dense sphere scan beside them;
 h. K4's route against the dense route (intersect_spheres_clustered vs
    intersect_spheres) on the same rays: hit masks and materials equal but
    for counted grazing rays, hit points and normals within tolerance;
@@ -60,7 +62,15 @@ k. hold K1 and K2 against the plain version, bitwise, on a random mesh of
    20,000 triangles in 8-triangle leaves (K = 2,500, boxes read from global
    memory) and 65,536 random rays, of which a counted number (at least
    1,000) enter more clusters than the kernels' window of pending visits
-   holds, so they use a full window up and scan again.
+   holds, so they use a full window up and scan again;
+l. hold K4 against its plain version, bitwise, on two random sphere pools
+   (5,000 spheres in 128-sphere leaves, 3,000 in 16-sphere leaves) whose K
+   exceeds the window, with 65,536 random rays of which a counted number
+   (at least 1,000) refill their window; and K3 against its plain version
+   on phase b's rays with a K that is not a multiple of 4 (the first 821
+   boxes) and at phase k's K = 2,500 (boxes read from global memory), with
+   a counted number of rays (at least 1,000) whose smallest entry is
+   shared by two or more clusters.
 
 The second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render, its time and its plain version's at 196,608
@@ -68,8 +78,11 @@ rays, and `bound_ms`, the least time the card could take for the same work
 (the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
 of float32; the operations are those this run's rays need: one scan of the
 K slab tests per ray and one leaf test for every cluster a ray enters
-before its final hit). No single PyTorch call computes any of the four
-functions, so `library_ms` is null. The last line is
+before its final hit), and `issue_bound_ms`, the same operations at one
+an instruction over the SMs x 128 lanes x the card's maximum SM clock: what
+code built without FMA contraction, as these kernels are so as to equal
+their plain versions, can reach. No single PyTorch call computes any of the
+four functions, so `library_ms` is null. The last line is
 {"ok": true, "device": {...}}.
 """
 import hashlib
@@ -118,8 +131,12 @@ H100_F32_OPS_PER_S = 67e12
 SLAB_OPS = 20
 TRIANGLE_OPS = 45
 SPHERE_OPS = 30
+# float32 lanes an SM feeds in one clock, for `issue_bound_ms`
+SM_LANES = 128
 T_RTOL = 1e-5
 T_ATOL = 1e-6
+# the sphere find's near end of the ray window (core/mathx.py:T_MIN)
+T_MIN = 1e-3
 # the 64x64 renders of phase f may differ only by the order of the
 # framebuffer's atomic adds
 F_ATOL = 1e-5
@@ -131,6 +148,11 @@ REFILL_TRIS = 20_000
 REFILL_LEAF = 8
 REFILL_RAYS = 65_536
 REFILL_MIN = 1_000
+# phase l: the random sphere pools (spheres, leaf size), their spread and
+# the spread of the rays' origins
+SPHERE_POOLS = ((5_000, 128), (3_000, 16))
+SPHERE_SPREAD = 20.0
+SPHERE_RAY_SPREAD = 25.0
 # phase h, K4's route against the dense scan: the dense scan counts a ray
 # with disc == 0 as a hit and the clustered find does not, and the replay
 # sums its dot products in another order, so a grazing ray may hit on one
@@ -201,6 +223,22 @@ def entered_per_ray(rays8, bounds8, t_final, t_max=1e30, chunk=16_384):
     return torch.cat(counts)
 
 
+def tied_rays(rays8, bounds8, e_min, t_max=1e30, chunk=16_384):
+    """How many rays have their smallest slab entry in two or more clusters
+    (K3 must then name the lowest index)."""
+    import torch
+    from hobbyraytracer_tpu_torch.kernels.mesh_traverse import slab_entries
+    n = 0
+    for s in range(0, rays8.shape[0], chunk):
+        r = rays8[s:s + chunk]
+        entry = slab_entries(r[:, 0:3], r[:, 3:6], r[:, 6] > 0.0, bounds8,
+                             t_max)
+        e = e_min[s:s + chunk]
+        n += int((((entry == e[:, None]).sum(dim=1) >= 2)
+                  & torch.isfinite(e)).sum())
+    return n
+
+
 def entered_clusters(rays8, bounds8, t_final):
     """The leaf visits all these rays need together."""
     return int(entered_per_ray(rays8, bounds8, t_final).sum())
@@ -226,6 +264,36 @@ def random_leaf_tables(seed, n_tris, leaf, spread=3.0):
     soa = kmod.pack_mesh_soa(cl["tri_verts"], normals[corner], uvs[corner])
     return (kmod.pack_bounds(cl["bmin"], cl["bmax"]), soa, cl["tri_id"],
             kmod.pack_mesh_stream(soa, cl["tri_id"]))
+
+
+def random_sphere_tables(seed, n_spheres, leaf, spread=SPHERE_SPREAD):
+    """A random sphere pool (centers in a box of half-size `spread`, radii
+    0.2-1.5) clustered into leaves of `leaf` spheres: numpy (bounds8 (8, K),
+    table (K, 8, L), ids (K, L))."""
+    import numpy as np
+    from hobbyraytracer_tpu_torch.scene.bvh import build_sphere_clusters
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(-spread, spread, (n_spheres, 3)).astype(np.float32)
+    radius = rng.uniform(0.2, 1.5, (n_spheres,)).astype(np.float32)
+    sc = build_sphere_clusters(center, radius, leaf_size=leaf)
+    return sc["bounds8"], sc["table"], sc["ids"]
+
+
+def random_rays8(seed, n, spread):
+    """(n, 8) valid rays: origins uniform in a box of half-size `spread`,
+    normal directions."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.concatenate(
+        [rng.uniform(-spread, spread, (n, 3)), rng.normal(0, 1, (n, 3)),
+         np.ones((n, 1)), np.zeros((n, 1))], axis=1).astype(np.float32))
+
+
+def issue_bound(n_ops, sm_count, sm_clock_mhz):
+    """issue_bound_ms: the operations at one an instruction over every
+    SM's lanes at the card's maximum SM clock."""
+    return n_ops / (sm_count * SM_LANES * sm_clock_mhz * 1e6) * 1e3
 
 
 def bound(n_bytes, n_ops):
@@ -415,6 +483,12 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(card)
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0])
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"{sm_count} SMs, maximum SM clock {sm_clock_mhz:.0f} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -429,17 +503,25 @@ def main():
     libs = (k1, k2, k3, k4)
 
     # 2 and a. build the kernels from the checkout's sources, all at once
-    # (load() builds a missing library; one thread, so one nvcc, each)
+    # (one thread, so one nvcc, each; a library left by an earlier run is
+    # built again, so that ptxas reports on these sources), and load them
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
-        for fut in [pool.submit(lib.load) for lib in libs]:
+        for fut in [pool.submit(lib.build) for lib in libs]:
             fut.result()
+    for lib in libs:
+        lib.load()
     for lib in libs:
         print(f"[build] {lib.source} -> {lib.path} in "
               f"{lib.build_seconds:.2f} s")
         for line in lib.ptxas_info:
             print(f"  {line}")
     print(f"[build] all four in {time.perf_counter() - t0:.2f} s")
+    for lib in (k3, k4):
+        spills = [ln for ln in lib.ptxas_info if "spill" in ln]
+        check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                             for ln in spills),
+              f"{lib.name} spills registers: {spills}")
     check(native.lib() is not None, "the native cluster builder did not "
           "build: the scenes' tables would not be the reference's")
     print(f"[native] cluster builder {native.library_path()}")
@@ -496,10 +578,9 @@ def main():
               f"({POOL} rays, K = {k_clusters}; {card})")
     out_k, id_k = kmod.traverse_clusters(rays8, *args, need_uv=False)
     visits = entered_clusters(rays8, mesh.bounds8, out_k[:, 0])
-    bound_k1 = bound(
-        nbytes(rays8, *args, out_k, id_k),
-        POOL * k_clusters * SLAB_OPS
-        + visits * mesh.tri_soa.shape[2] * TRIANGLE_OPS)
+    ops_k1 = (POOL * k_clusters * SLAB_OPS
+              + visits * mesh.tri_soa.shape[2] * TRIANGLE_OPS)
+    bound_k1 = bound(nbytes(rays8, *args, out_k, id_k), ops_k1)
     print(f"[K1] bound {bound_k1[0]:.4f} ms by {bound_k1[1]} "
           f"({visits / POOL:.3f} leaf visits a ray)")
 
@@ -579,10 +660,10 @@ def main():
               f"({POOL} rays, K = {hk}; {card})")
     out_k, id_k = kmod.traverse_clusters(rays8, *hargs, need_uv=False)
     visits = entered_clusters(rays8, hmesh.bounds8, out_k[:, 0])
-    bound_k2 = bound(
-        nbytes(rays8, hmesh.bounds8, hmesh.tri_soa, out_k, id_k),
-        POOL * hk * SLAB_OPS
-        + visits * hmesh.tri_soa.shape[2] * TRIANGLE_OPS)
+    ops_k2 = (POOL * hk * SLAB_OPS
+              + visits * hmesh.tri_soa.shape[2] * TRIANGLE_OPS)
+    bound_k2 = bound(nbytes(rays8, hmesh.bounds8, hmesh.tri_soa, out_k, id_k),
+                     ops_k2)
     print(f"[K2] bound {bound_k2[0]:.4f} ms by {bound_k2[1]} "
           f"({visits / POOL:.3f} leaf visits a ray)")
 
@@ -639,8 +720,8 @@ def main():
                         reps=5, warmup=1))
     print(f"[K3] kernel {times_k3[0]:.4f} ms, plain {times_k3[1]:.4f} ms "
           f"({POOL} rays, K = {hk}; {card})")
-    bound_k3 = bound(nbytes(rays8, hmesh.bounds8, e_k, f_k),
-                     POOL * hk * SLAB_OPS)
+    ops_k3 = POOL * hk * SLAB_OPS
+    bound_k3 = bound(nbytes(rays8, hmesh.bounds8, e_k, f_k), ops_k3)
     print(f"[K3] bound {bound_k3[0]:.4f} ms by {bound_k3[1]}")
 
     # e. the large-mesh path: a 640x640, 16 spp teapot_hires render
@@ -690,8 +771,11 @@ def main():
           f"balls materials {bscene.materials.present}")
     bsets = pool_ray_sets(bscene, bcamera)
     sargs = (sp.kernel_bounds, sp.kernel_table, sp.kernel_ids)
-    t_min = 1e-3
-    for label, rays8 in bsets.items():
+    t_min = T_MIN
+    ordered = dict(bsets)
+    ordered.update({f"{label}, random order": rays8[shuffle].contiguous()
+                    for label, rays8 in bsets.items()})
+    for label, rays8 in ordered.items():
         t_k, id_k = skmod.intersect_spheres_kernel(rays8, *sargs, t_min)
         t_p, id_p = skmod.intersect_spheres_plain(rays8, *sargs, t_min)
         torch.cuda.synchronize()
@@ -713,13 +797,18 @@ def main():
         cuda_ms(lambda: isect.intersect_spheres(
             brays, sp.center, sp.radius, sp.mat_id, t_min, 1e30),
             reps=5, warmup=1))
-    print(f"[K4] kernel {times_k4[0]:.4f} ms, plain {times_k4[1]:.4f} ms, "
+    unsorted = ordered["after one bounce, random order"]
+    ms_unsorted = cuda_ms(lambda: skmod.intersect_spheres_kernel(
+        unsorted, *sargs, t_min))
+    print(f"[K4] kernel {times_k4[0]:.4f} ms (the same rays in random order "
+          f"{ms_unsorted:.4f} ms), plain {times_k4[1]:.4f} ms, "
           f"dense scan (with its hit records) {times_k4[2]:.4f} ms "
           f"({POOL} rays, K = {bk}; {card})")
+    t_k, id_k = skmod.intersect_spheres_kernel(rays8, *sargs, t_min)
     visits = entered_clusters(rays8, sp.kernel_bounds, t_k)
-    bound_k4 = bound(nbytes(rays8, *sargs, t_k, id_k),
-                     POOL * bk * SLAB_OPS
-                     + visits * sp.kernel_table.shape[2] * SPHERE_OPS)
+    ops_k4 = (POOL * bk * SLAB_OPS
+              + visits * sp.kernel_table.shape[2] * SPHERE_OPS)
+    bound_k4 = bound(nbytes(rays8, *sargs, t_k, id_k), ops_k4)
     print(f"[K4] bound {bound_k4[0]:.4f} ms by {bound_k4[1]} "
           f"({visits / POOL:.3f} cluster visits a ray)")
 
@@ -783,17 +872,12 @@ def main():
     check(agree >= 0.99, f"only {agree:.4%} of pixels agree")
 
     # k. K1 and K2 vs plain on rays that outrun the window and scan again
-    import numpy as np
     r_b8, r_soa, r_ids, r_stream = (
         torch.from_numpy(x).to(dev) for x in random_leaf_tables(
             SEED + 4, REFILL_TRIS, REFILL_LEAF))
     rk = r_b8.shape[1]
     check(rk > 2048, f"phase k mesh has only {rk} clusters")
-    rng = np.random.default_rng(SEED + 5)
-    rays8 = torch.from_numpy(np.concatenate(
-        [rng.uniform(-6.0, 6.0, (REFILL_RAYS, 3)),
-         rng.normal(0, 1, (REFILL_RAYS, 3)), np.ones((REFILL_RAYS, 1)),
-         np.zeros((REFILL_RAYS, 1))], axis=1).astype(np.float32)).to(dev)
+    rays8 = random_rays8(SEED + 5, REFILL_RAYS, 6.0).to(dev)
     for need_uv in (False, True):
         out_p, id_p = kmod.traverse_clusters_plain(rays8, r_b8, r_soa, r_ids,
                                                    need_uv=need_uv)
@@ -814,26 +898,73 @@ def main():
           f"{WINDOW} clusters before their final hit and scan again")
     check(n_refill >= REFILL_MIN, f"only {n_refill} rays refill their window")
 
+    # l. K4 on pools whose K exceeds the window, K3 at K % 4 != 0 and with
+    # the boxes in global memory, refilling and tied rays counted
+    srays = random_rays8(SEED + 7, REFILL_RAYS, SPHERE_RAY_SPREAD).to(dev)
+    for n_spheres, leaf in SPHERE_POOLS:
+        l_b8, l_tab, l_ids = (torch.from_numpy(x).to(dev) for x in
+                              random_sphere_tables(SEED + 6, n_spheres, leaf))
+        lk = l_b8.shape[1]
+        check(lk >= 40, f"phase l pool has only {lk} clusters")
+        t_k, id_k = skmod.intersect_spheres_kernel(srays, l_b8, l_tab, l_ids,
+                                                   t_min)
+        t_p, id_p = skmod.intersect_spheres_plain(srays, l_b8, l_tab, l_ids,
+                                                  t_min)
+        torch.cuda.synchronize()
+        n_hit = int((id_p >= 0).sum())
+        check(n_hit > 0, f"K4, K = {lk}: no ray hit a sphere")
+        check(bool(torch.equal(id_k, id_p)),
+              f"K4, K = {lk}: ids differ on {int((id_k != id_p).sum())} rays")
+        check(bool(torch.equal(t_k, t_p)),
+              f"K4, K = {lk}: t differs on {int((t_k != t_p).sum())} rays")
+        n_refill = int((entered_per_ray(srays, l_b8, t_p) > WINDOW).sum())
+        print(f"  K4 vs plain, {n_spheres} random spheres, K = {lk}, L = "
+              f"{leaf}: {REFILL_RAYS} rays, {n_hit} hits, ids and t bitwise "
+              f"equal; {n_refill} rays enter more than {WINDOW} clusters and "
+              f"scan again")
+        check(n_refill >= REFILL_MIN,
+              f"K4, K = {lk}: only {n_refill} rays refill their window")
+    for label, r8, b8 in (
+            ("teapot_hires's first boxes", hsets["after one bounce"],
+             hmesh.bounds8[:, :hk - 1 if (hk - 1) % 4 else hk - 2]
+             .contiguous()),
+            ("the random mesh, boxes in global memory", rays8, r_b8)):
+        kk = b8.shape[1]
+        check(kk % 4 != 0 or kk > 2048, f"K3, {label}: K = {kk}")
+        e_k, f_k = kmod.coherence_keys(r8, b8)
+        e_p, f_p = kmod.coherence_keys_plain(r8, b8)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(e_k, e_p)),
+              f"K3, {label}: e_min differs on {int((e_k != e_p).sum())} rays")
+        check(bool(torch.equal(f_k, f_p)),
+              f"K3, {label}: first differs on {int((f_k != f_p).sum())} rays")
+        n_tied = tied_rays(r8, b8, e_p)
+        print(f"  K3 vs plain, {label}: K = {kk}, {len(e_k)} rays, e_min and "
+              f"first equal; {n_tied} rays share their smallest entry "
+              f"between clusters")
+        check(n_tied >= REFILL_MIN, f"K3, {label}: only {n_tied} tied rays")
+
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
 
-    def row(lib, source, replaces, launches, err, ms, plain_ms, bnd):
+    def row(lib, source, replaces, launches, err, ms, plain_ms, bnd, ops):
         return {"name": lib.name, "route": "cuda",
                 "source": f"{csrc}/{source}", "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "issue_bound_ms": issue_bound(ops, sm_count, sm_clock_mhz),
                 "library_ms": None}
 
     print(json.dumps({"kernels": [
         row(k1, "mesh_traverse.cu", f"{ref}:298", k1_launches, err_k1,
-            *times_k1[False], bound_k1),
+            *times_k1[False], bound_k1, ops_k1),
         row(k2, "mesh_traverse_stream.cu", f"{ref}:357", k2_launches,
-            err_k2, *times_k2[False], bound_k2),
+            err_k2, *times_k2[False], bound_k2, ops_k2),
         row(k3, "coherence_keys.cu", f"{ref}:583", k3_launches, err_k3,
-            *times_k3, bound_k3),
+            *times_k3, bound_k3, ops_k3),
         row(k4, "sphere_traverse.cu",
             "hobbyraytracer_tpu/kernels/sphere_traverse.py:51", k4_launches,
-            err_k4, *times_k4[:2], bound_k4)]}))
+            err_k4, *times_k4[:2], bound_k4, ops_k4)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 // Fused cluster-BVH traversal + Moller-Trumbore + attribute interpolation
 // for NVIDIA Hopper (sm_90a): the device code shared by the resident-table
-// kernel K1 (mesh_traverse.cu), the streaming-table kernel K2
-// (mesh_traverse_stream.cu) and the key kernel K3 (coherence_keys.cu).
+// kernel K1 (mesh_traverse.cu) and the streaming-table kernel K2
+// (mesh_traverse_stream.cu); the key kernel K3 (coherence_keys.cu) and the
+// sphere kernel K4 (sphere_traverse.cu) share its rays, slab test, staged
+// boxes and window scan.
 //
 // Contract (the reference's, hobbyraytracer_tpu/kernels/mesh_traverse.py):
 //   rays8   (N, 8)        f32 [ox oy oz dx dy dz valid 0]
@@ -146,18 +148,6 @@ __device__ __forceinline__ float slab_entry(const float* bnd, int stride,
   float box[6];
   for (int row = 0; row < 6; ++row) box[row] = bnd[row * stride + k];
   return slab_entry_box(box, ray, t_max);
-}
-
-// Copies rows 0-5 of bounds8 to shared memory when SMEM, and returns where
-// the kernel reads them. Every thread of the block must call it.
-template <bool SMEM>
-__device__ __forceinline__ const float* stage_bounds(
-    const float* __restrict__ bounds8, int k_clusters, float* smem) {
-  if (!SMEM) return bounds8;
-  for (int i = threadIdx.x; i < 6 * k_clusters; i += blockDim.x)
-    smem[i] = bounds8[i];
-  __syncthreads();
-  return smem;
 }
 
 // Pending visits of one ray: the kWindow smallest (entry, index) pairs
@@ -307,6 +297,31 @@ __device__ __forceinline__ void scan_window_warp(
   }
 }
 
+// The scan phase of a warp's round, shared by the mesh kernels and the
+// sphere kernel K4: every lane with `scan` set (its window ran empty and a
+// scan may still find pairs) gets its window refilled, by its own lane when
+// more than kWarpScanMax lanes want that, else by the warp for each of them
+// in turn; `more` says whether another scan could find anything (the window
+// came back full and there are more clusters than it holds). Every lane of
+// the warp must call it.
+template <bool SMEM>
+__device__ __forceinline__ void refill_windows(
+    bool scan, const float* bnd, int stride, int k_clusters, int lane,
+    const Ray& ray, float t_max, float last_e, int last_k, float best_t,
+    Window& w, bool& more) {
+  const unsigned scanning = __ballot_sync(kFullMask, scan);
+  if (__popc(scanning) > kWarpScanMax) {
+    if (scan)
+      scan_window<SMEM>(bnd, stride, k_clusters, ray, t_max, last_e, last_k,
+                        best_t, w);
+  } else {
+    for (unsigned todo = scanning; todo; todo &= todo - 1)
+      scan_window_warp(bnd, stride, k_clusters, __ffs(todo) - 1, lane, ray,
+                       t_max, last_e, last_k, best_t, w);
+  }
+  if (scan) more = w.k[kWindow - 1] >= 0 && k_clusters > kWindow;
+}
+
 template <int ROWS, bool SMEM>
 __global__ void __launch_bounds__(kThreads) traverse_kernel(
     const float* __restrict__ rays8, int n,
@@ -339,18 +354,8 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
   bool more = true;  // a scan may still find pairs above the last one
   bool done = !(live && ray.valid);
   while (true) {
-    const bool scan = !done && w.k[0] < 0 && more;
-    const unsigned scanning = __ballot_sync(kFullMask, scan);
-    if (__popc(scanning) > kWarpScanMax) {
-      if (scan)
-        scan_window<SMEM>(bnd, stride, k_clusters, ray, t_max, last_e, last_k,
-                          best_t, w);
-    } else {
-      for (unsigned todo = scanning; todo; todo &= todo - 1)
-        scan_window_warp(bnd, stride, k_clusters, __ffs(todo) - 1, lane, ray,
-                         t_max, last_e, last_k, best_t, w);
-    }
-    if (scan) more = w.k[kWindow - 1] >= 0;
+    refill_windows<SMEM>(!done && w.k[0] < 0 && more, bnd, stride, k_clusters,
+                         lane, ray, t_max, last_e, last_k, best_t, w, more);
     if (!done && w.k[0] < 0) done = true;
     // entries ascend and best_t only falls: nothing later can pass either
     if (!done && !(w.e[0] < best_t)) done = true;

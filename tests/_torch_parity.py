@@ -7,6 +7,8 @@ the name does not start with test_).
   tests, and the agreement check between two mesh finds;
 - the scattered-balls scene's sphere pool and a random pool with their
   cluster tables, for the sphere-find tests;
+- models on the CPU of the CUDA kernels' schedules (the mesh traversal,
+  the sphere find and the key kernel);
 - `Noise`: seeded numpy noise per (purpose, iteration), fed identically
   to the port (through a Sampler subclass) and to the JAX package
   (through a monkeypatch of hobbyraytracer_tpu.core.rng).
@@ -426,6 +428,56 @@ def _model_leaf(o, d, blk, ids, t_max, lane_slots):
     return tc, lc, uc, vc
 
 
+def _model_rounds(entry, valid, best_t, window, warp_scan_max, stats):
+    """The kernels' round loop for every ray at once: refills the windows
+    that ran empty (refill_windows: by the ray's own lane when more than
+    `warp_scan_max` lanes of its warp want a scan, else by the warp), ends
+    the rays with nothing left below their best t, and yields (idx, kk):
+    the rays that visit now and the cluster each visits. The caller tests
+    the leaves and lowers `best_t` (N,) in place before it asks for the next
+    round. `stats` gets visits, scans and warp_scans (N,) int64."""
+    n, k_clusters = entry.shape
+    last_e = np.full((n,), -1.0, np.float32)
+    last_k = np.full((n,), -1, np.int64)
+    we = np.full((n, window), np.float32(1e30), np.float32)
+    wk = np.full((n, window), -1, np.int64)
+    more = np.ones((n,), bool)
+    done = ~valid
+    for name in ("visits", "scans", "warp_scans"):
+        stats[name] = np.zeros((n,), np.int64)
+    warp_of = np.arange(n) // MODEL_LANES
+    while True:
+        empty = ~done & (wk[:, 0] < 0)
+        scan = np.flatnonzero(empty & more)
+        if scan.size:
+            wanting = np.bincount(warp_of[scan], minlength=warp_of[-1] + 1)
+            own = wanting[warp_of[scan]] > warp_scan_max
+            lone, together = scan[own], scan[~own]
+            we[lone], wk[lone] = _model_scan(
+                entry[lone], last_e[lone], last_k[lone], best_t[lone], window)
+            for r in together:
+                we[r], wk[r] = _model_scan_warp(
+                    entry[r], last_e[r], last_k[r], best_t[r], window)
+            # a window that came back full may have left pairs behind,
+            # unless it holds every cluster there is
+            more[scan] = (wk[scan, window - 1] >= 0) & (k_clusters > window)
+            stats["scans"][scan] += 1
+            stats["warp_scans"][together] += 1
+        done = np.where(empty, wk[:, 0] < 0, done)
+        done |= ~done & ~(we[:, 0] < best_t)
+        idx = np.flatnonzero(~done)
+        if idx.size == 0:
+            return
+        kk = wk[idx, 0].copy()
+        stats["visits"][idx] += 1
+        last_e[idx] = we[idx, 0]
+        last_k[idx] = kk
+        we[idx, :-1] = we[idx, 1:]
+        wk[idx, :-1] = wk[idx, 1:]
+        wk[idx, window - 1] = -1
+        yield idx, kk
+
+
 def model_traverse(rays8, bounds8, tri_soa, tri_id, t_max=1e30,
                    need_uv=True, window=4, lane_slots=4, warp_scan_max=16):
     """The CUDA traversal's schedule on the CPU (numpy arrays in and out):
@@ -443,50 +495,14 @@ def model_traverse(rays8, bounds8, tri_soa, tri_id, t_max=1e30,
     valid = rays[:, 6] > 0.0
     entry = slab_entries(o, d, valid, torch.from_numpy(bounds8),
                          float(t_max)).numpy()
-    big = np.float32(1e30)
     out = np.zeros((n, 8), np.float32)
-    out[:, 0] = big
+    out[:, 0] = np.float32(1e30)
     best_id = np.full((n,), -1, np.int32)
-    last_e = np.full((n,), -1.0, np.float32)
-    last_k = np.full((n,), -1, np.int64)
-    we = np.full((n, window), big, np.float32)
-    wk = np.full((n, window), -1, np.int64)
-    more = np.ones((n,), bool)
-    done = ~valid.numpy()
-    visits = np.zeros((n,), np.int64)
-    scans = np.zeros((n,), np.int64)
-    warp_scans = np.zeros((n,), np.int64)
-    warp_of = np.arange(n) // MODEL_LANES
-    while True:
-        empty = ~done & (wk[:, 0] < 0)
-        scan = np.flatnonzero(empty & more)
-        if scan.size:
-            wanting = np.bincount(warp_of[scan], minlength=warp_of[-1] + 1)
-            own = wanting[warp_of[scan]] > warp_scan_max
-            lone, together = scan[own], scan[~own]
-            we[lone], wk[lone] = _model_scan(
-                entry[lone], last_e[lone], last_k[lone], out[lone, 0],
-                window)
-            for r in together:
-                we[r], wk[r] = _model_scan_warp(
-                    entry[r], last_e[r], last_k[r], out[r, 0], window)
-            more[scan] = wk[scan, window - 1] >= 0
-            scans[scan] += 1
-            warp_scans[together] += 1
-        done = np.where(empty, wk[:, 0] < 0, done)
-        done |= ~done & ~(we[:, 0] < out[:, 0])
-        idx = np.flatnonzero(~done)
-        if idx.size == 0:
-            break
-        kk = wk[idx, 0]
+    stats = {}
+    for idx, kk in _model_rounds(entry, valid.numpy(), out[:, 0], window,
+                                 warp_scan_max, stats):
         tc, lc, uc, vc = _model_leaf(o[idx], d[idx], soa[kk, 0:9],
                                      ids_t[kk], float(t_max), lane_slots)
-        visits[idx] += 1
-        last_e[idx] = we[idx, 0]
-        last_k[idx] = kk
-        we[idx, :-1] = we[idx, 1:]
-        wk[idx, :-1] = wk[idx, 1:]
-        wk[idx, window - 1] = -1
         take = tc < out[idx, 0]
         idx, kk, tc, lc, uc, vc = (x[take] for x in (idx, kk, tc, lc, uc, vc))
         a = tri_soa[kk, 9:24, lc]                         # (A', 15)
@@ -500,7 +516,168 @@ def model_traverse(rays8, bounds8, tri_soa, tri_id, t_max=1e30,
                 out[idx, 4 + c] = (w0 * a[:, 9 + c] + uc * a[:, 11 + c]
                                    + vc * a[:, 13 + c])
         best_id[idx] = tri_id[kk, lc]
-    return out, best_id, visits, scans, warp_scans
+    return out, best_id, stats["visits"], stats["scans"], stats["warp_scans"]
+
+
+# --- models of the sphere kernel K4 and the key kernel K3 ------------------
+#
+# csrc/sphere_traverse.cu walks the same windows as the mesh kernels
+# (_model_rounds) and tests a round's leaves in one of two ways, chosen by
+# the number of lanes of the warp that visit: each lane for itself, slot
+# after slot with a strict < fold, or the warp for each of them, lanes over
+# sphere slots reduced on (bits of t, slot). In both the root is computed
+# only where disc > 0.
+# csrc/coherence_keys.cu picks each axis' near and far bound by the ray's
+# direction and keeps one running limit, over boxes padded to a multiple of
+# 4 with boxes at 1e30.
+
+
+def _model_sphere_leaf(o, d, blk, t_min, t_max, lanes_over_slots,
+                       lane_slots=4):
+    """A (ray, cluster) visits of the sphere kernel: o, d (A, 3), blk (A, 4,
+    L) rows [cx cy cz r2] -> (t (A,), slot (A,)), 1e30 and -1 without a hit.
+    Torch float32, op for op as the kernel orders it; sqrt and the roots
+    only for the (visit, sphere) pairs with disc > 0."""
+    a_n, _, leaf = blk.shape
+    ox, oy, oz = (o[:, c:c + 1] for c in range(3))
+    dx, dy, dz = (d[:, c:c + 1] for c in range(3))
+    a = (dx * dx + dy * dy + dz * dz).expand(a_n, leaf)
+    inv_a = (1.0 / (dx * dx + dy * dy + dz * dz)).expand(a_n, leaf)
+    ocx, ocy, ocz = ox - blk[:, 0], oy - blk[:, 1], oz - blk[:, 2]
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - blk[:, 3]
+    disc = half_b * half_b - a * c
+    sel = disc > 0.0                     # only these reach the root path
+    hb, ia = half_b[sel], inv_a[sel]
+    sq = torch.sqrt(disc[sel])
+    r1 = (-hb - sq) * ia
+    r2 = (-hb + sq) * ia
+    in1 = (r1 >= t_min) & (r1 <= t_max)
+    in2 = (r2 >= t_min) & (r2 <= t_max)
+    big = np.float32(1e30)
+    t = torch.full((a_n, leaf), float(big))
+    t[sel] = torch.where(in1, r1, torch.where(in2, r2, float(big)))
+    t = t.numpy()
+    none = np.uint32(0xFFFFFFFF)
+    tc = np.full((a_n,), big, np.float32)
+    lc = np.full((a_n,), -1, np.int64)
+    if not lanes_over_slots:             # a strict < fold, slot after slot
+        for l in range(leaf):
+            better = t[:, l] < tc
+            tc = np.where(better, t[:, l], tc)
+            lc = np.where(better, l, lc)
+        return tc, lc
+    for base in range(0, leaf, MODEL_LANES * lane_slots):   # one pass
+        t_l = np.full((a_n, MODEL_LANES), big, np.float32)
+        slot_l = np.full((a_n, MODEL_LANES), none, np.uint32)
+        for s in range(lane_slots):      # a lane's own slots, ascending
+            lo = base + MODEL_LANES * s
+            width = min(MODEL_LANES, leaf - lo)
+            if width <= 0:
+                break
+            take = t[:, lo:lo + width] < t_l[:, :width]
+            t_l[:, :width] = np.where(take, t[:, lo:lo + width],
+                                      t_l[:, :width])
+            slot_l[:, :width] = np.where(
+                take, np.arange(lo, lo + width, dtype=np.uint32),
+                slot_l[:, :width])
+        # ordered_bits: the bits of t as unsigned integers that order as t
+        bits = t_l.view(np.uint32)
+        bits = np.where(bits >> 31, ~bits, bits | np.uint32(0x80000000))
+        t_best = bits.min(axis=1)
+        slot = np.where(bits == t_best[:, None], slot_l, none).min(axis=1)
+        t_w = t_l[np.arange(a_n), (slot & np.uint32(31)).astype(np.int64)]
+        better = t_w < tc
+        tc = np.where(better, t_w, tc)
+        lc = np.where(better, slot.astype(np.int64), lc)
+    return tc, lc
+
+
+def sphere_warp_visit_max(leaf, miss_ops=19, broadcast_ops=24):
+    """The sphere kernel's rule for a round's visits: with more visiting
+    lanes than this each lane visits for itself (`leaf` misses a round),
+    else the warp visits for each of them (a broadcast and a pass of misses
+    per 32 slots a ray)."""
+    return miss_ops * leaf // (broadcast_ops + miss_ops * ((leaf + 31) // 32))
+
+
+def model_sphere_traverse(rays8, bounds8, table, ids, t_min, t_max=1e30,
+                          window=4, warp_visit_max=None, warp_scan_max=16):
+    """The CUDA sphere kernel's schedule on the CPU (numpy in and out): ->
+    (t (N,) float32, id (N,) int32, visits (N,), scans (N,) int64, by_warp
+    (N,) int64 those of the visits that the ray's warp made together).
+    `warp_visit_max` None is the kernel's rule; 0 makes every visit the
+    lane's own and 32 every visit the warp's."""
+    from hobbyraytracer_tpu_torch.kernels.mesh_traverse import slab_entries
+    rays = torch.from_numpy(np.ascontiguousarray(rays8))
+    tab = torch.from_numpy(np.ascontiguousarray(table[:, 0:4]))
+    n = rays.shape[0]
+    o, d = rays[:, 0:3], rays[:, 3:6]
+    valid = rays[:, 6] > 0.0
+    t_min, t_max = float(np.float32(t_min)), float(np.float32(t_max))
+    entry = slab_entries(o, d, valid, torch.from_numpy(bounds8),
+                         t_max).numpy()
+    best_t = np.full((n,), np.float32(1e30), np.float32)
+    best_id = np.full((n,), -1, np.int32)
+    if warp_visit_max is None:
+        warp_visit_max = sphere_warp_visit_max(table.shape[2])
+    by_warp = np.zeros((n,), np.int64)
+    stats = {}
+    for idx, kk in _model_rounds(entry, valid.numpy(), best_t, window,
+                                 warp_scan_max, stats):
+        warp = idx // MODEL_LANES
+        together = np.bincount(warp)[warp] <= warp_visit_max
+        tc = np.empty((idx.size,), np.float32)
+        lc = np.empty((idx.size,), np.int64)
+        for sel, lanes_over_slots in ((~together, False), (together, True)):
+            if sel.any():
+                tc[sel], lc[sel] = _model_sphere_leaf(
+                    o[idx[sel]], d[idx[sel]], tab[kk[sel]], t_min, t_max,
+                    lanes_over_slots)
+        by_warp[idx[together]] += 1
+        take = tc < best_t[idx]
+        best_t[idx[take]] = tc[take]
+        best_id[idx[take]] = ids[kk[take], lc[take]]
+    return best_t, best_id, stats["visits"], stats["scans"], by_warp
+
+
+def model_keys(rays8, bounds8, t_max=1e30):
+    """The CUDA key kernel's loop on the CPU (numpy in and out): boxes
+    padded to a multiple of 4 with boxes at 1e30; per ray and axis the near
+    and the far bound chosen by the sign of 1/d, not by a min and a max of
+    the two products; one running limit a ray (min(e_min, t_max), 0 for an
+    invalid ray) that a box must stay strictly below, boxes in index order;
+    e_min is the limit of a ray that took a box.
+    -> (e_min (N,) float32, first (N,) int32)."""
+    n, k_clusters = rays8.shape[0], bounds8.shape[1]
+    stride = -(-k_clusters // 4) * 4
+    boxes = np.full((6, stride), np.float32(1e30), np.float32)
+    boxes[:, :k_clusters] = bounds8[:6]
+    boxes = torch.from_numpy(boxes)
+    rays = torch.from_numpy(np.ascontiguousarray(rays8))
+    o, d = rays[:, 0:3], rays[:, 3:6]
+    valid = (rays[:, 6] > 0.0).numpy()
+    lo = hi = None
+    for ax in range(3):
+        inv = 1.0 / torch.where(d[:, ax:ax + 1].abs() < 1e-30, 1e-30,
+                                d[:, ax:ax + 1])
+        neg = inv < 0.0
+        near = torch.where(neg, boxes[3 + ax:4 + ax], boxes[ax:ax + 1])
+        far = torch.where(neg, boxes[ax:ax + 1], boxes[3 + ax:4 + ax])
+        lo_ax = (near - o[:, ax:ax + 1]) * inv
+        hi_ax = (far - o[:, ax:ax + 1]) * inv
+        lo = lo_ax if lo is None else torch.maximum(lo, lo_ax)
+        hi = hi_ax if hi is None else torch.minimum(hi, hi_ax)
+    e = torch.clamp(lo, min=0.0).numpy()
+    hi = hi.numpy()
+    lim = np.where(valid, np.float32(t_max), np.float32(0.0))
+    first = np.full((n,), -1, np.int32)       # -1 until a box was taken
+    for c in range(stride):
+        better = (hi[:, c] > e[:, c]) & (e[:, c] < lim)
+        lim = np.where(better, e[:, c], lim)
+        first = np.where(better, c, first).astype(np.int32)
+    return (np.where(first < 0, np.float32(np.inf), lim).astype(np.float32),
+            np.maximum(first, 0))
 
 
 def tie_tables(seed=5, n_tris=400):

@@ -35,8 +35,9 @@ SMEM_MAX_K = 2048
 # slab scan; a ray that enters more clusters than this scans again
 WINDOW = 4
 # kSphereSmemBytes in csrc/sphere_traverse.cu: K4 stages a sphere pool's
-# 6K + 5KL words in shared memory while they fit this, and reads them from
-# global memory past it
+# boxes (6 rows of K padded to a multiple of 4) and its table (one 16-byte
+# word a sphere, clusters L | 1 words apart) in shared memory while they fit
+# this, and reads the table from global memory past it
 SPHERE_SMEM_BYTES = 48 * 1024
 
 pytestmark = pytest.mark.cuda
@@ -261,6 +262,27 @@ def test_key_kernel_matches_plain(dev, mesh):
     assert torch.equal(e_k, e_p) and torch.equal(f_k, f_p)
 
 
+@pytest.mark.parametrize("n_rays", [1, 33, 4097])
+@pytest.mark.parametrize("mesh", ["hires-821", "random-20k-leaf8"])
+def test_key_kernel_takes_any_cluster_and_ray_count(dev, mesh, n_rays):
+    """K3 at a K that is no multiple of 4 (teapot_hires's first 821 boxes:
+    three padding boxes in the staging, which must never win) and at K =
+    2,500 (boxes read from global memory), with ray counts that fill neither
+    a warp nor a block: e_min and first exactly equal."""
+    if mesh == "hires-821":
+        b8, _, _, _, rays = _mesh_case("teapot_hires")
+        b8 = np.ascontiguousarray(b8[:, :821])
+    else:
+        b8, _, _, _, rays = _mesh_case(mesh)
+    assert b8.shape[1] % 4 != 0 or b8.shape[1] > SMEM_MAX_K
+    rays8, b8 = _on(dev, pack_rays8(*rays)[:n_rays], b8)
+    e_k, f_k = pk.coherence_keys(rays8, b8)
+    e_p, f_p = pk.coherence_keys_plain(rays8, b8)
+    torch.cuda.synchronize()
+    assert e_k.shape == f_k.shape == (n_rays,)
+    assert torch.equal(e_k, e_p) and torch.equal(f_k, f_p)
+
+
 def test_render_through_kernel_matches_plain(dev):
     """A whole render through the kernel and through the plain version with
     one seed: the images agree (the framebuffer's index_add_ uses atomics,
@@ -321,11 +343,11 @@ def test_sphere_kernel_matches_plain(dev, pool):
     """K4 vs its plain version: t and ids bitwise equal (tolerance 0), on
     the balls scene's tables (K = 4, staged in shared memory) and on random
     pools of 5,000 spheres (K = 64) and 3,000 on 16-sphere leaves (K = 256),
-    both past the staging, read from global memory. Dead lanes give 1e30
-    and -1."""
+    both past the staging, their tables read from global memory. Dead lanes
+    give 1e30 and -1."""
     bounds8, table, ids, rays, staged = _sphere_case(pool)
     k_clusters, _, leaf = table.shape
-    assert ((6 * k_clusters + 5 * k_clusters * leaf) * 4
+    assert (24 * (-(-k_clusters // 4) * 4) + 16 * k_clusters * (leaf | 1)
             <= SPHERE_SMEM_BYTES) == staged
     assert staged or table.shape[0] >= 40
     rays8, b8, tab, idt = _on(dev, pack_rays8(*rays), bounds8, table, ids)
@@ -347,6 +369,47 @@ def test_sphere_kernel_matches_plain(dev, pool):
     t_q, id_q = sk.intersect_spheres_plain(rays8, b8, tab, idt, 0.5, 9.0)
     assert torch.equal(t_w, t_q) and torch.equal(id_w, id_q)
     assert ((t_w >= 0.5) & (t_w <= 9.0) | (id_w < 0)).all()
+
+
+@pytest.mark.parametrize("order", ["drawn", "random"])
+@pytest.mark.parametrize("pool", ["random-5000", "random-3000-leaf16"])
+def test_sphere_kernel_matches_plain_on_refilling_rays(dev, pool, order):
+    """Pools whose K exceeds the kernel's window: a counted number of rays
+    enters more clusters than the window holds and scans again, and K4 still
+    equals the plain version bit for bit, also with the rays in a seeded
+    random order (each ray's result moves with it)."""
+    bounds8, table, ids, _, _ = _sphere_case(pool)
+    rays8, b8, tab, idt = _on(
+        dev, pack_rays8(*random_rays(25, 50_000, spread=25.0)), bounds8,
+        table, ids)
+    if order == "random":
+        rays8 = rays8[torch.randperm(rays8.shape[0], generator=torch
+                                     .Generator().manual_seed(0)).to(dev)]
+        rays8 = rays8.contiguous()
+    t_p, id_p = sk.intersect_spheres_plain(rays8, b8, tab, idt, 1e-3)
+    n_refill = refill_rays(rays8, b8, t_p, WINDOW)
+    assert n_refill >= 1000, f"only {n_refill} of 50000 rays refill"
+    t_k, id_k = sk.intersect_spheres_kernel(rays8, b8, tab, idt, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    assert (id_p >= 0).float().mean() > 0.05
+
+
+@pytest.mark.parametrize("n_rays", [1, 33, 4097])
+@pytest.mark.parametrize("pool", ["balls", "random-5000"])
+def test_sphere_kernel_takes_any_ray_count(dev, pool, n_rays):
+    """A ray count that fills neither a warp nor a block, on the staged
+    pool and on the one read from global memory: the lanes past the last
+    ray idle through the warp's rounds, and K4 equals the plain version."""
+    bounds8, table, ids, rays, _ = _sphere_case(pool)
+    rays8, b8, tab, idt = _on(dev, pack_rays8(*rays)[1:n_rays + 1], bounds8,
+                              table, ids)
+    t_k, id_k = sk.intersect_spheres_kernel(rays8, b8, tab, idt, 1e-3)
+    t_p, id_p = sk.intersect_spheres_plain(rays8, b8, tab, idt, 1e-3)
+    torch.cuda.synchronize()
+    assert t_k.shape == id_k.shape == (n_rays,)
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    assert n_rays == 1 or (id_p >= 0).any()
 
 
 def test_sphere_kernel_argument_checks(dev):
