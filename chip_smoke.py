@@ -70,11 +70,33 @@ l. hold K4 against its plain version, bitwise, on two random sphere pools
    on phase b's rays with a K that is not a multiple of 4 (the first 821
    boxes) and at phase k's K = 2,500 (boxes read from global memory), with
    a counted number of rays (at least 1,000) whose smallest entry is
-   shared by two or more clusters.
+   shared by two or more clusters;
+m. render scenes/two_teapots.yaml (two transformed instances of the
+   teapot, so K1 launches twice a segment) at 640x640, 16 spp, pool
+   196,608, max depth 50 with Russian roulette, by the default route (each
+   mesh find sorts its rays) and with pool_sort=2 (the whole pool permuted
+   every second segment, the mesh finds told cohsort=False): every sample
+   retired, finite images, the tonemapped mean against a JAX CPU render,
+   K1 launched exactly twice a segment and no other kernel; rays/s of both;
+n. K1 on a mid-render two_teapots pool after the pool permute, each mesh
+   found with cohsort=False: bitwise equal to the plain version on the same
+   rays, and lane for lane to the call that sorts per mesh;
+o. the lockstep find (ops/intersect.py:intersect_mesh_clustered, plain
+   PyTorch by design) on the card against K1 on the teapot's
+   after-one-bounce rays: hit masks equal, t within 1e-6, under 1% of ids
+   differing; its time beside K1's;
+p. render scenes/cornell_smoke.yaml (two box media, a glass sphere) at its
+   own 256x256, 64 spp: every sample retired, finite, no kernel launched,
+   the tonemapped mean against a JAX CPU render; then a scene built here
+   with the teapot mesh as a medium's boundary, for a few segments at the
+   full pool: finite, and the medium scatters a counted number of rays;
+q. integrator/path.py:render_image (the batch integrator) on the teapot at
+   128x128, 16 spp against the wavefront integrator: means within 10%.
 
 The second-to-last line is a JSON object with each kernel's numbers: its
-launches in its path's render, its time and its plain version's at 196,608
-rays, and `bound_ms`, the least time the card could take for the same work
+launches in its path's render (K1: the two_teapots render by the default
+route, with its counts in the other renders under `launches_by_path`), its
+time and its plain version's at 196,608 rays, and `bound_ms`, the least time the card could take for the same work
 (the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
 of float32; the operations are those this run's rays need: one scan of the
 K slab tests per ray and one leaf test for every cluster a ray enters
@@ -87,14 +109,18 @@ four functions, so `library_ms` is null. The last line is
 """
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SCENE = "scenes/teapot_scene.yaml"
 HIRES = "scenes/teapot_hires.yaml"
 BALLS = "scenes/scattered_balls.yaml"
+TWO = "scenes/two_teapots.yaml"
+SMOKE = "scenes/cornell_smoke.yaml"
 DEVICE = "cuda:0"
 WIDTH = HEIGHT = 640
 SPP = 16
@@ -118,7 +144,52 @@ JAX_CPU_MEAN_HIRES = 0.3434
 # 0.61945, 0.61820 at 192x192, 256x256 and 320x320; the mean of those last
 # three is 0.6195.
 JAX_CPU_MEAN_BALLS = 0.6195
+# The same for scenes/two_teapots.yaml (scripts/jax_cpu_means.py, JAX CPU
+# mesh find, same settings): seeds 0 and 1 at 64x64 and 96x96 and seed 2 at
+# 128x128 gave 0.32589, 0.32270, 0.32568, 0.32152, 0.32290; their mean is
+# 0.3237.
+JAX_CPU_MEAN_TWO = 0.3237
+# The same for scenes/cornell_smoke.yaml at its own 64 spp (max depth 50,
+# RR on, pool 196,608): seeds 0 and 1 at 64x64, seed 0 at 96x96, seed 1 at
+# 128x128 and seed 2 at the scene's 256x256 gave 0.46916, 0.46627, 0.46909,
+# 0.46966, 0.47167; their mean is 0.4692.
+JAX_CPU_MEAN_SMOKE = 0.4692
 MEAN_BAND = 0.05
+# phase p: the mesh-boundary medium scene (the teapot room with the teapot
+# as a fog's boundary), its segments, and the fewest rays the fog must
+# scatter over them
+FOG_SEGMENTS = 4
+FOG_MIN_HITS = 1_000
+FOG_SCENE = """
+film: {{width: 640, height: 640, samples: 16, output: fog.png}}
+camera:
+    position: [0, 2.5, 8.5]
+    look_at: [0, 2.5, 0]
+    up: [0, 1, 0]
+    fov: 45
+    aperture: 0.001
+    focal_distance: 8.5
+    background: [0.6, 0.7, 0.9]
+materials:
+  - {{name: white, type: lambertian, albedo: [0.73, 0.73, 0.73]}}
+  - {{name: light, type: diffuse_light, albedo: [0.93, 0.75, 0.43],
+     strength: 4.5}}
+objects:
+  - {{type: xz_rect, x: [-2.5, 2.5], z: [-2.5, 2.5], k: 0, material: white}}
+  - {{type: xz_rect, x: [-1, 1], z: [-1, 1], k: 4.99, material: light}}
+  - type: constant_medium
+    density: 2.0
+    albedo: [0.9, 0.9, 0.9]
+    boundary: {{type: mesh, path: {obj}}}
+    transform:
+        rotate: [0, 180, 0]
+        translate: [0, 1, 0]
+        scale: [0.45, 0.45, 0.45]
+"""
+# phase q: the batch integrator's render and the band of its mean around
+# the wavefront integrator's (tests/test_wavefront.py's radiometry check)
+BATCH_SIZE = 128
+BATCH_BAND = 0.10
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores, for `bound_ms`
 H100_BYTES_PER_S = 3.35e12
@@ -175,6 +246,8 @@ ROUTE_N_ATOL = 2e-2
 TABLE_SHA256 = {
     SCENE: "9d1ca0e72fc7fef4ede9e7818b4cff9256a35bb4452ac5aab982f2675a156516",
     HIRES: "ea19e62d105d97afad20374241c39ef74b892b2fb345313bf1619e6484ad2244",
+    # two instances of the teapot's mesh
+    TWO: "9d1ca0e72fc7fef4ede9e7818b4cff9256a35bb4452ac5aab982f2675a156516",
     # the sphere pool's cluster tables (numpy median split, K = 4)
     BALLS: "588ceea6a76a98b7ee1ca587d74e33b0e69c06fac27ce1de00055ec61d6eecfa",
 }
@@ -193,18 +266,18 @@ def table_digest(geom):
 
 
 def load_scene(path):
-    """build_scene on the host; its cluster tables (the mesh's, or the
+    """build_scene on the host; its cluster tables (every mesh's, or the
     sphere pool's in a scene without a mesh) must match the pinned digest
     (the native C++ cluster build ran, as in the reference)."""
     from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
     job = build_scene(load_scene_desc(path))
     meshes = [i.mesh for i in job.scene.instances if i.kind == "mesh"]
-    geom = meshes[0] if meshes else job.scene.spheres
-    digest = table_digest(geom)
-    check(digest == TABLE_SHA256[path],
-          f"{path}: cluster tables {digest} differ from the reference's")
-    k_clusters = (geom.bounds8 if meshes else geom.kernel_bounds).shape[1]
-    print(f"[tables] {path}: K = {k_clusters}, sha256 {digest}")
+    for geom in meshes or [job.scene.spheres]:
+        digest = table_digest(geom)
+        check(digest == TABLE_SHA256[path],
+              f"{path}: cluster tables {digest} differ from the reference's")
+        k_clusters = (geom.bounds8 if meshes else geom.kernel_bounds).shape[1]
+        print(f"[tables] {path}: K = {k_clusters}, sha256 {digest}")
     return job
 
 
@@ -426,38 +499,54 @@ def pool_ray_sets(scene, camera, mesh_inst=None, sort_key=None):
     return sets
 
 
-def render(scene, camera, libs, label, jax_mean):
-    """The 640x640 main-path render through wavefront.render_image (what
-    the CLI calls) with every kernel count set to 0 just before it and read
-    just after. Returns (launches by kernel name, seconds, mean, rays/s)."""
+def render(scene, camera, libs, label, jax_mean, width=WIDTH, height=HEIGHT,
+           spp=SPP, pool_sort=None):
+    """A main-path render (640x640 @ 16 spp unless told otherwise) through
+    wavefront.render_image (what the CLI calls) with every kernel count set
+    to 0 just before it and read just after. The segments are counted by
+    wrapping wavefront._segment for the render. Returns (launches by kernel
+    name, seconds, mean, rays/s, (retired, total), segments)."""
     import torch
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.integrator import wavefront
     dev = camera.origin.device
     wavefront.render_image(scene, camera, 64, 64, 4, Sampler(SEED, dev),
-                           pool=POOL)  # warm-up
+                           pool=POOL, pool_sort=pool_sort)  # warm-up
     torch.cuda.synchronize()
     seen = []
+    segments = [0]
+    segment = wavefront._segment
+
+    def counted(*args, **kwargs):
+        segments[0] += 1
+        return segment(*args, **kwargs)
+
     for lib in libs:
         lib.launches = 0
-    t0 = time.perf_counter()
-    img = wavefront.render_image(
-        scene, camera, WIDTH, HEIGHT, SPP, Sampler(SEED, dev), max_depth=50,
-        pool=POOL, progress_cb=lambda r, t: seen.append((r, t)), rr=True)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    wavefront._segment = counted
+    try:
+        t0 = time.perf_counter()
+        img = wavefront.render_image(
+            scene, camera, width, height, spp, Sampler(SEED, dev),
+            max_depth=50, pool=POOL,
+            progress_cb=lambda r, t: seen.append((r, t)), rr=True,
+            pool_sort=pool_sort)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        wavefront._segment = segment
     launches = {lib.name: lib.launches for lib in libs}
-    check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image {img.shape}")
+    check(tuple(img.shape) == (height, width, 3), f"image {img.shape}")
     check(bool(torch.isfinite(img).all()), f"{label}: non-finite pixels")
     retired, total = seen[-1]
-    check(retired == total == WIDTH * HEIGHT * SPP,
-          f"{label}: retired {retired} of {WIDTH * HEIGHT * SPP} samples")
+    check(retired == total == width * height * spp,
+          f"{label}: retired {retired} of {width * height * spp} samples")
     mean = img.mean().item()
     check(abs(mean - jax_mean) <= MEAN_BAND * jax_mean,
           f"{label}: image mean {mean:.5f} outside {jax_mean} +- "
           f"{MEAN_BAND:.0%}")
-    rays_per_s = WIDTH * HEIGHT * SPP / seconds
-    return launches, seconds, mean, rays_per_s, (retired, total)
+    rays_per_s = width * height * spp / seconds
+    return launches, seconds, mean, rays_per_s, (retired, total), segments[0]
 
 
 def main():
@@ -585,7 +674,7 @@ def main():
           f"({visits / POOL:.3f} leaf visits a ray)")
 
     # 4. the main path: a 640x640, 16 spp teapot render
-    launches, seconds, mean, rays_per_s, (retired, total) = render(
+    launches, seconds, mean, rays_per_s, (retired, total), _ = render(
         scene, camera, libs, "teapot", JAX_CPU_MEAN)
     check(launches[k1.name] > 0, "the render never launched K1")
     check(launches[k2.name] == 0, "the teapot render launched K2")
@@ -725,7 +814,7 @@ def main():
     print(f"[K3] bound {bound_k3[0]:.4f} ms by {bound_k3[1]}")
 
     # e. the large-mesh path: a 640x640, 16 spp teapot_hires render
-    launches, seconds, mean, rays_per_s, (retired, total) = render(
+    launches, seconds, mean, rays_per_s, (retired, total), _ = render(
         hscene, hcamera, libs, "teapot_hires", JAX_CPU_MEAN_HIRES)
     check(launches[k2.name] > 0, "the teapot_hires render never launched K2")
     check(launches[k1.name] == 0, "the teapot_hires render launched K1")
@@ -845,7 +934,7 @@ def main():
     k4_launches = 0
     for on in (False, True):
         isect.SPHERE_KERNEL = on
-        launches, seconds, mean, rays_per_s, (retired, total) = render(
+        launches, seconds, mean, rays_per_s, (retired, total), _ = render(
             bscene, bcamera, libs, "scattered_balls", JAX_CPU_MEAN_BALLS)
         route = "K4 (SPHERE_KERNEL on)" if on else "dense scan (default)"
         check((launches[k4.name] > 0) == on,
@@ -944,20 +1033,203 @@ def main():
               f"between clusters")
         check(n_tied >= REFILL_MIN, f"K3, {label}: only {n_tied} tied rays")
 
+    # m. the two-mesh path: 640x640, 16 spp two_teapots renders by the
+    # default route and with the pool sorted every second segment
+    tjob = load_scene(TWO)
+    tscene = tjob.scene.to(dev)
+    tcamera = tjob.camera.to(dev)
+    n_meshes = sum(i.kind == "mesh" for i in tscene.instances)
+    check(n_meshes == 2, f"two_teapots has {n_meshes} meshes")
+    k1_by_path = {"teapot": k1_launches}
+    for pool_sort in (0, 2):
+        launches, seconds, mean, rays_per_s, (retired, total), segs = render(
+            tscene, tcamera, libs, "two_teapots", JAX_CPU_MEAN_TWO,
+            pool_sort=pool_sort)
+        route = (f"pool_sort={pool_sort} (cohsort=False)" if pool_sort
+                 else "default route (per-mesh sort)")
+        check(launches[k1.name] == n_meshes * segs,
+              f"{route}: K1 launched {launches[k1.name]} times in {segs} "
+              f"segments")
+        check(launches[k2.name] == launches[k3.name] == launches[k4.name]
+              == 0, f"the two_teapots render launched {launches}")
+        k1_by_path[f"two_teapots pool_sort={pool_sort}"] = launches[k1.name]
+        print(f"[render] two_teapots {WIDTH}x{HEIGHT} @ {SPP} spp, pool "
+              f"{POOL}, {route}: {seconds:.3f} s, {rays_per_s:,.0f} primary "
+              f"rays/s, {segs} segments, launches {launches} "
+              f"({launches[k1.name] / segs:g} K1 a segment), retired "
+              f"{retired}/{total}, mean {mean:.5f} (JAX CPU "
+              f"{JAX_CPU_MEAN_TWO}) on {card}")
+
+    # n. K1 with cohsort=False on a pool the pool sort permuted
+    _, n_chunks, _ = wavefront._chunk_geometry(SPP, wavefront.SAMPLE_CHUNK)
+    total_items = WIDTH * HEIGHT * n_chunks
+    sampler = Sampler(SEED, dev)
+    state = wavefront.init_state(WIDTH, HEIGHT, POOL, device=dev)
+    # start the queue at the lower image rows, which see the teapots
+    state.counter.fill_(WIDTH * HEIGHT - POOL)
+    for _ in range(3):
+        wavefront._regenerate(state, tcamera, WIDTH, HEIGHT, total_items,
+                              sampler)
+        wavefront._segment(state, tscene, WIDTH, HEIGHT, sampler, 50, SPP)
+    wavefront._regenerate(state, tcamera, WIDTH, HEIGHT, total_items, sampler)
+    wavefront._pool_permute(state, tscene)
+    active = wavefront._active(state)
+    for n, tinst in enumerate(i for i in tscene.instances
+                              if i.kind == "mesh"):
+        tm = tinst.mesh
+        r = tinst.transform.ray_to_object(Rays(o=state.o, d=state.d))
+        find = dict(rays=r, tri_id=tm.cluster_id, tri_soa=tm.tri_soa,
+                    bounds8=tm.bounds8, t_max=1e30, ray_valid=active)
+        k1.launches = k3.launches = 0
+        got = isect.intersect_mesh_clustered_fused(**find, cohsort=False)
+        check((k1.launches, k3.launches) == (1, 0),
+              f"cohsort=False launched K1 {k1.launches} and K3 "
+              f"{k3.launches} times")
+        plain = isect.intersect_mesh_clustered_fused(**find, cohsort=False,
+                                                     plain=True)
+        by_mesh = isect.intersect_mesh_clustered_fused(**find, cohsort=True)
+        torch.cuda.synchronize()
+        n_hit = int(got[2].sum())
+        check(n_hit > 0, f"mesh {n}: no ray of the permuted pool hit it")
+        for name, a, b, c in zip(("t", "id", "hit", "normal", "uv"), got,
+                                 plain, by_mesh):
+            check(bool(torch.equal(a, b)),
+                  f"mesh {n}, cohsort=False: {name} differs from the plain "
+                  f"version")
+            check(bool(torch.equal(a, c)),
+                  f"mesh {n}: {name} differs between cohsort=False and the "
+                  f"per-mesh sort")
+        print(f"  K1 cohsort=False vs plain, two_teapots mesh {n} on the "
+              f"permuted pool: {POOL} lanes ({int(active.sum())} live), "
+              f"{n_hit} hits, bitwise equal, and lane for lane equal to the "
+              f"per-mesh-sorted call")
+
+    # o. the lockstep find on the card against K1
+    from hobbyraytracer_tpu_torch.scene import ir as scene_ir
+    rays8 = sets["after one bounce"]
+    r = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
+    valid = rays8[:, 6] > 0.0
+    tri_verts, bmin, bmax = scene_ir._live_clusters(mesh)
+    k1.launches = 0
+    t_l, id_l, hit_l = isect.intersect_mesh_clustered(
+        r, tri_verts, mesh.cluster_id, bmin, bmax, 1e30, ray_valid=valid)
+    check(k1.launches == 0, "the lockstep find launched K1")
+    out_k, id_k = kmod.traverse_clusters(rays8, *args, need_uv=False)
+    torch.cuda.synchronize()
+    hit_k = out_k[:, 0] < 1e30
+    check(bool(torch.equal(hit_l, hit_k)),
+          f"lockstep find: hit masks differ on {int((hit_l != hit_k).sum())}")
+    dt = (t_l[hit_k] - out_k[hit_k, 0]).abs()
+    check(bool((dt <= 1e-6 + 1e-6 * out_k[hit_k, 0].abs()).all()),
+          f"lockstep find: t off by up to {dt.max().item()}")
+    id_diff = ((id_l != id_k) & hit_k).float().mean().item()
+    check(id_diff < 0.01, f"lockstep find: ids differ on {id_diff:.4%}")
+    ms_lock = cuda_ms(lambda: isect.intersect_mesh_clustered(
+        r, tri_verts, mesh.cluster_id, bmin, bmax, 1e30, ray_valid=valid),
+        reps=3, warmup=1)
+    print(f"[lockstep] teapot, after one bounce: {POOL} rays, "
+          f"{int(hit_k.sum())} hits, masks equal, max |dt| "
+          f"{dt.max().item():.3g}, ids differ on {id_diff:.4%}; lockstep "
+          f"find {ms_lock:.3f} ms (one host read a round) beside K1 "
+          f"{times_k1[False][0]:.4f} ms on {card}")
+
+    # p. media: cornell_smoke at its own size, then a mesh-boundary fog
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    sjob = build_scene(load_scene_desc(SMOKE))
+    sscene, scamera = sjob.scene.to(dev), sjob.camera.to(dev)
+    check(len(sscene.media) == 2, f"cornell_smoke media {len(sscene.media)}")
+    launches, seconds, mean, rays_per_s, (retired, total), segs = render(
+        sscene, scamera, libs, "cornell_smoke", JAX_CPU_MEAN_SMOKE,
+        width=sjob.width, height=sjob.height, spp=sjob.samples)
+    check(not any(launches.values()),
+          f"the cornell_smoke render launched {launches}")
+    print(f"[render] cornell_smoke {sjob.width}x{sjob.height} @ "
+          f"{sjob.samples} spp, pool {POOL}: {seconds:.3f} s, "
+          f"{rays_per_s:,.0f} primary rays/s, {segs} segments, retired "
+          f"{retired}/{total}, mean {mean:.5f} (JAX CPU "
+          f"{JAX_CPU_MEAN_SMOKE}) on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        fog_path = os.path.join(tmp, "fog.yaml")
+        with open(fog_path, "w") as f:
+            f.write(FOG_SCENE.format(obj=os.path.abspath(
+                "assets/teapot.obj")))
+        fjob = build_scene(load_scene_desc(fog_path))
+    fscene, fcamera = fjob.scene.to(dev), fjob.camera.to(dev)
+    fog = fscene.media[0]
+    check(fog.btype == "mesh" and fog.mesh.use_bvh,
+          "the fog's boundary is not a clustered mesh")
+    state = wavefront.init_state(WIDTH, HEIGHT, POOL, device=dev)
+    # start the queue at the lower image rows, which see the teapot
+    state.counter.fill_(WIDTH * HEIGHT - POOL)
+    fog_hits = 0
+    for lib in libs:
+        lib.launches = 0
+    for _ in range(FOG_SEGMENTS):
+        wavefront._regenerate(state, fcamera, WIDTH, HEIGHT, total_items,
+                              sampler)
+        # the segment's own hits: the same rays, sampler and stream index
+        hits = scene_ir.intersect_scene(
+            fscene, Rays(o=state.o, d=state.d), sampler=sampler,
+            bounce=state.it, ray_valid=wavefront._active(state))
+        fog_hits += int((wavefront._active(state)
+                         & (hits.mat_id == fog.mat_id)).sum())
+        wavefront._segment(state, fscene, WIDTH, HEIGHT, sampler, 50, SPP)
+    torch.cuda.synchronize()
+    for f in ("o", "d", "thr", "rad", "fb"):
+        check(bool(torch.isfinite(getattr(state, f)).all()),
+              f"mesh-boundary fog: non-finite {f}")
+    check(fog_hits >= FOG_MIN_HITS,
+          f"mesh-boundary fog: only {fog_hits} rays scattered in it")
+    check(not any(lib.launches for lib in libs),
+          "the mesh-boundary medium launched a kernel")
+    print(f"[media] teapot-bounded fog, {FOG_SEGMENTS} segments at pool "
+          f"{POOL}: finite, {fog_hits} rays scattered in the medium (its "
+          f"boundary found by the lockstep find, no kernel)")
+
+    # q. the batch integrator against the wavefront integrator
+    from hobbyraytracer_tpu_torch.integrator import path as path_mod
+    for lib in libs:
+        lib.launches = 0
+    t0 = time.perf_counter()
+    img_b = path_mod.render_image(scene, camera, BATCH_SIZE, BATCH_SIZE, SPP,
+                                  Sampler(SEED + 8, dev), max_depth=50)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    batch_launches = k1.launches
+    check(batch_launches > 0, "the batch integrator never launched K1")
+    img_w = wavefront.render_image(scene, camera, BATCH_SIZE, BATCH_SIZE,
+                                   SPP, Sampler(SEED + 9, dev), max_depth=50,
+                                   pool=POOL)
+    check(bool(torch.isfinite(img_b).all()), "batch: non-finite pixels")
+    mb, mw = img_b.mean().item(), img_w.mean().item()
+    check(abs(mb - mw) <= BATCH_BAND * mw,
+          f"batch mean {mb:.5f} outside wavefront {mw:.5f} +- "
+          f"{BATCH_BAND:.0%}")
+    print(f"[batch] teapot {BATCH_SIZE}x{BATCH_SIZE} @ {SPP} spp, max depth "
+          f"50, no RR: {seconds:.3f} s (one host read a bounce), "
+          f"{BATCH_SIZE * BATCH_SIZE * SPP / seconds:,.0f} primary rays/s, "
+          f"K1 launches {batch_launches}, mean {mb:.5f} vs wavefront "
+          f"{mw:.5f} "
+          f"on {card}")
+
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
 
-    def row(lib, source, replaces, launches, err, ms, plain_ms, bnd, ops):
+    def row(lib, source, replaces, launches, err, ms, plain_ms, bnd, ops,
+            **more):
         return {"name": lib.name, "route": "cuda",
                 "source": f"{csrc}/{source}", "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "issue_bound_ms": issue_bound(ops, sm_count, sm_clock_mhz),
-                "library_ms": None}
+                "library_ms": None, **more}
 
+    # K1's `launches` is its count in the two_teapots render by the default
+    # route; its counts in each render that drives it are listed beside it
     print(json.dumps({"kernels": [
-        row(k1, "mesh_traverse.cu", f"{ref}:298", k1_launches, err_k1,
-            *times_k1[False], bound_k1, ops_k1),
+        row(k1, "mesh_traverse.cu", f"{ref}:298",
+            k1_by_path["two_teapots pool_sort=0"], err_k1,
+            *times_k1[False], bound_k1, ops_k1, launches_by_path=k1_by_path),
         row(k2, "mesh_traverse_stream.cu", f"{ref}:357", k2_launches,
             err_k2, *times_k2[False], bound_k2, ops_k2),
         row(k3, "coherence_keys.cu", f"{ref}:583", k3_launches, err_k3,

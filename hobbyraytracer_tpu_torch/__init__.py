@@ -14,11 +14,12 @@ counterpart there:
   plain PyTorch version beside it that runs for CPU tensors.
 
 Every entry point takes an explicit device; nothing falls back to the CPU.
-Ported so far: the wavefront renderer for spheres, rects, boxes and
-clustered OBJ meshes with all seven material types (six of the eight
-scenes in `scenes/`); what is left out (media, the batch integrator, the
-fit, distribution, checkpoints) raises `NotImplementedError` naming its
-ROADMAP item.
+Ported so far: the forward renderer, by the wavefront and the batch
+integrator, for spheres, rects, boxes, triangles, dense and clustered OBJ
+meshes and constant media with all seven material types (all eight scenes
+in `scenes/`); what is left out (the fit, distribution, checkpoints, image
+textures) raises `NotImplementedError` naming its ROADMAP item or is
+absent.
 """
 
 __version__ = "0.1.0"

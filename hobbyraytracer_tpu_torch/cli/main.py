@@ -3,12 +3,13 @@ hobbyraytracer_tpu/cli/main.py).
 
     python -m hobbyraytracer_tpu_torch.cli.main render scenes/teapot_scene.yaml -o out.png --device cuda
 
-renders a YAML scene through the wavefront integrator on the named device
-(default cuda; nothing falls back to the CPU) and prints the reference's
-"Loaded scene" / "Done!" lines plus the primary rays/s. A bare scene path
-means `render`, like the reference binary. The `fit` and `bench`
-subcommands, checkpointing and the batch integrator are not ported yet and
-exit with an error naming their ROADMAP item.
+renders a YAML scene on the named device (default cuda; nothing falls back
+to the CPU) through the wavefront integrator, or with `--integrator batch`
+through the batch integrator (integrator/path.py), and prints the
+reference's "Loaded scene" / "Done!" lines plus the primary rays/s. A bare
+scene path means `render`, like the reference binary. The `fit` and `bench`
+subcommands and checkpointing are not ported yet; the two subcommands exit
+with an error naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ def cmd_render(args) -> int:
     import torch
 
     from ..core.rng import Sampler
+    from ..integrator import path as path_mod
     from ..integrator import wavefront
     from ..ops import film as film_ops
     from ..scene import build_scene, load_scene_desc
@@ -71,18 +73,31 @@ def cmd_render(args) -> int:
     total_px = width * height
     last = [0.0]
 
-    def progress_cb(retired, total):
+    def progress_cb(done, total):
+        # done / total count samples, by either integrator
         now = time.time()
-        if retired >= total or now - last[0] >= 0.5:
+        if done >= total or now - last[0] >= 0.5:
             last[0] = now
-            _progress(min(retired // samples, total_px), total_px)
+            _progress(min(done // samples, total_px), total_px)
 
     _sync(device)
     t_render0 = time.time()
-    img = wavefront.render_image(
-        scene, camera, width, height, samples, Sampler(args.seed, device),
-        max_depth=args.max_depth, pool=args.pool or wavefront.DEFAULT_POOL,
-        progress_cb=progress_cb, rr=not args.no_rr)
+    sampler = Sampler(args.seed, device)
+    if args.integrator == "wavefront":
+        img = wavefront.render_image(
+            scene, camera, width, height, samples, sampler,
+            max_depth=args.max_depth,
+            pool=args.pool or wavefront.DEFAULT_POOL,
+            progress_cb=progress_cb, rr=not args.no_rr)
+    else:
+        chunk = args.chunk
+        if chunk <= 0:
+            # bound device memory: about 2M rays in flight at most
+            chunk = max(1, min(samples, 2_000_000 // max(1, total_px)))
+        img = path_mod.render_image(
+            scene, camera, width, height, samples, sampler,
+            max_depth=args.max_depth, sample_chunk=chunk,
+            progress_cb=progress_cb)
     img = img.cpu().numpy()
     t_render = time.time() - t_render0
     _progress(total_px, total_px)
@@ -120,9 +135,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--pool", type=int, default=0,
                     help="wavefront pool lanes (0 = default)")
+    sp.add_argument("--integrator", choices=["wavefront", "batch"],
+                    default="wavefront",
+                    help="wavefront: the regenerating lane pool (default); "
+                         "batch: one wavefront per sample of the whole "
+                         "image (integrator/path.py)")
+    sp.add_argument("--chunk", type=int, default=0,
+                    help="batch integrator: samples per chunk (0 = as many "
+                         "as keep about 2M rays in flight)")
     sp.add_argument("--no-rr", action="store_true",
-                    help="disable Russian roulette (trace every path to "
-                         "--max-depth like the reference)")
+                    help="wavefront integrator: disable Russian roulette "
+                         "(trace every path to --max-depth like the "
+                         "reference)")
     sp.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     sp.set_defaults(fn=cmd_render)

@@ -24,6 +24,7 @@ DIELECTRIC_CHOICE = 4
 MEDIUM_FLIGHT = 5
 LENS = 6
 RUSSIAN_ROULETTE = 7
+_FOLD = 1 << 32      # Sampler.fold_in's purpose, apart from every tag above
 
 _MASK64 = (1 << 64) - 1
 
@@ -51,6 +52,12 @@ class Sampler:
     def __init__(self, seed: int, device):
         self.seed = int(seed)
         self.device = torch.device(device)
+
+    def fold_in(self, index: int) -> "Sampler":
+        """An independent Sampler for sub-render `index` (one sample of the
+        batch integrator, one chunk of its samples): the counterpart of
+        jax.random.fold_in on the reference's key."""
+        return Sampler(stream_seed(self.seed, _FOLD, index), self.device)
 
     def generator(self, purpose: int, iteration: int) -> torch.Generator:
         g = torch.Generator(device=self.device)

@@ -1,6 +1,21 @@
-"""Shared integrator pieces (counterpart of
-hobbyraytracer_tpu/integrator/path.py): the bounce cap and the miss
-shading. The batch integrator itself is ROADMAP Queue 1 item 12."""
+"""The batch path-tracing integrator (counterpart of
+hobbyraytracer_tpu/integrator/path.py), and the pieces the wavefront
+integrator shares with it: the bounce cap and the miss shading.
+
+The whole pixel batch is one wavefront; the bounce loop's per-ray breaks
+are updates of an active mask. Radiance per bounce (main.cpp:43-76):
+
+    miss: result += throughput * background(dir); stop
+    hit:  result += throughput * emitted
+          scatter ? (throughput *= attenuation; continue) : stop
+
+Where the reference runs a lax.while_loop, `trace` is a Python loop that
+reads one flag from the device every bounce (is any ray still active?) and
+stops when none is, or at max_depth. Lanes that ended keep riding along:
+this integrator is the simple one, the wavefront integrator the fast one.
+The sampler's stream index is the bounce. The differentiable variant
+(`trace_diff`) waits for the fit, ROADMAP Queue 1 item 13.
+"""
 from __future__ import annotations
 
 import math
@@ -8,7 +23,13 @@ import math
 import torch
 
 from ..core import mathx
+from ..core import rng as rng_mod
+from ..core.types import Rays
+from ..ops import film as film_ops
+from ..ops import shade as shade_ops
 from ..ops import texture as tex_ops
+from ..ops.camera import Camera, get_rays
+from ..scene import ir as scene_ir
 
 MAX_DEPTH = 50  # main.cpp:32
 
@@ -25,3 +46,105 @@ def background_colour(scene, d: torch.Tensor) -> torch.Tensor:
     tex_id = scene.background_tex.expand(u.shape)
     p = torch.zeros(u.shape + (3,), dtype=torch.float32, device=d.device)
     return tex_ops.colour_value(scene.textures, tex_id, u, v, p)
+
+
+def trace(scene: scene_ir.SceneIR, rays: Rays, sampler,
+          max_depth: int = MAX_DEPTH,
+          mesh_backend: str = "kernel") -> torch.Tensor:
+    """Radiance (N, 3) for a wavefront of rays on `sampler.device`. Every
+    draw is array-shaped, one value a ray, from the stream of (purpose,
+    bounce)."""
+    n = rays.o.shape[0]
+    dev = rays.o.device
+    o, d = rays.o, rays.d
+    result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    for bounce in range(max_depth):
+        if not bool(active.any()):      # the one host read of a bounce
+            break
+        r = Rays(o=o, d=d)
+        hits = scene_ir.intersect_scene(scene, r, sampler=sampler,
+                                        bounce=bounce,
+                                        mesh_backend=mesh_backend)
+        miss = active & ~hits.hit
+        result = result + torch.where(
+            miss[:, None], throughput * background_colour(scene, d), 0.0)
+        emit = shade_ops.emitted(scene.materials, scene.textures, hits)
+        hit_active = active & hits.hit
+        result = result + torch.where(hit_active[:, None],
+                                      throughput * emit, 0.0)
+        ok, atten, new_d = shade_ops.scatter(scene.materials, scene.textures,
+                                             r, hits, sampler, bounce)
+        active = hit_active & ok
+        throughput = torch.where(active[:, None], throughput * atten,
+                                 throughput)
+        o = torch.where(active[:, None], hits.p, o)
+        d = torch.where(active[:, None], new_d, d)
+    return result
+
+
+def pixel_grid(width: int, height: int, device):
+    """Pixel positions in the reference's indexing (main.cpp:114-116):
+    x = i % W, y = H - i // W, each (W*H,) float32 (y runs over [1, H], so
+    v can pass 1 in the top row: the reference's quirk, kept)."""
+    pidx = torch.arange(width * height, dtype=torch.int32, device=device)
+    x = torch.remainder(pidx, width).to(torch.float32)
+    y = (height - torch.div(pidx, width, rounding_mode="floor")).to(
+        torch.float32)
+    return x, y
+
+
+def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
+                    height: int, sampler, n_samples: int,
+                    max_depth: int = MAX_DEPTH,
+                    mesh_backend: str = "kernel") -> torch.Tensor:
+    """Sum of radiance (W*H, 3) over n_samples jittered samples a pixel:
+    u = (x + U) / (W - 1), v = (y + U) / (H - 1) (main.cpp:120-121).
+    Sample s draws from sampler.fold_in(s)."""
+    x, y = pixel_grid(width, height, sampler.device)
+    acc = torch.zeros((width * height, 3), dtype=torch.float32,
+                      device=sampler.device)
+    for s in range(n_samples):
+        sub = sampler.fold_in(s)
+        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape)
+        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape)
+        rays = get_rays(camera, (x + ju) / (width - 1),
+                        (y + jv) / (height - 1))
+        acc = acc + trace(scene, rays, sub, max_depth,
+                          mesh_backend=mesh_backend)
+    return acc
+
+
+def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
+                 height: int, samples: int, sampler,
+                 max_depth: int = MAX_DEPTH, sample_chunk: int = 0,
+                 progress_cb=None) -> torch.Tensor:
+    """Full render on `sampler.device` -> tonemapped (H, W, 3) float image
+    in [0, 1] (average -> ACES -> gamma).
+
+    sample_chunk > 0 splits the samples into chunks of that many, chunk i
+    drawing from sampler.fold_in(1000003 + i); progress_cb(done_samples,
+    total_samples) fires after each chunk (a render in one chunk reports
+    its completion only)."""
+    wh = width * height
+    if sample_chunk <= 0 or sample_chunk >= samples:
+        total = sample_radiance(scene, camera, width, height, sampler,
+                                samples, max_depth)
+        if progress_cb is not None:
+            progress_cb(wh * samples, wh * samples)
+    else:
+        total = torch.zeros((wh, 3), dtype=torch.float32,
+                            device=sampler.device)
+        done = 0
+        chunk_i = 0
+        while done < samples:
+            c = min(sample_chunk, samples - done)
+            total = total + sample_radiance(
+                scene, camera, width, height,
+                sampler.fold_in(1000003 + chunk_i), c, max_depth)
+            done += c
+            chunk_i += 1
+            if progress_cb is not None:
+                progress_cb(wh * done, wh * samples)
+    return film_ops.tonemap(total / float(samples)).reshape(height, width, 3)

@@ -20,11 +20,19 @@ pool state in place (and return it) where the reference rebuilt it; the
 render loop is a Python loop that checks completion on the host every
 `steps_per_call` iterations. Iterations after completion are no-ops (no
 lane active, nothing issued), but they still advance `it`, the sampler's
-iteration index. Pool sort and checkpoint callbacks are ROADMAP Queue 1
-items 8 and 15.
+iteration index.
+
+Pool sort (pool_sort=N, default POOL_SORT from HRT_POOL_SORT, 0 = off):
+every N segments the whole pool is permuted by
+scene/ir.py:wavefront_sort_key, and every mesh find of every segment skips
+its own sort (cohsort=False). The state's tensors are indexed by the
+permutation one by one; the reference's packed (P, 16) gather is a TPU
+cost choice. Resuming from a state and checkpoint callbacks are ROADMAP
+Queue 1 item 15.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -44,6 +52,12 @@ RETIRE_DIV = 12          # retirement cap = max(pool // RETIRE_DIV, 64)
 RR_START = 4             # bounces before Russian roulette begins
 RR_MIN_P = 0.05          # survival-probability floor
 _BIGI = 2 ** 30          # sort key of lanes with nothing to retire
+# Pool-level coherence sort period, read once at import like the reference's:
+# 0 = off (each mesh find sorts for itself), N >= 1 = permute the pool every
+# N segments and skip the per-mesh sorts. A module attribute read at call
+# time, so a caller may switch it in-process.
+POOL_SORT = int(os.environ.get("HRT_POOL_SORT", "0") or 0)
+_LANE_FIELDS = ("o", "d", "thr", "rad", "item", "depth", "sub", "defer")
 
 
 @dataclass
@@ -143,20 +157,50 @@ def _regenerate(state: PoolState, camera: Camera, width: int, height: int,
     return state
 
 
+def _active(state: PoolState) -> torch.Tensor:
+    return (state.item >= 0) & (state.depth >= 0) & ~state.defer
+
+
+def _pool_permute(state: PoolState, scene: scene_ir.SceneIR) -> PoolState:
+    """Permute every lane of the pool by the stable order of the scene's
+    wavefront sort key (in place; fb, counter and retired are not per
+    lane)."""
+    key = scene_ir.wavefront_sort_key(scene, Rays(o=state.o, d=state.d),
+                                      _active(state))
+    perm = torch.argsort(key, stable=True)
+    for f in _LANE_FIELDS:
+        setattr(state, f, getattr(state, f)[perm])
+    return state
+
+
 def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
              height: int, sampler, max_depth: int, samples: int,
              sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-             plain: bool = False) -> PoolState:
+             plain: bool = False,
+             pool_sort: Optional[int] = None) -> PoolState:
     """Trace one path segment for every active lane, roll finished samples
     into the next sample of their chunk, and retire finished chunks into
-    the framebuffer. Updates `state` in place; it advances by one."""
+    the framebuffer. Updates `state` in place; it advances by one.
+
+    pool_sort: the pool sort's period (None: POOL_SORT). With a period N >=
+    1 and a scene that has a kernel mesh, the pool is permuted when it is
+    a multiple of N, and the mesh finds of every segment skip their own
+    sort. Wavefronts change slowly (a path lasts a few segments), so a
+    stale permutation keeps most of the coherence."""
     wh = width * height
     pool = state.item.shape[0]
     chunk, n_chunks, last = _chunk_geometry(samples, sample_chunk)
-    active = (state.item >= 0) & (state.depth >= 0) & ~state.defer
+    period = int(POOL_SORT if pool_sort is None else pool_sort)
+    mesh_cohsort = None
+    if period > 0 and scene_ir.has_wavefront_sort_key(scene):
+        if state.it % period == 0:
+            _pool_permute(state, scene)
+        mesh_cohsort = False
+    active = _active(state)
     r = Rays(o=state.o, d=state.d)
-    hits = scene_ir.intersect_scene(scene, r, ray_valid=active,
-                                    plain=plain)
+    hits = scene_ir.intersect_scene(scene, r, ray_valid=active, plain=plain,
+                                    sampler=sampler, bounce=state.it,
+                                    mesh_cohsort=mesh_cohsort)
 
     miss = active & ~hits.hit
     rad = state.rad + torch.where(miss[:, None],
@@ -227,14 +271,16 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  steps_per_call: int = 8,
                  progress_cb: Optional[Callable[[int, int], None]] = None,
                  sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-                 plain: bool = False) -> PoolState:
+                 plain: bool = False,
+                 pool_sort: Optional[int] = None) -> PoolState:
     """Run the pool to completion on `sampler.device` (scene and camera
     must already be there); fb holds the radiance SUM over `samples`.
 
     Completion (retired == W*H*samples) is read on the host after every
     `steps_per_call` iterations, where progress_cb(retired, total) fires.
     plain=True runs the mesh find and the clustered sphere find through the
-    kernels' plain PyTorch versions (a comparison switch)."""
+    kernels' plain PyTorch versions (a comparison switch). pool_sort: the
+    pool sort's period, see _segment."""
     wh = width * height
     _, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
     total_items = wh * n_chunks
@@ -245,7 +291,7 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
         for _ in range(steps_per_call):
             _regenerate(state, camera, width, height, total_items, sampler)
             _segment(state, scene, width, height, sampler, max_depth,
-                     samples, sample_chunk, rr, plain)
+                     samples, sample_chunk, rr, plain, pool_sort)
         retired = int(state.retired)
         if progress_cb is not None:
             progress_cb(retired, total_samples)
@@ -257,12 +303,13 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
                  progress_cb=None, sample_chunk: int = SAMPLE_CHUNK,
-                 rr: bool = True, plain: bool = False) -> torch.Tensor:
+                 rr: bool = True, plain: bool = False,
+                 pool_sort: Optional[int] = None) -> torch.Tensor:
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
     -> ACES -> gamma, as the reference)."""
     state = render_state(scene, camera, width, height, samples, sampler,
                          max_depth=max_depth, pool=pool,
                          progress_cb=progress_cb, sample_chunk=sample_chunk,
-                         rr=rr, plain=plain)
+                         rr=rr, plain=plain, pool_sort=pool_sort)
     mean = framebuffer(state) / float(samples)
     return film_ops.tonemap(mean).reshape(height, width, 3)

@@ -148,18 +148,52 @@ def slab_entries(o: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,
     return torch.where(ok, entry, float("inf"))
 
 
+def leaf_hits(o, d, blk, ids, t_max):
+    """Moller-Trumbore of A rays against their leaves: o, d (A, 3), blk
+    (A, 9, L) rows [v0 e1 e2], ids (A, L) int32 (-1 pad) -> (t_min (A,),
+    the lowest slot at it (A,), u (A, L), v (A, L)); t_min = BIG where the
+    leaf holds no hit (t > 0, no t_min, as the reference). Shared by the
+    plain traversal below and the lockstep find of ops/intersect.py."""
+    leaf = blk.shape[2]
+    lane = torch.arange(leaf, device=blk.device)
+    ox, oy, oz = (o[:, c:c + 1] for c in range(3))        # (A, 1)
+    dx, dy, dz = (d[:, c:c + 1] for c in range(3))
+    v0x, v0y, v0z = blk[:, 0], blk[:, 1], blk[:, 2]       # (A, L)
+    e1x, e1y, e1z = blk[:, 3], blk[:, 4], blk[:, 5]
+    e2x, e2y, e2z = blk[:, 6], blk[:, 7], blk[:, 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / torch.where(det == 0.0, 1.0, det)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    good = ((det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t > 0.0) & (t <= t_max) & (ids >= 0))
+    t = torch.where(good, t, BIG)
+    t_min = t.min(dim=1).values
+    win = torch.where(t == t_min[:, None], lane, leaf).min(dim=1).values
+    return t_min, win, u, v
+
+
 def _traverse_chunk(rays, bounds8, tri_soa, tri_id, t_max, need_uv):
     """Plain traversal of one chunk of rays (R, 8) -> (R, 8), (R,)."""
     dev = rays.device
     m = rays.shape[0]
-    k_clusters, _, leaf = tri_soa.shape
+    k_clusters = tri_soa.shape[0]
     o, d = rays[:, 0:3], rays[:, 3:6]
     entry = slab_entries(o, d, rays[:, 6] > 0.0, bounds8, t_max)
     e_sorted, order = torch.sort(entry, dim=1, stable=True)
     out = torch.zeros((m, 8), dtype=torch.float32, device=dev)
     out[:, 0] = BIG
     best_id = torch.full((m,), -1, dtype=torch.int32, device=dev)
-    lane = torch.arange(leaf, device=dev)
     for j in range(k_clusters):
         # round j: every ray whose j-th nearest entry still beats its own
         # best t visits that cluster (later rounds never re-open a ray:
@@ -168,32 +202,9 @@ def _traverse_chunk(rays, bounds8, tri_soa, tri_id, t_max, need_uv):
         if idx.numel() == 0:
             break
         kk = order[idx, j]
-        blk = tri_soa[kk, 0:9]                            # (A, 9, L)
         ids = tri_id[kk]                                  # (A, L)
-        ox, oy, oz = (o[idx, c:c + 1] for c in range(3))  # (A, 1)
-        dx, dy, dz = (d[idx, c:c + 1] for c in range(3))
-        v0x, v0y, v0z = blk[:, 0], blk[:, 1], blk[:, 2]   # (A, L)
-        e1x, e1y, e1z = blk[:, 3], blk[:, 4], blk[:, 5]
-        e2x, e2y, e2z = blk[:, 6], blk[:, 7], blk[:, 8]
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        inv = 1.0 / torch.where(det == 0.0, 1.0, det)
-        tx = ox - v0x
-        ty = oy - v0y
-        tz = oz - v0z
-        u = (tx * px + ty * py + tz * pz) * inv
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv
-        good = ((det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (t > 0.0) & (t <= t_max) & (ids >= 0))
-        t = torch.where(good, t, BIG)
-        t_min = t.min(dim=1).values
-        win = torch.where(t == t_min[:, None], lane, leaf).min(dim=1).values
+        t_min, win, u, v = leaf_hits(o[idx], d[idx], tri_soa[kk, 0:9], ids,
+                                     t_max)
         take = t_min < out[idx, 0]
         if not bool(take.any()):
             continue

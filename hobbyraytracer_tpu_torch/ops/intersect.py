@@ -9,13 +9,23 @@
 - the coherence keys: `cheap_key_from_box` (octant and corridor forms),
   `cheap_coherence_key`, `cluster_entries`, `pack_coherence_key` and
   `coherence_key`, which dispatches on HRT_KEY_MODE;
+- triangles outside any kernel: the watertight `triangle_t` and
+  `triangle_attribs`, the dense scan `intersect_triangles`, the exact
+  lockstep find over live vertices `intersect_mesh_clustered` (the plain
+  PyTorch path by design, as in the reference, where it serves the
+  differentiable paths and the mesh-boundary media) and `aabb_hit`;
 - `intersect_mesh_clustered_fused` (the reference's
   intersect_mesh_clustered_pallas): key -> stable argsort -> gather ->
-  fused traversal kernel (K1 or K2 by the table's layout) -> undo the sort;
-- the kernel branch of `intersect_triangles_bvh`.
+  fused traversal kernel (K1 or K2 by the table's layout) -> undo the sort,
+  or none of the four with cohsort=False (HRT_NO_COHSORT, or a caller that
+  sorted the whole pool already);
+- `intersect_triangles_bvh`: the kernel branch, and the lockstep branch
+  that replays t and the attributes of the winning triangle from the live
+  vertices, so the result carries gradients to them.
 
-The dense and watertight triangle paths and the lockstep traversal are
-ROADMAP Queue 1 items 5 and 10. The reference's MXU sphere scan
+The reference's kernel-find-then-replay branch ("pallas_replay") waits for
+the differentiable fit (ROADMAP Queue 1 item 13). The reference's MXU
+sphere scan
 (HRT_SPHERE_MXU), its sphere block size (HRT_SPHERE_BLOCK) and the packed
 row gathers of its sphere attributes are TPU cost choices and have no
 counterpart here: plain indexing gives the same values.
@@ -50,6 +60,9 @@ CORRIDOR_MIN_K = int(os.environ.get("HRT_CORRIDOR_MIN_K", "256"))
 # the clustered find of kernel K4 instead of the dense scan (off by default,
 # as in the reference). Read at import, switchable in-process like KEY_MODE.
 SPHERE_KERNEL = os.environ.get("HRT_SPHERE_KERNEL", "0") != "0"
+# HRT_NO_COHSORT=1 (any non-empty value, as in the reference): the mesh find
+# skips its per-mesh coherence sort. Read at import, switchable in-process.
+NO_COHSORT = bool(os.environ.get("HRT_NO_COHSORT"))
 
 # rect normal axis n -> in-plane axes (a, b): yz_rect n=0 (a=y, b=z),
 # xz_rect n=1 (a=x, b=z), xy_rect n=2 (a=x, b=y)
@@ -262,6 +275,210 @@ def intersect_rects(rays: Rays, axis, a0, a1, b0, b1, k, mat_id,
                 mat_id=torch.where(hit, mat_id[safe], -1).to(torch.int32))
 
 
+# -------------------------------------------------------------- triangles
+
+def _shear_axes(d: torch.Tensor):
+    """Per ray the permutation of the watertight test: kz = the axis of
+    the largest |d| (the first on ties), kx = kz + 1, ky = kx + 1 mod 3,
+    each (R, 1) int64."""
+    kz = d.abs().argmax(dim=-1, keepdim=True)
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+    return kx, ky, kz
+
+
+def triangle_t(rays: Rays, v0, v1, v2, t_max):
+    """Candidate t per (ray, triangle): the watertight test after PBRT-3
+    (reference ITriangle::hit, triangle.cpp:57-109), BIG where missed.
+
+    v0/v1/v2 are (T, 3), one table for all rays, or (R, T, 3), gathered
+    per ray; the result is (R, T). The projection axis is that of the
+    largest |d| and t_min is ignored (0 < t <= t_max), both as in the
+    reference package."""
+    d = rays.d
+    kx, ky, kz = _shear_axes(d)
+    dz = d.gather(1, kz)                                  # (R, 1)
+    inv_dz = 1.0 / dz
+    sx = -d.gather(1, kx) * inv_dz
+    sy = -d.gather(1, ky) * inv_dz
+    sz = inv_dz
+
+    def permuted(v):
+        rel = (v[None, :, :] if v.dim() == 2 else v) - rays.o[:, None, :]
+        n_tri = rel.shape[1]
+        return tuple(rel.gather(2, k[:, :, None].expand(-1, n_tri, 1))[..., 0]
+                     for k in (kx, ky, kz))
+
+    p0x, p0y, p0z = permuted(v0)
+    p1x, p1y, p1z = permuted(v1)
+    p2x, p2y, p2z = permuted(v2)
+    p0x = p0x + sx * p0z
+    p0y = p0y + sy * p0z
+    p1x = p1x + sx * p1z
+    p1y = p1y + sy * p1z
+    p2x = p2x + sx * p2z
+    p2y = p2y + sy * p2z
+    e0 = p1x * p2y - p1y * p2x
+    e1 = p2x * p0y - p2y * p0x
+    e2 = p0x * p1y - p0y * p1x
+    inside = ~(((e0 < 0) | (e1 < 0) | (e2 < 0))
+               & ((e0 > 0) | (e1 > 0) | (e2 > 0)))
+    det = e0 + e1 + e2
+    t_scaled = (e0 * p0z + e1 * p1z + e2 * p2z) * sz
+    neg_ok = (det < 0) & (t_scaled < 0) & (t_scaled >= t_max * det)
+    pos_ok = (det > 0) & (t_scaled > 0) & (t_scaled <= t_max * det)
+    ok = inside & (det != 0) & (neg_ok | pos_ok)
+    t = t_scaled / torch.where(det == 0, 1.0, det)   # no inf in a gradient
+    return torch.where(ok, t, BIG)
+
+
+def triangle_attribs(rays: Rays, v0, v1, v2):
+    """Barycentrics (b0, b1, b2), each (R,), of each ray's own triangle
+    v0/v1/v2 (R, 3): the edge functions of triangle_t over their sum."""
+    d = rays.d
+    kx, ky, kz = _shear_axes(d)
+    dz = d.gather(1, kz)[:, 0]
+    sx = -d.gather(1, kx)[:, 0] / dz
+    sy = -d.gather(1, ky)[:, 0] / dz
+
+    def permute(v):
+        rel = v - rays.o
+        pz = rel.gather(1, kz)[:, 0]
+        return (rel.gather(1, kx)[:, 0] + sx * pz,
+                rel.gather(1, ky)[:, 0] + sy * pz)
+
+    p0x, p0y = permute(v0)
+    p1x, p1y = permute(v1)
+    p2x, p2y = permute(v2)
+    e0 = p1x * p2y - p1y * p2x
+    e1 = p2x * p0y - p2y * p0x
+    e2 = p0x * p1y - p0y * p1x
+    det = e0 + e1 + e2
+    inv = 1.0 / torch.where(det == 0, 1.0, det)
+    return e0 * inv, e1 * inv, e2 * inv
+
+
+def _triangle_hits(rays: Rays, verts, normals, uvs, indices, mat_id, t,
+                   idx, hit) -> Hits:
+    """Hit record of each ray's winning triangle `idx` at `t` (ITriangle::
+    hit, triangle.cpp:112-128): normal and uv interpolated by the
+    barycentrics, the normal neither normalized nor flipped; front_face
+    from its side of the ray."""
+    safe = torch.clamp(idx, 0, indices.shape[0] - 1).long()
+    i0, i1, i2 = (indices[safe, c].long() for c in range(3))
+    b0, b1, b2 = (b[:, None] for b in triangle_attribs(
+        rays, verts[i0], verts[i1], verts[i2]))
+    normal = b0 * normals[i0] + b1 * normals[i1] + b2 * normals[i2]
+    uv = b0 * uvs[i0] + b1 * uvs[i1] + b2 * uvs[i2]
+    front = (rays.d * normal).sum(dim=-1) < 0.0
+    return Hits(hit=hit, t=torch.where(hit, t, BIG),
+                p=ray_at(rays.o, rays.d, torch.where(hit, t, 1.0)),
+                normal=normal, uv=uv, front_face=front,
+                mat_id=torch.where(hit, mat_id, -1).to(torch.int32))
+
+
+def intersect_triangles(rays: Rays, verts, normals, uvs, indices, mat_id,
+                        t_max, chunk: int = DEFAULT_CHUNK) -> Hits:
+    """Closest triangle per ray by the dense scan (the reference's path for
+    meshes without a cluster BVH): a running strict-< minimum over chunks
+    of `chunk` triangles, the last chunk padded with zero triangles under
+    an explicit mask (a degenerate triangle alone is not enough: rounding
+    can leave its det off zero), then the winner's hit record.
+
+    verts/normals (V, 3), uvs (V, 2), indices (T, 3), mat_id () int32."""
+    n_rays = rays.o.shape[0]
+    n = indices.shape[0]
+    dev = rays.o.device
+    if n == 0:
+        return Hits.none(n_rays, dev)
+    chunk = min(chunk, n)
+    pad = -n % chunk
+    corners = verts[indices.long()]                       # (T, 3, 3)
+    if pad:
+        corners = torch.cat([corners, corners.new_zeros((pad, 3, 3))])
+    tri_ok = torch.arange(n + pad, device=dev) < n
+    t_best = torch.full((n_rays,), BIG, dtype=torch.float32, device=dev)
+    i_best = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
+    for s in range(0, n + pad, chunk):
+        c = corners[s:s + chunk]
+        tc = torch.where(tri_ok[None, s:s + chunk],
+                         triangle_t(rays, c[:, 0], c[:, 1], c[:, 2], t_max),
+                         BIG)
+        t_c, i_c = _first_min(tc)
+        take = t_c < t_best
+        t_best = torch.where(take, t_c, t_best)
+        i_best = torch.where(take, i_c + s, i_best)
+    return _triangle_hits(rays, verts, normals, uvs, indices, mat_id, t_best,
+                          i_best, t_best < BIG)
+
+
+# rays per chunk of the lockstep find: bounds its (chunk, K) entries and
+# the (chunk, 9, L) gathered leaf blocks
+LOCKSTEP_CHUNK = 4096
+
+
+def _leaf_soa(tri_verts: torch.Tensor) -> torch.Tensor:
+    """(K, L, 3, 3) leaf vertices -> (K, 9, L) rows [v0 e1 e2]."""
+    v0 = tri_verts[:, :, 0, :]
+    soa = torch.cat([v0, tri_verts[:, :, 1, :] - v0,
+                     tri_verts[:, :, 2, :] - v0], dim=2)  # (K, L, 9)
+    return soa.transpose(1, 2).contiguous()
+
+
+def intersect_mesh_clustered(rays: Rays, tri_verts, tri_id, bmin, bmax,
+                             t_max, ray_valid=None,
+                             chunk: int = LOCKSTEP_CHUNK):
+    """Closest triangle through the cluster BVH over LIVE leaf vertices:
+    the exact lockstep find (the reference's intersect_mesh_clustered).
+
+    This is the plain PyTorch path by design, on either device, as the
+    reference's is plain XLA: it serves the callers whose vertices may have
+    moved since the kernel tables were built (the differentiable lockstep
+    branch of intersect_triangles_bvh, the mesh-boundary media). It is not
+    a fallback for kernel K1, and nothing routes here because a kernel
+    failed.
+
+    Each ray visits the clusters its slab test enters, nearest entry first,
+    while the entry is below its own best t; a visit is Moller-Trumbore
+    over the leaf. The reference groups rays into blocks of 64 that visit
+    the union of their needs; the nearest hit is the same whatever the
+    grouping (ids may differ on exact t-ties), so the rays go one by one
+    here, in rounds, with one host read a round (is any ray left?).
+
+    tri_verts (K, L, 3, 3); tri_id (K, L) int32, -1 pads; bmin/bmax (K, 3).
+    Returns (t (R,), global triangle id (R,) int32, hit (R,) bool)."""
+    n_rays = rays.o.shape[0]
+    dev = rays.o.device
+    k_clusters = tri_id.shape[0]
+    if ray_valid is None:
+        ray_valid = torch.ones((n_rays,), dtype=torch.bool, device=dev)
+    bounds8 = torch.cat([bmin.T, bmax.T])
+    soa = _leaf_soa(tri_verts)
+    t_best = torch.full((n_rays,), BIG, dtype=torch.float32, device=dev)
+    id_best = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
+    for s in range(0, n_rays, chunk):
+        o, d = rays.o[s:s + chunk], rays.d[s:s + chunk]
+        t_c, id_c = t_best[s:s + chunk], id_best[s:s + chunk]   # views
+        entry = kmod.slab_entries(o, d, ray_valid[s:s + chunk], bounds8,
+                                  t_max)
+        e_sorted, order = torch.sort(entry, dim=1, stable=True)
+        for j in range(k_clusters):
+            idx = (e_sorted[:, j] < t_c).nonzero().squeeze(1)
+            if idx.numel() == 0:
+                break
+            kk = order[idx, j]
+            ids = tri_id[kk]
+            t_min, win, _, _ = kmod.leaf_hits(o[idx], d[idx], soa[kk], ids,
+                                              t_max)
+            take = t_min < t_c[idx]
+            t_c[idx] = torch.where(take, t_min, t_c[idx])
+            id_c[idx] = torch.where(take, ids.gather(1, win[:, None])[:, 0],
+                                    id_c[idx])
+    return t_best, id_best, t_best < BIG
+
+
+# ------------------------------------------------------- coherence keys
+
 def _spread(x: torch.Tensor) -> torch.Tensor:
     """5-bit abcde -> a00b00c00d00e (Morton interleave)."""
     x = (x | (x << 8)) & 0x100F
@@ -370,13 +587,17 @@ def coherence_key(o, d, valid, bounds8, t_max,
 def intersect_mesh_clustered_fused(rays: Rays, tri_id, tri_soa, bounds8,
                                    t_max, ray_valid=None,
                                    need_uv: bool = True,
-                                   plain: bool = False):
+                                   plain: bool = False, cohsort=None):
     """Nearest triangle through the fused traversal kernel
     (kernels/mesh_traverse.py: K1 for a 24-row table, K2 for the 32-row
     streaming table). The wavefront is coherence-sorted first (stable
     argsort of `coherence_key`), traversed, and the sort undone. plain=True
     runs the kernels' plain PyTorch versions instead (a comparison switch;
     the traversal's output does not depend on the ray order).
+
+    cohsort: None reads NO_COHSORT (HRT_NO_COHSORT); False skips the key,
+    the argsort, the gather and the undo, for a caller whose rays are
+    sorted already (the pool sort of integrator/wavefront.py).
 
     tri_id (K, L) int32; tri_soa (K, 24, L) or (K, 32, L); bounds8 (8, K).
     Returns (t (R,), gid (R,) int32, hit (R,), normal (R, 3), uv (R, 2))."""
@@ -386,31 +607,80 @@ def intersect_mesh_clustered_fused(rays: Rays, tri_id, tri_soa, bounds8,
                                device=rays.o.device)
     rays8 = torch.cat([rays.o, rays.d, ray_valid.to(torch.float32)[:, None],
                        torch.zeros_like(rays.o[:, :1])], dim=1)
-    key = coherence_key(rays.o, rays.d, ray_valid, bounds8, float(t_max),
-                        plain=plain)
-    perm = torch.argsort(key, stable=True)
+    if cohsort is None:
+        cohsort = not NO_COHSORT
     traverse = kmod.traverse_clusters_plain if plain else kmod.traverse_clusters
-    out_s, id_s = traverse(rays8[perm], bounds8, tri_soa, tri_id,
-                           t_max=float(t_max), need_uv=need_uv)
-    out = torch.empty_like(out_s)
-    out[perm] = out_s
-    gid = torch.empty_like(id_s)
-    gid[perm] = id_s
+    if cohsort:
+        key = coherence_key(rays.o, rays.d, ray_valid, bounds8, float(t_max),
+                            plain=plain)
+        perm = torch.argsort(key, stable=True)
+        out_s, id_s = traverse(rays8[perm], bounds8, tri_soa, tri_id,
+                               t_max=float(t_max), need_uv=need_uv)
+        out = torch.empty_like(out_s)
+        out[perm] = out_s
+        gid = torch.empty_like(id_s)
+        gid[perm] = id_s
+    else:
+        out, gid = traverse(rays8, bounds8, tri_soa, tri_id,
+                            t_max=float(t_max), need_uv=need_uv)
     t = out[:, 0]
     return t, gid, t < BIG, out[:, 1:4], out[:, 4:6]
 
 
 def intersect_triangles_bvh(rays: Rays, tri_id, tri_soa, bounds8, mat_id,
                             t_max, ray_valid=None, need_uv: bool = True,
-                            plain: bool = False) -> Hits:
-    """Full mesh hit through the fused kernel (the reference's
-    backend="pallas" branch): normal and uv come out of the kernel; the
-    normal is the raw interpolated one and front_face follows it."""
-    t, _, hit, normal, uv = intersect_mesh_clustered_fused(
-        rays, tri_id, tri_soa, bounds8, t_max, ray_valid, need_uv=need_uv,
-        plain=plain)
-    front = (rays.d * normal).sum(dim=-1) < 0.0
-    return Hits(hit=hit, t=torch.where(hit, t, BIG),
-                p=ray_at(rays.o, rays.d, torch.where(hit, t, 1.0)),
-                normal=normal, uv=uv, front_face=front,
-                mat_id=torch.where(hit, mat_id, -1).to(torch.int32))
+                            plain: bool = False, cohsort=None,
+                            backend: str = "kernel", *, verts=None,
+                            normals=None, uvs=None, indices=None,
+                            tri_verts=None, bmin=None, bmax=None) -> Hits:
+    """Full mesh hit through the cluster BVH, by one of two backends.
+
+    "kernel" (the reference's backend="pallas"): the fused kernel over the
+    build-time tables tri_soa / bounds8; normal and uv come out of the
+    kernel, the normal is the raw interpolated one and front_face follows
+    it.
+
+    "lockstep" (the reference's backend="xla", its differentiable path):
+    the find runs under no_grad through intersect_mesh_clustered over the
+    live leaf vertices tri_verts (K, L, 3, 3) and bounds bmin/bmax (K, 3);
+    then t is replayed from the winning id through triangle_t and the
+    attributes through triangle_attribs over verts/normals/uvs/indices, so
+    the result carries gradients to verts. A grazing hit can miss on the
+    replay: such a lane keeps the find's t. tri_soa and bounds8 are not
+    read."""
+    if backend == "kernel":
+        t, _, hit, normal, uv = intersect_mesh_clustered_fused(
+            rays, tri_id, tri_soa, bounds8, t_max, ray_valid,
+            need_uv=need_uv, plain=plain, cohsort=cohsort)
+        front = (rays.d * normal).sum(dim=-1) < 0.0
+        return Hits(hit=hit, t=torch.where(hit, t, BIG),
+                    p=ray_at(rays.o, rays.d, torch.where(hit, t, 1.0)),
+                    normal=normal, uv=uv, front_face=front,
+                    mat_id=torch.where(hit, mat_id, -1).to(torch.int32))
+    if backend != "lockstep":
+        raise ValueError(f"backend {backend!r}: expected 'kernel' or "
+                         "'lockstep'")
+    with torch.no_grad():
+        t_nd, gid, hit = intersect_mesh_clustered(
+            Rays(o=rays.o.detach(), d=rays.d.detach()), tri_verts.detach(),
+            tri_id, bmin.detach(), bmax.detach(), t_max, ray_valid)
+    safe = torch.clamp(gid, min=0).long()
+    corner = verts[indices[safe].long()]                  # (R, 3, 3)
+    t_replay = triangle_t(rays, corner[:, None, 0], corner[:, None, 1],
+                          corner[:, None, 2], t_max)[:, 0]
+    t = torch.where(t_replay < BIG, t_replay, t_nd)
+    return _triangle_hits(rays, verts, normals, uvs, indices, mat_id, t, gid,
+                          hit)
+
+
+# ------------------------------------------------------------------- slab
+
+def aabb_hit(o, inv_d, bmin, bmax, t_min, t_max):
+    """Branchless slab test (reference AABB::hit, aabb.h:26-39), rejecting
+    an empty interval (t_max <= t_min). o/inv_d (..., 3); bmin/bmax
+    broadcastable to them."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    lo = torch.minimum(t0, t1).max(dim=-1).values
+    hi = torch.maximum(t0, t1).min(dim=-1).values
+    return torch.clamp(hi, max=t_max) > torch.clamp(lo, min=t_min)

@@ -6,9 +6,11 @@ result is built on the CPU and moved with `job.scene.to(device)`. Built
 here: spheres (pooled, with the cluster tables of kernel K4 from
 SPHERE_CLUSTER_MIN spheres up, or transformed instances), axis rects and
 boxes (six rects; pooled, or transformed instances), OBJ meshes with an
-optional transform, all seven material types, textures and the
-background. Standalone triangles and media raise NotImplementedError
-naming their ROADMAP item, never silently.
+optional transform (clustered from BVH_MIN_TRIS triangles up, dense below),
+standalone triangles (a dense mesh of one), constant media with a box,
+sphere or mesh boundary and their isotropic phase materials, all seven
+material types, textures and the background. Image textures raise
+NotImplementedError naming their ROADMAP item, never silently.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ from . import ir, meshload
 from .bvh import build_clusters, build_sphere_clusters
 from .schema import MatValue, SceneDesc, TransformDesc
 
-# meshes below this triangle count take the reference's dense path, which
-# is not ported yet (ROADMAP Queue 1 item 5)
+# meshes below this triangle count get no cluster BVH and take the dense
+# scan (ops/intersect.py:intersect_triangles), as in the reference
 BVH_MIN_TRIS = 64
 # pooled sphere tables of this many spheres or more get the cluster tables
 # of the sphere kernel (at least 2 clusters of 128); smaller pools have
@@ -155,10 +157,6 @@ _MTYPE = {
     "uvtest": shade_ops.MAT_UVTEST,
 }
 _RECT_AXIS = {"yz_rect": 0, "xz_rect": 1, "xy_rect": 2}
-_NOT_PORTED = {
-    "triangle": "ROADMAP Queue 1 item 5 (dense triangle path)",
-    "constant_medium": "ROADMAP Queue 1 item 10 (media)",
-}
 
 
 def _transform(t: TransformDesc) -> ir.Transform:
@@ -174,12 +172,11 @@ def _transform(t: TransformDesc) -> ir.Transform:
 
 
 def _mesh_geom(m: dict, mat_id: int) -> ir.MeshGeom:
-    """Mesh arrays + host cluster-BVH build + the kernel's tables."""
-    n_tris = int(m["indices"].shape[0])
-    if n_tris < BVH_MIN_TRIS:
-        raise NotImplementedError(
-            f"a {n_tris}-triangle mesh takes the reference's dense triangle "
-            "path, which is not ported yet: ROADMAP Queue 1 item 5")
+    """Mesh arrays; from BVH_MIN_TRIS triangles up also the host
+    cluster-BVH build and the kernel's tables."""
+    if int(m["indices"].shape[0]) < BVH_MIN_TRIS:
+        return ir.MeshGeom(verts=m["verts"], normals=m["normals"],
+                           uvs=m["uvs"], indices=m["indices"], mat_id=mat_id)
     cl = build_clusters(m["verts"], m["indices"], leaf_size=BVH_LEAF_SIZE)
     safe_id = np.maximum(cl["tri_id"], 0)
     corner = np.asarray(m["indices"])[safe_id]            # (K, L, 3)
@@ -194,6 +191,18 @@ def _mesh_geom(m: dict, mat_id: int) -> ir.MeshGeom:
         indices=m["indices"], mat_id=mat_id, cluster_id=cl["tri_id"],
         cluster_bmin=cl["bmin"], cluster_bmax=cl["bmax"], tri_soa=tri_soa,
         bounds8=kmod.pack_bounds(cl["bmin"], cl["bmax"]))
+
+
+def _load_mesh(desc: SceneDesc, rel_path: str):
+    """The mesh file's arrays, or None with the reference's message when it
+    cannot be read (log and skip, mesh.cpp:58-61)."""
+    try:
+        m = meshload.load_mesh(desc.resolve_path(rel_path))
+    except (OSError, ValueError) as e:
+        print(f"ERROR: Couldn't load file: {rel_path} ({e})")
+        return None
+    print(f"Loaded file: {rel_path}")
+    return m
 
 
 def _box_rects(bmin, bmax, mat_id) -> List[dict]:
@@ -269,16 +278,15 @@ def build_scene(desc: SceneDesc) -> RenderJob:
                                        "mat_id": []}
     pooled_rects: List[dict] = []
     instances: List[ir.Instance] = []
+    media: List[ir.Medium] = []
     for o in desc.objects:
-        if o.type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"object type {o.type!r} is not ported yet: "
-                f"{_NOT_PORTED[o.type]}")
-        if o.material not in mat_by_name:
-            # reference: log and skip (scene.cpp:288-289)
-            print(f"Material {o.material} does not exist!")
-            continue
-        mat_id = mat_by_name[o.material]
+        mat_id = None
+        if o.type != "constant_medium":
+            if o.material not in mat_by_name:
+                # reference: log and skip (scene.cpp:288-289)
+                print(f"Material {o.material} does not exist!")
+                continue
+            mat_id = mat_by_name[o.material]
         tr = _transform(o.transform) if o.transform else None
         if o.type == "sphere":
             if tr is None:
@@ -307,17 +315,47 @@ def build_scene(desc: SceneDesc) -> RenderJob:
             else:
                 instances.append(ir.Instance("rect", rects=_rect_table(rows),
                                              transform=tr))
+        elif o.type == "triangle":
+            # a standalone triangle (triangle.h:6-19) is a dense mesh of
+            # one, with its face normal at all three corners
+            v = np.asarray([o.params["v0"], o.params["v1"], o.params["v2"]],
+                           np.float32)
+            n = np.cross(v[1] - v[0], v[2] - v[0])
+            n = n / max(np.linalg.norm(n), 1e-12)
+            geom = ir.MeshGeom(
+                verts=v, normals=np.tile(n, (3, 1)),
+                uvs=np.asarray([[0, 0], [1, 0], [1, 1]], np.float32),
+                indices=np.asarray([[0, 1, 2]], np.int32), mat_id=mat_id)
+            instances.append(ir.Instance("mesh", mesh=geom, transform=tr))
         elif o.type == "mesh":
-            path = desc.resolve_path(o.params["path"])
-            try:
-                m = meshload.load_mesh(path)
-            except (OSError, ValueError) as e:
-                # log and skip, like the reference (mesh.cpp:58-61)
-                print(f"ERROR: Couldn't load file: {o.params['path']} ({e})")
+            m = _load_mesh(desc, o.params["path"])
+            if m is None:
                 continue
-            print(f"Loaded file: {o.params['path']}")
             instances.append(ir.Instance("mesh", mesh=_mesh_geom(m, mat_id),
                                          transform=tr))
+        elif o.type == "constant_medium":
+            # the isotropic phase material goes after every material so
+            # far: the named ones, and the phase materials of earlier media
+            alb, alb_t = _mv3(o.params["albedo"], texb)
+            phase_id = len(mat_specs)
+            mat_specs.append({"mtype": shade_ops.MAT_ISOTROPIC,
+                              "albedo": alb, "albedo_tex": alb_t})
+            b = o.params["boundary"]
+            common = dict(
+                neg_inv_density=np.float32(-1.0 / o.params["density"]),
+                mat_id=phase_id, transform=tr)
+            if b["type"] == "sphere":
+                media.append(ir.Medium("sphere", center=b["center"],
+                                       radius=b["radius"], **common))
+            elif b["type"] == "mesh":
+                bm = _load_mesh(desc, b["path"])
+                if bm is None:
+                    continue
+                media.append(ir.Medium("mesh", mesh=_mesh_geom(bm, phase_id),
+                                       **common))
+            else:
+                media.append(ir.Medium("box", bmin=b["min"], bmax=b["max"],
+                                       **common))
         else:
             raise NotImplementedError(f"object type {o.type!r}")
 
@@ -330,7 +368,8 @@ def build_scene(desc: SceneDesc) -> RenderJob:
         background_tex=bg_id,
         spheres=_sphere_table(pooled_spheres["center"],
                               pooled_spheres["radius"],
-                              pooled_spheres["mat_id"]))
+                              pooled_spheres["mat_id"]),
+        media=media)
     return RenderJob(scene=scene, camera=make_camera(
         desc.camera["position"], desc.camera["look_at"], desc.camera["up"],
         desc.camera["fov"], desc.film["width"] / desc.film["height"],

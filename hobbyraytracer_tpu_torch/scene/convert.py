@@ -12,7 +12,9 @@ The dict layout follows the reference's pytree field names:
                             "mesh": {verts, normals, uvs, indices, mat_id,
                                      cluster_id, cluster_bmin,
                                      cluster_bmax, tri_soa, bounds8,
-                                     use_bvh} | None,
+                                     use_bvh} | None,   # a dense mesh
+                                     # (use_bvh False): the five cluster
+                                     # tables None
                             "transform": {translate, scale, quat} | None}],
              "materials": {mtype, albedo, albedo_tex, roughness,
                            roughness_tex, strength, strength_tex, ior,
@@ -23,15 +25,19 @@ The dict layout follows the reference's pytree field names:
              "background_tex": int,
              "spheres": {center, radius, mat_id,
                          kernel_table, kernel_bounds, kernel_ids},
-             "media": []}                            # must be empty
+             "media": [{"btype": "sphere" | "box" | "mesh",
+                        center, radius, bmin, bmax (None unless the
+                        boundary's own), "mesh": {...} | None,
+                        neg_inv_density, mat_id,
+                        "transform": {...} | None}]}
     camera = {origin, lower_left_corner, horizontal, vertical, u, v, w,
               lens_radius, use_lens}
 
 A mesh's tri_soa comes across in either layout: the 24-row resident
 table (kernel K1) or the 32-row streaming table (kernel K2). A sphere
 table's kernel_* entries are the cluster tables of kernel K4, or None (a
-dict without them reads as None). What the port does not render yet (media,
-dense meshes, bilinear textures, the lens) raises NotImplementedError.
+dict without them reads as None). What the port does not render yet
+(bilinear textures, the lens) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -45,8 +51,12 @@ from . import ir
 SPHERE_FIELDS = ("center", "radius", "mat_id")
 SPHERE_KERNEL_FIELDS = ("kernel_table", "kernel_bounds", "kernel_ids")
 RECT_FIELDS = ("axis", "a0", "a1", "b0", "b1", "k", "mat_id")
-MESH_FIELDS = ("verts", "normals", "uvs", "indices", "mat_id", "cluster_id",
-               "cluster_bmin", "cluster_bmax", "tri_soa", "bounds8")
+MESH_BASE_FIELDS = ("verts", "normals", "uvs", "indices", "mat_id")
+MESH_TABLE_FIELDS = ("cluster_id", "cluster_bmin", "cluster_bmax", "tri_soa",
+                     "bounds8")
+MESH_FIELDS = MESH_BASE_FIELDS + MESH_TABLE_FIELDS
+MEDIUM_FIELDS = ("center", "radius", "bmin", "bmax", "neg_inv_density",
+                 "mat_id")
 MATERIAL_FIELDS = ("mtype", "albedo", "albedo_tex", "roughness",
                    "roughness_tex", "strength", "strength_tex", "ior",
                    "metallness", "metallness_tex")
@@ -61,6 +71,12 @@ def _np(module, fields) -> dict:
     return {f: getattr(module, f).detach().cpu().numpy() for f in fields}
 
 
+def _optional_np(module, fields) -> dict:
+    return {f: (None if getattr(module, f) is None
+                else getattr(module, f).detach().cpu().numpy())
+            for f in fields}
+
+
 def _spheres(d) -> ir.SphereTable:
     if d is None:
         return None
@@ -71,11 +87,8 @@ def _spheres(d) -> ir.SphereTable:
 
 
 def _spheres_np(table: ir.SphereTable) -> dict:
-    out = _np(table, SPHERE_FIELDS)
-    for f in SPHERE_KERNEL_FIELDS:
-        t = getattr(table, f)
-        out[f] = None if t is None else t.detach().cpu().numpy()
-    return out
+    return dict(_np(table, SPHERE_FIELDS),
+                **_optional_np(table, SPHERE_KERNEL_FIELDS))
 
 
 def _rects(d: dict) -> ir.RectTable:
@@ -89,21 +102,37 @@ def _transform(d) -> ir.Transform:
                         np.asarray(d["quat"]))
 
 
-def _mesh(d: dict) -> ir.MeshGeom:
-    if not d.get("use_bvh", True) or d.get("tri_soa") is None:
-        raise NotImplementedError(
-            "a mesh without a cluster BVH takes the dense triangle path, "
-            "which is not ported yet: ROADMAP Queue 1 item 5")
-    return ir.MeshGeom(**{f: np.asarray(d[f]) for f in MESH_FIELDS})
+def _mesh(d) -> ir.MeshGeom:
+    if d is None:
+        return None
+    fields = MESH_FIELDS if d.get("use_bvh", True) else MESH_BASE_FIELDS
+    return ir.MeshGeom(**{f: np.asarray(d[f]) for f in fields})
+
+
+def _mesh_np(mesh: ir.MeshGeom) -> dict:
+    return dict(_np(mesh, MESH_BASE_FIELDS),
+                **_optional_np(mesh, MESH_TABLE_FIELDS),
+                use_bvh=mesh.use_bvh)
+
+
+def _medium(d: dict) -> ir.Medium:
+    return ir.Medium(
+        d["btype"], mesh=_mesh(d.get("mesh")),
+        transform=_transform(d.get("transform")),
+        **{f: np.asarray(d[f]) for f in MEDIUM_FIELDS
+           if d.get(f) is not None})
+
+
+def _medium_np(med: ir.Medium) -> dict:
+    return dict(_optional_np(med, MEDIUM_FIELDS), btype=med.btype,
+                mesh=None if med.mesh is None else _mesh_np(med.mesh),
+                transform=(None if med.transform is None
+                           else _np(med.transform, TRANSFORM_FIELDS)))
 
 
 def scene_from_arrays(d: dict) -> ir.SceneIR:
     """Nested dict of numpy arrays (layout above) -> the port's SceneIR,
     on the CPU."""
-    if d.get("media"):
-        raise NotImplementedError(
-            "participating media are not ported yet: ROADMAP Queue 1 "
-            "item 10")
     tex = d["textures"]
     if tex.get("bilinear", False):
         raise NotImplementedError(
@@ -130,16 +159,15 @@ def scene_from_arrays(d: dict) -> ir.SceneIR:
         textures=TextureTable(
             **{f: np.asarray(tex[f]) for f in TEXTURE_FIELDS}),
         background_tex=int(np.asarray(d["background_tex"])),
-        spheres=_spheres(d.get("spheres")))
+        spheres=_spheres(d.get("spheres")),
+        media=[_medium(m) for m in d.get("media", ())])
 
 
 def scene_to_arrays(scene: ir.SceneIR) -> dict:
     """The port's SceneIR -> nested dict of numpy arrays (layout above)."""
     instances = []
     for inst in scene.instances:
-        mesh = None
-        if inst.kind == "mesh":
-            mesh = dict(_np(inst.mesh, MESH_FIELDS), use_bvh=True)
+        mesh = _mesh_np(inst.mesh) if inst.kind == "mesh" else None
         instances.append({
             "kind": inst.kind,
             "spheres": _spheres_np(inst.spheres) if inst.kind == "sphere"
@@ -159,7 +187,7 @@ def scene_to_arrays(scene: ir.SceneIR) -> dict:
                          bilinear=False),
         "background_tex": int(scene.background_tex),
         "spheres": _spheres_np(scene.spheres),
-        "media": [],
+        "media": [_medium_np(m) for m in scene.media],
     }
 
 

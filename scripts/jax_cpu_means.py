@@ -1,0 +1,53 @@
+#!/usr/bin/env python3
+"""Tonemapped image means of a scene rendered by the JAX package on the CPU:
+the reference constants that chip_smoke.py holds the port's renders to.
+
+    python3 scripts/jax_cpu_means.py scenes/two_teapots.yaml --spp 16 \\
+        --runs 64:0 64:1 96:0 96:1 128:2
+
+Each run is SIZE:SEED, a SIZE x SIZE render through
+hobbyraytracer_tpu.integrator.wavefront.render_image at --spp samples, max
+depth 50, Russian roulette on, pool 196,608 (chip_smoke.py's settings).
+Prints one line a run and the mean of the means. Keep the sizes small: this
+runs on the host.
+"""
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("scene")
+    ap.add_argument("--spp", type=int, default=16)
+    ap.add_argument("--runs", nargs="+", default=["64:0", "64:1"])
+    args = ap.parse_args()
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+
+    from hobbyraytracer_tpu.integrator import wavefront
+    from hobbyraytracer_tpu.scene import build_scene, load_scene_desc
+
+    job = build_scene(load_scene_desc(args.scene))
+    means = []
+    for run in args.runs:
+        size, seed = (int(x) for x in run.split(":"))
+        t0 = time.time()
+        img = np.asarray(wavefront.render_image(
+            job.scene, job.camera, size, size, args.spp,
+            jax.random.PRNGKey(seed), max_depth=50, pool=196_608, rr=True))
+        means.append(float(img.mean()))
+        print(f"{args.scene} {size}x{size} @ {args.spp} spp, seed {seed}: "
+              f"mean {means[-1]:.5f} ({time.time() - t0:.1f} s)", flush=True)
+    print(f"mean of the {len(means)} means: {np.mean(means):.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

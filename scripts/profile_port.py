@@ -4,12 +4,16 @@
     python3 scripts/profile_port.py [--scene scenes/teapot_scene.yaml]
                                     [--width 640] [--height 640] [--spp 16]
                                     [--pool 196608] [--steps 24]
+                                    [--pool-sort 0]
                                     [--trace build/profile/trace.json]
 
 Renders a scene (default scenes/teapot_scene.yaml; scenes/teapot_hires.yaml
 runs the streaming kernel K2; scenes/scattered_balls.yaml runs the dense
 sphere scan, or the sphere kernel K4 with HRT_SPHERE_KERNEL=1 in the
-environment) on one CUDA card: warms up over the first
+environment; scenes/two_teapots.yaml launches K1 twice a segment, and
+`--pool-sort N` permutes the whole pool every N segments in place of the
+per-mesh sorts; scenes/cornell_smoke.yaml runs the media and no kernel) on
+one CUDA card: warms up over the first
 `--steps` iterations of the render, then times the next `--steps`
 iterations (regenerate + segment) three ways:
 
@@ -40,6 +44,9 @@ def main() -> int:
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--pool", type=int, default=196_608)
     ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--pool-sort", type=int, default=0,
+                    help="pool sort period (0: each mesh find sorts its "
+                         "own rays)")
     ap.add_argument("--trace", default="build/profile/trace.json")
     args = ap.parse_args()
 
@@ -68,7 +75,8 @@ def main() -> int:
 
     def step():
         wavefront._regenerate(state, camera, w, h, total, sampler)
-        wavefront._segment(state, scene, w, h, sampler, 50, spp)
+        wavefront._segment(state, scene, w, h, sampler, 50, spp,
+                           pool_sort=args.pool_sort)
 
     for _ in range(args.steps):          # warm-up: the render's first part
         step()
@@ -108,7 +116,8 @@ def main() -> int:
         print("sphere route: " + (
             "kernel K4 (HRT_SPHERE_KERNEL=1)" if isect.SPHERE_KERNEL
             and scene.spheres.kernel_table is not None else "dense scan"))
-    print(f"{os.path.basename(args.scene)} {w}x{h} @ {spp} spp, pool {state.item.shape[0]}, "
+    print(f"{os.path.basename(args.scene)} {w}x{h} @ {spp} spp, pool "
+          f"{state.item.shape[0]}, pool_sort {args.pool_sort}, "
           f"iterations {args.steps}..{2 * args.steps}: wall {wall:.3f} "
           f"ms/segment (host clock), stream span {span:.3f} ms/segment "
           "(CUDA events)")

@@ -55,24 +55,35 @@ def jax_scene_arrays(scene) -> dict:
         return {f: (None if getattr(table, f) is None
                     else np_tree(getattr(table, f))) for f in sphere_f}
 
+    def optional(obj, fields):
+        return {f: (None if getattr(obj, f) is None
+                    else np_tree(getattr(obj, f))) for f in fields}
+
+    def mesh(m):
+        if m is None:
+            return None
+        return dict(optional(m, mesh_f), use_bvh=bool(m.use_bvh))
+
+    def transform(tr):
+        return None if tr is None else {
+            "translate": np_tree(tr.translate),
+            "scale": np_tree(tr.scale), "quat": np_tree(tr.quat)}
+
     instances = []
     for inst in scene.instances:
-        mesh = None
-        if inst.mesh is not None:
-            mesh = {f: (None if getattr(inst.mesh, f) is None
-                        else np_tree(getattr(inst.mesh, f))) for f in mesh_f}
-            mesh["use_bvh"] = bool(inst.mesh.use_bvh)
-        tr = inst.transform
         instances.append({
             "kind": inst.kind,
             "spheres": (spheres(inst.spheres) if inst.spheres is not None
                         else None),
             "rects": ({f: np_tree(getattr(inst.rects, f)) for f in rect_f}
                       if inst.rects is not None else None),
-            "mesh": mesh,
-            "transform": (None if tr is None else {
-                "translate": np_tree(tr.translate),
-                "scale": np_tree(tr.scale), "quat": np_tree(tr.quat)})})
+            "mesh": mesh(inst.mesh),
+            "transform": transform(inst.transform)})
+    media = [dict(optional(med, ("center", "radius", "bmin", "bmax",
+                                 "neg_inv_density", "mat_id")),
+                  btype=med.btype, mesh=mesh(med.mesh),
+                  transform=transform(med.transform))
+             for med in scene.media]
     m = scene.materials
     return {
         "rects": {f: np_tree(getattr(scene.rects, f)) for f in rect_f},
@@ -86,7 +97,7 @@ def jax_scene_arrays(scene) -> dict:
                          bilinear=bool(scene.textures.bilinear)),
         "background_tex": int(np.asarray(scene.background_tex)),
         "spheres": spheres(scene.spheres),
-        "media": list(scene.media),
+        "media": media,
     }
 
 

@@ -463,3 +463,138 @@ def test_balls_render_routes(dev, monkeypatch):
     assert near.float().mean() >= 0.99
     near = (imgs["k4"] - imgs["dense"]).abs().amax(dim=2) < 1e-3
     assert near.float().mean() >= 0.99
+
+
+# --- the pool sort, the lockstep find and media on the card ---------------
+
+TWO_TEAPOTS = TEAPOT.replace("teapot_scene", "two_teapots")
+SMOKE = TEAPOT.replace("teapot_scene", "cornell_smoke")
+
+
+def _pool_after(scene, camera, dev, n_segments, w=96, h=96, spp=4,
+                pool=4096):
+    """A wavefront pool on the card after n_segments segments and a
+    regenerate: the state, and its sampler."""
+    sampler = Sampler(3, dev)
+    _, n_chunks, _ = wavefront._chunk_geometry(spp, wavefront.SAMPLE_CHUNK)
+    total = w * h * n_chunks
+    state = wavefront.init_state(w, h, pool, device=dev)
+    for _ in range(n_segments):
+        wavefront._regenerate(state, camera, w, h, total, sampler)
+        wavefront._segment(state, scene, w, h, sampler, 50, spp)
+    wavefront._regenerate(state, camera, w, h, total, sampler)
+    return state, sampler
+
+
+def test_kernel_on_pool_permuted_rays_without_cohsort(dev):
+    """K1 as the pool sort calls it: a mid-render two_teapots pool permuted
+    by wavefront_sort_key, each mesh found with cohsort=False (one launch,
+    no key, no argsort). Bitwise equal to the plain version on the same
+    rays, and lane for lane to the call that sorts per mesh."""
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+    job = build_scene(load_scene_desc(TWO_TEAPOTS))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    state, _ = _pool_after(scene, camera, dev, 3)
+    wavefront._pool_permute(state, scene)
+    active = wavefront._active(state)
+    assert 0 < int(active.sum()) < active.numel() or bool(active.all())
+    for inst in scene.instances:
+        m = inst.mesh
+        r = inst.transform.ray_to_object(Rays(o=state.o, d=state.d))
+        before = pk.KERNEL.launches
+        got = isect.intersect_mesh_clustered_fused(
+            r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
+            cohsort=False)
+        assert pk.KERNEL.launches == before + 1
+        plain = isect.intersect_mesh_clustered_fused(
+            r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
+            cohsort=False, plain=True)
+        sorted_ = isect.intersect_mesh_clustered_fused(
+            r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
+            cohsort=True)
+        torch.cuda.synchronize()
+        assert bool(got[2].any())
+        for a, b, c in zip(got, plain, sorted_):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_lockstep_find_matches_kernel_on_card(dev):
+    """The lockstep find (plain PyTorch on the card) against K1 on the
+    teapot's tables: the template of the repo's kernel tests (hit masks
+    equal, t within 1e-6, under 1% of ids differing); here both walk the
+    same visits over the same arithmetic, so t is equal."""
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+    bounds8, soa, tri_id, cl = teapot_tables()
+    o, d, valid = aimed_rays(9, 20_000, center=(0.0, 1.5, 0.0), half=2.0,
+                             spread=8.0)
+    rays8, b8, tab, ids, tv, bmin, bmax = _on(
+        dev, pack_rays8(o, d, valid), bounds8, soa, tri_id, cl["tri_verts"],
+        cl["bmin"], cl["bmax"])
+    r = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
+    before = pk.KERNEL.launches
+    t_l, id_l, hit_l = isect.intersect_mesh_clustered(r, tv, ids, bmin, bmax,
+                                                      1e30)
+    assert pk.KERNEL.launches == before       # no kernel behind it
+    out_k, id_k = pk.traverse_clusters(rays8, b8, tab, ids, need_uv=False)
+    torch.cuda.synchronize()
+    hit_k = out_k[:, 0] < 1e30
+    assert torch.equal(hit_l, hit_k) and bool(hit_k.any())
+    np.testing.assert_allclose(t_l[hit_k].cpu().numpy(),
+                               out_k[hit_k, 0].cpu().numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert float(((id_l != id_k) & hit_k).float().mean()) < 0.01
+
+
+def test_smoke_segment_on_card_matches_cpu(dev):
+    """One cornell_smoke segment (media, the glass sphere, no kernel) on
+    the card against the CPU from the same state under the same injected
+    noise: int fields equal on >= 99% of the lanes, floats within 1e-3
+    relative there (the card contracts nothing, but its exp, log and
+    trigonometric functions round otherwise than the CPU's)."""
+    from _torch_parity import Noise, NoiseSampler
+    job = build_scene(load_scene_desc(SMOKE))
+    w = h = 64
+    spp, pool = 2, 4096
+    states = {}
+    for where in ("cpu", dev):
+        scene, camera = job.scene.to(where), job.camera.to(where)
+        sampler = NoiseSampler(Noise(4), where)
+        _, n_chunks, _ = wavefront._chunk_geometry(spp,
+                                                   wavefront.SAMPLE_CHUNK)
+        st = wavefront.init_state(w, h, pool, device=where)
+        for _ in range(2):
+            wavefront._regenerate(st, camera, w, h, w * h * n_chunks, sampler)
+            wavefront._segment(st, scene, w, h, sampler, 50, spp)
+        states[str(where)] = st
+    a, b = states["cpu"], states[str(dev)]
+    agree = torch.ones((pool,), dtype=torch.bool)
+    for f in ("item", "depth", "sub", "defer"):
+        agree &= getattr(a, f) == getattr(b, f).cpu()
+    assert float(agree.float().mean()) >= 0.99
+    for f in ("o", "d", "thr", "rad"):
+        x, y = getattr(a, f)[agree], getattr(b, f).cpu()[agree]
+        close = ((x - y).abs() <= 1e-3 * y.abs() + 1e-3).all(dim=1)
+        assert float(close.float().mean()) >= 0.99, f
+    assert int(a.counter) == int(b.counter)
+
+
+def test_two_teapots_render_launches_k1_twice_a_segment(dev):
+    """A small two_teapots render by the default route and with the pool
+    sorted every second segment: K1 launches twice a segment in both, every
+    sample retires, and the two images agree statistically (a permuted
+    lane draws other numbers from the same streams): means within 10%."""
+    job = build_scene(load_scene_desc(TWO_TEAPOTS))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    imgs = []
+    for pool_sort in (0, 2):
+        pk.KERNEL.launches = 0
+        st = wavefront.render_state(scene, camera, 48, 48, 4, Sampler(5, dev),
+                                    pool=2048, pool_sort=pool_sort)
+        assert pk.KERNEL.launches == 2 * st.it
+        assert int(st.retired) == 48 * 48 * 4
+        imgs.append(wavefront.framebuffer(st).cpu())
+    assert torch.isfinite(imgs[0]).all()
+    assert abs(float(imgs[0].mean()) - float(imgs[1].mean())) <= (
+        0.1 * float(imgs[0].mean()))

@@ -224,8 +224,10 @@ def test_convert_carries_jax_scene_exactly():
 
 
 def test_convert_refuses_unported_parts():
-    """Media, bilinear textures and the lens are refused; spheres come
-    across (a table without the kernel tables reads them as None)."""
+    """Bilinear textures and the lens are refused; spheres come across (a
+    table without the kernel tables reads them as None), and so do media
+    (held against the JAX build in
+    test_media_triangles_and_small_meshes_build)."""
     job_j = jax_build_scene(jschema.load_scene_desc(TEAPOT))
     arrays = jax_scene_arrays(job_j.scene)
     with_spheres = dict(arrays, spheres={
@@ -235,8 +237,12 @@ def test_convert_refuses_unported_parts():
     scene = convert.scene_from_arrays(with_spheres)
     assert scene.spheres.center.shape == (1, 3)
     assert scene.spheres.kernel_table is None
-    with pytest.raises(NotImplementedError, match="media"):
-        convert.scene_from_arrays(dict(arrays, media=[object()]))
+    with_medium = convert.scene_from_arrays(dict(arrays, media=[{
+        "btype": "sphere", "center": np.zeros((3,), np.float32),
+        "radius": np.float32(2.0), "neg_inv_density": np.float32(-4.0),
+        "mat_id": np.int32(1)}]))
+    assert with_medium.media[0].btype == "sphere"
+    assert with_medium.media[0].bmin is None
     with pytest.raises(NotImplementedError, match="item 13"):
         convert.scene_from_arrays(dict(arrays, textures=dict(
             arrays["textures"], bilinear=True)))
@@ -246,7 +252,8 @@ def test_convert_refuses_unported_parts():
 
 
 @pytest.mark.parametrize("scene", ["scattered_balls", "cornell_box",
-                                   "shiny_teapot", "awesome_reflections"])
+                                   "shiny_teapot", "awesome_reflections",
+                                   "two_teapots"])
 def test_build_scene_new_scenes_match_reference(scene):
     """build_scene of the scenes this slice unlocks (spheres with their
     cluster tables, boxes as six rects, metal and dielectric materials)
@@ -281,6 +288,9 @@ def test_build_scene_new_scenes_match_reference(scene):
         spec.loader.exec_module(smoke)
         assert (smoke.table_digest(job_p.scene.spheres)
                 == smoke.TABLE_SHA256[smoke.BALLS])
+    elif scene == "two_teapots":
+        assert [i.kind for i in job_p.scene.instances] == ["mesh", "mesh"]
+        assert [int(i.mesh.mat_id) for i in job_p.scene.instances] == [1, 2]
     elif scene == "cornell_box":
         # two transformed boxes of six rects each beside the pooled walls
         assert [i.kind for i in job_p.scene.instances] == ["rect", "rect"]
@@ -294,12 +304,15 @@ _TRIANGLE = ("  - type: triangle\n    v0: [0, 0, 0]\n    v1: [1, 0, 0]\n"
              "    v2: [0, 1, 0]\n    material: white\n")
 
 
-@pytest.mark.parametrize("scene,match", [
-    ("cornell_smoke.yaml", "constant_medium.*item 10"),
-    ("triangle", "triangle.*item 5"), ("tiny-mesh", "dense.*item 5")])
-def test_unported_objects_raise(scene, match, tmp_path):
-    """What the port still leaves out raises with its ROADMAP item: media,
-    standalone triangles, meshes under 64 triangles (the dense path)."""
+@pytest.mark.parametrize("scene", ["cornell_smoke.yaml", "triangle",
+                                   "tiny-mesh"])
+def test_media_triangles_and_small_meshes_build(scene, tmp_path):
+    """What the port used to refuse now builds, and matches the JAX build
+    leaf for leaf (ints exact, floats within 1e-6), carried across by
+    convert exactly: cornell_smoke's two box media with their phase
+    materials after the named ones, a standalone `type: triangle` (a dense
+    mesh of one with its face normal), and a one-triangle OBJ (under
+    BVH_MIN_TRIS, so a dense mesh without cluster tables)."""
     path = f"{SCENES}/{scene}"
     if scene != "cornell_smoke.yaml":
         text = open(f"{SCENES}/cornell_box.yaml").read()
@@ -312,8 +325,38 @@ def test_unported_objects_raise(scene, match, tmp_path):
                      "    material: white\n")
         path = tmp_path / "scene.yaml"
         path.write_text(text)
-    with pytest.raises(NotImplementedError, match=match):
-        pbuild.build_scene(pschema.load_scene_desc(str(path)))
+    job_p = pbuild.build_scene(pschema.load_scene_desc(str(path)))
+    job_j = jax_build_scene(jschema.load_scene_desc(str(path)))
+    arr_p = convert.scene_to_arrays(job_p.scene)
+    arr_j = jax_scene_arrays(job_j.scene)
+    assert_tree_close(arr_p, arr_j)
+    carried = convert.scene_from_arrays(arr_j)
+    assert_tree_close(convert.scene_to_arrays(carried), arr_j, atol=0.0)
+    if scene == "cornell_smoke.yaml":
+        assert [m["btype"] for m in arr_p["media"]] == ["box", "box"]
+        assert [int(m["mat_id"]) for m in arr_p["media"]] == [6, 7]
+        assert list(arr_p["materials"]["mtype"][6:8]) == [4, 4]  # isotropic
+        assert 4 in job_p.scene.materials.present
+        assert arr_p["spheres"]["center"].shape == (1, 3)     # the glass
+        assert arr_p["spheres"]["kernel_table"] is None
+        assert carried.to("meta").media[1].bmax.device.type == "meta"
+    else:
+        mesh = arr_p["instances"][-1]["mesh"]
+        assert mesh["use_bvh"] is False and mesh["tri_soa"] is None
+        assert mesh["indices"].shape == (1, 3)
+        assert not job_p.scene.instances[-1].mesh.use_bvh
+        if scene == "triangle":
+            np.testing.assert_array_equal(mesh["normals"],
+                                          [[0.0, 0.0, 1.0]] * 3)
+
+
+def test_mesh_tables_come_all_or_none():
+    from hobbyraytracer_tpu_torch.scene import ir as pir
+    v = np.zeros((3, 3), np.float32)
+    with pytest.raises(ValueError, match="all five"):
+        pir.MeshGeom(v, v, np.zeros((3, 2), np.float32),
+                     np.asarray([[0, 1, 2]], np.int32), 0,
+                     cluster_id=np.zeros((1, 1), np.int32))
 
 
 def test_unported_materials_raise(tmp_path):

@@ -68,13 +68,25 @@ def test_every_module_imports_without_jax():
                 "hobbyraytracer_tpu_torch.kernels.mesh_traverse",
                 "hobbyraytracer_tpu_torch.kernels.sphere_traverse",
                 "hobbyraytracer_tpu_torch.kernels.build",
-                "hobbyraytracer_tpu_torch.ops.intersect"):
+                "hobbyraytracer_tpu_torch.ops.intersect",
+                "hobbyraytracer_tpu_torch.scene.ir",
+                "hobbyraytracer_tpu_torch.scene.build",
+                "hobbyraytracer_tpu_torch.scene.convert",
+                "hobbyraytracer_tpu_torch.integrator.wavefront",
+                "hobbyraytracer_tpu_torch.integrator.path",
+                "hobbyraytracer_tpu_torch.core.rng",
+                "hobbyraytracer_tpu_torch.cli.main"):
         assert mod in names, (mod, names)
     assert int(names[0]) == len(list(PKG.rglob("*.py"))) - 1   # not itself
 
 
 def test_package_sources_never_import_jax():
-    for path in PKG.rglob("*.py"):
+    """No import line of the package, of chip_smoke.py or of the port's
+    scripts names JAX or the JAX package."""
+    extra = [pathlib.Path(ROOT) / f for f in (
+        "chip_smoke.py", "scripts/profile_port.py",
+        "scripts/time_mesh_kernels.py")]
+    for path in [*PKG.rglob("*.py"), *extra]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -82,6 +94,28 @@ def test_package_sources_never_import_jax():
                 assert not (mod == "jax" or mod.startswith(("jax.", "jaxlib",
                             "hobbyraytracer_tpu."))
                             or mod == "hobbyraytracer_tpu"), (path, line)
+
+
+def test_cli_batch_and_media_render_without_importing_jax(tmp_path):
+    """The batch integrator on a scene with media, through the CLI on the
+    CPU, in a process that never loads JAX."""
+    out = tmp_path / "smoke.png"
+    scene = os.path.join(ROOT, "scenes", "cornell_smoke.yaml")
+    code = (
+        "import sys\n"
+        "from hobbyraytracer_tpu_torch.cli.main import main\n"
+        f"rc = main(['render', {scene!r}, '-o', {str(out)!r}, '--spp', "
+        "'2', '--width', '10', '--height', '8', '--max-depth', '4', "
+        "'--integrator', 'batch', '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "loaded = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib', 'hobbyraytracer_tpu.')))\n"
+        "assert not loaded, loaded\n"
+        "print('NO_JAX_OK')\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+    assert out.exists()
 
 
 def test_cli_refuses_missing_device_and_unported_commands():
@@ -215,3 +249,43 @@ def test_sphere_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         pir.intersect_scene(scene, rays)
     assert skmod.SPHERE_KERNEL.launches == 0
+
+
+def test_mesh_find_never_moves_to_the_lockstep_find(monkeypatch, tmp_path):
+    """A mesh scene on tensors off the CPU, through intersect_scene and a
+    wavefront segment with the pool sort on: when K1 cannot be built the
+    call raises; neither the plain version nor the lockstep find (which
+    serves the explicit "lockstep" backend and the mesh-boundary media
+    only) takes over."""
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.integrator import wavefront as pwf
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    from hobbyraytracer_tpu_torch.scene import ir as pir
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def other(*args, **kwargs):
+        raise AssertionError("fell back from the kernel")
+
+    monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kmod, "KERNEL", kbuild.KernelLibrary("mesh_traverse"))
+    monkeypatch.setattr(kmod, "traverse_clusters_plain", other)
+    monkeypatch.setattr(pisect, "intersect_mesh_clustered", other)
+    monkeypatch.setattr(pisect, "intersect_triangles", other)
+    job = build_scene(load_scene_desc(
+        os.path.join(ROOT, "scenes", "two_teapots.yaml")))
+    scene = job.scene.to("meta")
+    rays = Rays(o=torch.empty((64, 3), device="meta"),
+                d=torch.empty((64, 3), device="meta"))
+    for cohsort in (None, False):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            pir.intersect_scene(scene, rays, mesh_cohsort=cohsort)
+    state = pwf.init_state(8, 8, 64, "meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pwf._segment(state, scene, 8, 8, Sampler(0, "meta"), 50, 1,
+                     pool_sort=1)
+    assert kmod.KERNEL.launches == 0

@@ -186,11 +186,13 @@ def test_emitted_and_scatter(monkeypatch, textured):
 
 def test_unported_material_types_raise():
     """Every material type of the reference builds now (none is refused);
-    what is still unported raises with its ROADMAP item: media."""
+    media, whose isotropic phase material is one of them, no longer raise
+    either. What is still unported raises with its ROADMAP item: the
+    fit's bilinear texture filtering."""
     tab = pshade.build_table([{"mtype": t} for t in range(7)])
     assert tab.present == tuple(range(7))
-    scene = {"media": [object()], "textures": {}, "instances": []}
-    with pytest.raises(NotImplementedError, match="item 10"):
+    scene = {"media": [], "textures": {"bilinear": True}, "instances": []}
+    with pytest.raises(NotImplementedError, match="item 13"):
         convert.scene_from_arrays(scene)
 
 

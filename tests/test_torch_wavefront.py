@@ -273,3 +273,322 @@ def test_balls_render_matches_jax_statistically(monkeypatch, balls):
         assert np.corrcoef(bj.ravel(), bp.ravel())[0, 1] > 0.9
     near = np.abs(imgs[False] - imgs[True]).max(axis=2) < 1e-3
     assert near.mean() >= 0.95, near.mean()
+
+
+# --- two_teapots and cornell_smoke, with and without the pool sort ---------
+
+TWO_TEAPOTS = TEAPOT.replace("teapot_scene", "two_teapots")
+SMOKE = TEAPOT.replace("teapot_scene", "cornell_smoke")
+
+
+def _carried(path):
+    job = jax_build_scene(jax_load_scene_desc(path))
+    scene = convert.scene_from_arrays(jax_scene_arrays(job.scene))
+    camera = convert.camera_from_arrays(jax_camera_arrays(job.camera))
+    return job, scene, camera
+
+
+@pytest.fixture(scope="module")
+def two_teapots():
+    return _carried(TWO_TEAPOTS)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    return _carried(SMOKE)
+
+
+class LaneBlindNoise(Noise):
+    """Noise that gives every lane of a draw the same value: one scalar or
+    vector per (purpose, iteration), broadcast over the shape. A path then
+    depends on its work item and on nothing the lane order could change, so
+    two pools that were permuted differently can be compared item by
+    item."""
+
+    def uniform(self, purpose, iteration, shape):
+        return np.broadcast_to(super().uniform(purpose, iteration, ()),
+                               tuple(shape)).copy()
+
+    def unit_sphere(self, purpose, iteration, shape):
+        return np.broadcast_to(super().unit_sphere(purpose, iteration, ()),
+                               tuple(shape) + (3,)).copy()
+
+    def in_ball(self, purpose, iteration, shape):
+        return np.broadcast_to(super().in_ball(purpose, iteration, ()),
+                               tuple(shape) + (3,)).copy()
+
+
+def _by_item(state, get):
+    """The pool's live lanes as {field: array} in work-item order."""
+    item = get(state.item)
+    order = np.argsort(item, kind="stable")
+    order = order[item[order] >= 0]
+    return {f: get(getattr(state, f))[order]
+            for f in _INT_FIELDS + _FLOAT_FIELDS}
+
+
+def test_two_teapots_builds_as_the_reference(two_teapots):
+    """scenes/two_teapots.yaml built by the port against the JAX build,
+    leaf for leaf (ints and the native cluster tables exact, floats within
+    1e-6): two transformed instances of the 30-cluster teapot."""
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    from _torch_parity import assert_tree_close
+    job, _, _ = two_teapots
+    arr_j = jax_scene_arrays(job.scene)
+    arr_p = convert.scene_to_arrays(
+        build_scene(load_scene_desc(TWO_TEAPOTS)).scene)
+    assert_tree_close(arr_p, arr_j)
+    meshes = [i["mesh"] for i in arr_p["instances"]]
+    assert [m["tri_soa"].shape for m in meshes] == [(30, 24, 128)] * 2
+    assert all(i["transform"] is not None for i in arr_p["instances"])
+    assert [int(m["mat_id"]) for m in meshes] == [1, 2]
+
+
+@pytest.mark.parametrize("pool_sort", [0, 1, 2])
+def test_two_teapots_segments_match_jax(monkeypatch, two_teapots, pool_sort):
+    """6 segments of a 16x16 two_teapots render at 3 spp on a 256-lane
+    pool (two K1-routed meshes a segment; the JAX side runs its Pallas
+    kernel in interpret mode), by the per-mesh sort (pool_sort 0) and with
+    the whole pool permuted every segment (1) and every second segment
+    (2).
+
+    pool_sort 0 compares lane for lane under per-lane noise, as
+    test_segments_match_jax does for one teapot. A lane is a self-hit lane
+    from the segment on in which its ray met its own triangle again at
+    t < 1e-4 in one package only; with two meshes they are at most 6% of
+    the lanes after 6 segments (3% with one). Every other lane agrees:
+    int fields equal, floats allclose (rtol 1e-4); counter equal, retired
+    within the self-hit lanes' samples.
+
+    With the pool sort on, a lane comparison holds only while both
+    packages compute the same permutation, and they do not: a camera ray
+    enters the meshes' box through its max-z face, where XLA's FMAs and
+    PyTorch's separate roundings put ~5% of the keys one Morton level apart
+    (tests/test_torch_media.py::test_wavefront_sort_key_matches_jax). So
+    the keys are compared first on each segment's common state (equal on
+    >= 90% of lanes where both pools hold the same item), the noise is
+    made blind to the lane (LaneBlindNoise), and the pools are compared
+    item by item: the same items live (>= 97% in common), and the
+    items that differ in an int field or a float (rtol 1e-4), the
+    self-hit items and those that depend on them, stay under 6% of all
+    items; counter equal, retired within those items' samples. At the
+    end one permuting segment is held against an unpermuted one from the
+    same state: every per-lane field moved alike."""
+    monkeypatch.setenv("HRT_PALLAS_INTERPRET", "1")
+    noise = (LaneBlindNoise if pool_sort else Noise)(17)
+    patch_jax_rng(monkeypatch, noise)
+    job, scene, camera = two_teapots
+    w = h = 16
+    spp, pool, max_depth = 3, 256, 50
+    _, n_chunks, _ = jwf._chunk_geometry(spp, jwf.SAMPLE_CHUNK)
+    total = w * h * n_chunks
+    key = jax.random.PRNGKey(0)
+    js = jwf.init_state(w, h, pool)
+    ps = pwf.init_state(w, h, pool, "cpu")
+    sampler = NoiseSampler(noise)
+    jget, pget = np.asarray, lambda t: t.numpy()
+    bad_items = set()
+    self_hit = np.zeros((pool,), bool)
+    for seg in range(6):
+        js = jwf._regenerate(js, job.camera, w, h, total, key)
+        pwf._regenerate(ps, camera, w, h, total, sampler)
+        if pool_sort:
+            # the keys, on the lanes where both pools hold the same item
+            # with the same ray
+            same_lane = (jget(js.item) == pget(ps.item)) & np.isclose(
+                jget(js.d), pget(ps.d), rtol=1e-4, atol=1e-5).all(axis=1)
+            k_j = jget(jir.wavefront_sort_key(
+                job.scene, JRays(o=js.o, d=js.d),
+                (js.item >= 0) & (js.depth >= 0) & ~js.defer))
+            k_p = pget(pir.wavefront_sort_key(
+                scene, Rays(o=ps.o, d=ps.d), pwf._active(ps)))
+            if seg == 0:
+                assert same_lane.all()
+            if same_lane.sum() >= 32:
+                assert (k_j == k_p)[same_lane].mean() >= 0.90, seg
+        if not pool_sort:
+            # a self-hit: the bounce ray meets its own triangle again at
+            # t ~ 1e-6 in one package only (the sign of such a t is
+            # rounding, see test_segments_match_jax)
+            t_j = jget(jir.intersect_scene(
+                job.scene, JRays(o=js.o, d=js.d), key, js.it,
+                mesh_backend="auto").t)
+            t_p = pget(pir.intersect_scene(scene, Rays(o=ps.o, d=ps.d)).t)
+            self_hit |= pget(pwf._active(ps)) & ((t_j < 1e-4) != (t_p < 1e-4))
+        js = jwf._segment(js, job.scene, w, h, key, max_depth, spp,
+                          pool_sort=pool_sort)
+        pwf._segment(ps, scene, w, h, sampler, max_depth, spp,
+                     pool_sort=pool_sort)
+        assert ps.it == int(js.it) == seg + 1
+        assert int(ps.counter) == int(js.counter), seg
+        if not pool_sort:
+            # lane for lane (the pools were never permuted)
+            assert self_hit.mean() <= 0.06, (seg, self_hit.sum())
+            for f in _INT_FIELDS:
+                np.testing.assert_array_equal(
+                    pget(getattr(ps, f))[~self_hit],
+                    jget(getattr(js, f))[~self_hit], err_msg=f"{f} {seg}")
+            for f in _FLOAT_FIELDS:
+                np.testing.assert_allclose(
+                    pget(getattr(ps, f))[~self_hit],
+                    jget(getattr(js, f))[~self_hit], rtol=1e-4, atol=1e-5,
+                    err_msg=f"{f} after segment {seg}")
+            assert abs(int(ps.retired) - int(js.retired)) <= (
+                self_hit.sum() * jwf.SAMPLE_CHUNK), seg
+            continue
+        live_j, live_p = _by_item(js, jget), _by_item(ps, pget)
+        common, ij, ip = np.intersect1d(live_j["item"], live_p["item"],
+                                        return_indices=True)
+        n_live = max(len(live_j["item"]), len(live_p["item"]), 1)
+        assert len(common) >= 0.97 * n_live, (seg, len(common), n_live)
+        ints_ok = np.ones((len(common),), bool)
+        for f in _INT_FIELDS:
+            ints_ok &= live_j[f][ij] == live_p[f][ip]
+        close = np.ones((len(common),), bool)
+        for f in _FLOAT_FIELDS:
+            close &= np.isclose(live_p[f][ip], live_j[f][ij], rtol=1e-4,
+                                atol=1e-5).all(axis=1)
+        bad_items |= set(common[~(ints_ok & close)].tolist())
+        bad_items |= set(np.setxor1d(live_j["item"],
+                                     live_p["item"]).tolist())
+        assert len(bad_items) <= 0.06 * total, (seg, len(bad_items))
+        assert abs(int(ps.retired) - int(js.retired)) <= (
+            len(bad_items) * jwf.SAMPLE_CHUNK), seg
+    assert int(ps.retired) > 0
+    if pool_sort:
+        # a permuting segment leaves every per-lane field permuted alike:
+        # replay one on a copy and compare it, by item, with an unpermuted
+        # segment from the same state
+        import copy
+        a, b = copy.deepcopy(ps), copy.deepcopy(ps)
+        a.it = b.it = 6     # a multiple of both periods
+        pwf._segment(a, scene, w, h, sampler, max_depth, spp, pool_sort=1)
+        pwf._segment(b, scene, w, h, sampler, max_depth, spp, pool_sort=0)
+        assert not torch.equal(a.item, b.item)        # it did permute
+        la, lb = _by_item(a, pget), _by_item(b, pget)
+        for f in _INT_FIELDS + _FLOAT_FIELDS:
+            np.testing.assert_array_equal(la[f], lb[f], err_msg=f)
+        assert torch.equal(a.fb, b.fb) and int(a.retired) == int(b.retired)
+
+
+@pytest.mark.parametrize("pool_sort", [0, 1, 2])
+def test_smoke_segments_match_jax(monkeypatch, smoke, pool_sort):
+    """4 segments of a 16x16 cornell_smoke render at 2 spp on a 192-lane
+    pool with identical injected noise (free flights among it). The scene
+    has no kernel mesh, so the pool sort does nothing in either package
+    and all three periods compare lane for lane. A lane is left out from
+    the segment on where its material differs between the packages before
+    it (a free flight that ends within rounding of a wall, a ray grazing
+    the glass sphere), where its int fields differ, or where its floats
+    drift past 2e-3 + 1e-3 |x| (the box is 555 units wide, so t's
+    rounding under XLA's FMAs is of that order): at most 6% of the lanes
+    after each segment; counter equal; media were met."""
+    noise = Noise(19)
+    patch_jax_rng(monkeypatch, noise)
+    job, scene, camera = smoke
+    assert len(scene.media) == 2 and not pir.has_wavefront_sort_key(scene)
+    w, h, spp = 16, 16, 2
+    pool, max_depth = 192, 50
+    _, n_chunks, _ = jwf._chunk_geometry(spp, jwf.SAMPLE_CHUNK)
+    total = w * h * n_chunks
+    key = jax.random.PRNGKey(0)
+    js = jwf.init_state(w, h, pool)
+    ps = pwf.init_state(w, h, pool, "cpu")
+    sampler = NoiseSampler(noise)
+    off = np.zeros((pool,), bool)
+    met = set()
+    for seg in range(4):
+        js = jwf._regenerate(js, job.camera, w, h, total, key)
+        pwf._regenerate(ps, camera, w, h, total, sampler)
+        hj = jir.intersect_scene(job.scene, JRays(o=js.o, d=js.d), key,
+                                 js.it, mesh_backend="auto")
+        hp = pir.intersect_scene(scene, Rays(o=ps.o, d=ps.d),
+                                 sampler=sampler, bounce=ps.it)
+        off |= np.asarray(hj.mat_id) != hp.mat_id.numpy()
+        met |= set(hp.mat_id.numpy()[pwf._active(ps).numpy()].tolist())
+        js = jwf._segment(js, job.scene, w, h, key, max_depth, spp,
+                          pool_sort=pool_sort)
+        pwf._segment(ps, scene, w, h, sampler, max_depth, spp,
+                     pool_sort=pool_sort)
+        assert ps.it == int(js.it) == seg + 1
+        assert int(ps.counter) == int(js.counter), seg
+        for f in _INT_FIELDS:
+            off |= np.asarray(getattr(js, f)) != getattr(ps, f).numpy()
+        for f in _FLOAT_FIELDS:
+            a, b = getattr(ps, f).numpy(), np.asarray(getattr(js, f))
+            off |= (np.abs(a - b) > 2e-3 + 1e-3 * np.abs(b)).any(axis=1)
+        assert off.mean() <= 0.06, (seg, off.sum())
+    if not off.any():
+        assert int(ps.retired) == int(js.retired)
+    assert met & {6, 7}, met        # a phase material was met
+
+
+def test_pool_sort_env_is_read_at_import():
+    """HRT_POOL_SORT is read once at import in both packages (0 when unset
+    or empty); render calls read the module attribute at call time."""
+    import os
+    import subprocess
+    import sys
+    code = ("import jax; jax.config.update('jax_platforms', 'cpu')\n"
+            "from hobbyraytracer_tpu.integrator import wavefront as j\n"
+            "from hobbyraytracer_tpu_torch.integrator import wavefront as p\n"
+            "print('POOL_SORT', j.POOL_SORT, p.POOL_SORT)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for value, want in (("3", "3 3"), ("", "0 0")):
+        env = dict(os.environ, HRT_POOL_SORT=value, PYTHONPATH=root)
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert f"POOL_SORT {want}" in out.stdout, out.stdout + out.stderr
+
+
+def test_pool_sort_attribute_is_read_at_call_time(monkeypatch, two_teapots):
+    """pool_sort=None reads wavefront.POOL_SORT when the segment runs: with
+    it set to 1 the pool is permuted and the mesh finds skip their sort
+    (coherence_key is never called); an explicit 0 overrides it."""
+    _, scene, camera = two_teapots
+    calls = []
+    real = pisect.coherence_key
+    monkeypatch.setattr(pisect, "coherence_key", lambda *a, **k: (
+        calls.append(1), real(*a, **k))[1])
+    sampler = Sampler(3, "cpu")
+    w = h = 8
+
+    def one_segment(**kw):
+        st = pwf.init_state(w, h, 64, "cpu")
+        pwf._regenerate(st, camera, w, h, w * h, sampler)
+        pwf._segment(st, scene, w, h, sampler, 50, 1, **kw)
+        return st
+
+    plain_order = one_segment().item.clone()
+    assert len(calls) == 2                     # one per mesh instance
+    monkeypatch.setattr(pwf, "POOL_SORT", 1)
+    sorted_order = one_segment().item
+    assert len(calls) == 2                     # none added
+    assert not torch.equal(sorted_order, plain_order)
+    assert torch.equal(one_segment(pool_sort=0).item, plain_order)
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize("scene_name,pool_sort", [
+    ("two_teapots", 0), ("two_teapots", 2), ("smoke", 0)])
+def test_new_scenes_render_match_jax_statistically(two_teapots, smoke,
+                                                   scene_name, pool_sort):
+    """20x20 @ 16 spp through both wavefront renderers with independent
+    random streams: image means within 10%, and every sample retires with
+    the pool sort on as well."""
+    job, scene, camera = two_teapots if scene_name == "two_teapots" else smoke
+    w = h = 20
+    spp = 16
+    img_j = np.asarray(jwf.render_image(job.scene, job.camera, w, h, spp,
+                                        jax.random.PRNGKey(0), max_depth=10,
+                                        pool=1024))
+    seen = []
+    img_p = pwf.render_image(scene, camera, w, h, spp, Sampler(1, "cpu"),
+                             max_depth=10, pool=1024, pool_sort=pool_sort,
+                             progress_cb=lambda r, t: seen.append((r, t))
+                             ).numpy()
+    assert seen[-1] == (w * h * spp, w * h * spp)
+    assert img_p.shape == img_j.shape == (h, w, 3)
+    assert np.isfinite(img_p).all()
+    mj, mp = img_j.mean(), img_p.mean()
+    assert abs(mp - mj) / mj < 0.10, (mp, mj)
