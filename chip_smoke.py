@@ -91,11 +91,36 @@ p. render scenes/cornell_smoke.yaml (two box media, a glass sphere) at its
    with the teapot mesh as a medium's boundary, for a few segments at the
    full pool: finite, and the medium scatters a counted number of rays;
 q. integrator/path.py:render_image (the batch integrator) on the teapot at
-   128x128, 16 spp against the wavefront integrator: means within 10%.
+   128x128, 16 spp against the wavefront integrator: means within 10%;
+r. refresh_kernel_tables (what a vertex fit runs every step) on the card:
+   the teapot's 24-row and teapot_hires's 32-row tables, refreshed at the
+   build's vertices, equal the CPU refresh byte for byte; with the vertices
+   moved by (0.6, -0.4, 0.5), K1 and K2 over the refreshed tables and the
+   lockstep find over the moved vertices agree on 196,608 pool rays: hit
+   masks, ids and t equal;
+s. the fit's gradients on scenes/shiny_teapot.yaml at the CLI's size (the
+   1920x1080 film / 8: 240x135) @ 4 spp, depth 6: render_loss and its
+   backward through "kernel_replay" (K1 finds, the replay carries the
+   gradients), timed, with K1's launches held to spp * (3 * depth - 1),
+   the count predicted from the checkpoints (fit_launches); the same with
+   the find forced to K1's plain version, material gradients bitwise equal;
+   a vertex fit (bilinear lookups, the mesh moved) through the refreshed
+   tables against "lockstep" within VERTEX_RTOL; a teapot_hires vertex-fit
+   step through K2, its launches held to the same count;
+t. the CLI's fit (cli/main.py:fit_demo) at its defaults, 30 Adam steps: the
+   final loss below the first; the median ms a step, K1's launches and the
+   peak memory;
+u. one loss and backward at the film's full 1920x1080 @ 1 spp, depth 6:
+   finite gradients; the peak memory beside the checkpoints' prediction;
+v. one boundary=True vertex-fit step at 64x36: a finite, non-zero vertex
+   gradient (the edge-sampled term's: nearest-neighbour lookups give the
+   shading chain none).
 
-The second-to-last line is a JSON object with each kernel's numbers: its
+A line `[fit numbers] {...}` holds phases s-u's numbers. The
+second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render (K1: the two_teapots render by the default
-route, with its counts in the other renders under `launches_by_path`), its
+route, K2: teapot_hires's, with their counts on the other paths, the fit's
+among them, under `launches_by_path`), its
 time and its plain version's at 196,608 rays, and `bound_ms`, the least time the card could take for the same work
 (the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
 of float32; the operations are those this run's rays need: one scan of the
@@ -238,6 +263,24 @@ ROUTE_MAX_OFF = 1e-3
 ROUTE_P_ATOL = 1e-2
 ROUTE_P_ATOL99 = 1e-3
 ROUTE_N_ATOL = 2e-2
+# phases r-v, the differentiable fit: the scene and the CLI's defaults
+# (cli/main.py: 4 spp, max depth 6, 30 Adam steps at the film / 8), the
+# vertex move of tests/test_grad.py, the tables a refresh rebuilds, the
+# tolerance of a vertex fit through refreshed tables against the lockstep
+# find (the finds are expected to agree bit for bit; the gradients' sums
+# are deterministic only under torch.use_deterministic_algorithms), the
+# teapot_hires vertex-fit step (width, height, spp, depth) and the
+# boundary step's image
+FIT_SCENE = "scenes/shiny_teapot.yaml"
+FIT_SPP = 4
+FIT_DEPTH = 6
+FIT_STEPS = 30
+FIT_MOVE = (0.6, -0.4, 0.5)
+REFRESHED = ("tri_soa", "bounds8", "cluster_bmin", "cluster_bmax")
+VERTEX_RTOL = 1e-4
+VERTEX_ATOL = 1e-6
+HIRES_FIT = (64, 64, 1, 3)
+BOUNDARY_SIZE = (64, 36)
 # sha256 of each scene's cluster tables (table_digest) as the native SAH
 # builds them on the host, byte-identical to the JAX package's build
 # (tests/test_torch_host.py::test_build_scene_native_matches_reference and
@@ -547,6 +590,377 @@ def render(scene, camera, libs, label, jax_mean, width=WIDTH, height=HEIGHT,
           f"{MEAN_BAND:.0%}")
     rays_per_s = width * height * spp / seconds
     return launches, seconds, mean, rays_per_s, (retired, total), segments[0]
+
+
+def fit_launches(spp, depth):
+    """K1 (or K2) launches of one render_loss and its backward on a scene
+    with one kernel mesh, counted from diff/fit.py and integrator/path.py:
+    the forward finds once a bounce of each sample (spp * depth); the
+    backward recomputes each sample under its checkpoint up to the last
+    bounce's checkpoint, whose inputs are the last thing the sample saved
+    (depth - 1 finds, torch's early stop), then each bounce under its own
+    checkpoint (depth finds): spp * (3 * depth - 1)."""
+    return spp * (3 * depth - 1)
+
+
+def table_bytes(mesh):
+    """The bytes of a mesh's four refreshed tables, one bytes object."""
+    return b"".join(getattr(mesh, f).detach().cpu().contiguous().numpy()
+                    .tobytes() for f in REFRESHED)
+
+
+def phase_refresh(dev, meshes):
+    """r. For each mesh (label -> (host mesh, the same mesh on dev, rays8
+    in its space, its kernel library)): refresh_kernel_tables on dev at the
+    build's vertices equals the CPU refresh byte for byte; with the
+    vertices moved by FIT_MOVE, the kernel over the refreshed tables and
+    the lockstep find over the moved vertices find the same hits and ids."""
+    import torch
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+    from hobbyraytracer_tpu_torch.scene import ir as scene_ir
+    move = torch.tensor(FIT_MOVE, device=dev)
+    for label, (host, mesh, rays8, lib) in meshes.items():
+        cpu = scene_ir.refresh_kernel_tables(host)
+        card = scene_ir.refresh_kernel_tables(mesh)
+        check(table_bytes(cpu) == table_bytes(card),
+              f"{label}: the tables refreshed on {dev} differ from the CPU's")
+        rows = card.tri_soa.shape[1]
+        check(rows == mesh.tri_soa.shape[1], f"{label}: layout not kept")
+        moved = scene_ir.replace(mesh, verts=mesh.verts + move)
+        ref = scene_ir.refresh_kernel_tables(moved)
+        lib.launches = 0
+        t0 = time.perf_counter()
+        out_k, id_k = kmod.traverse_clusters(rays8, ref.bounds8, ref.tri_soa,
+                                             ref.cluster_id, need_uv=False)
+        check(lib.launches == (1 if dev.type == "cuda" else 0),
+              f"{label}: {lib.name} launched {lib.launches} times")
+        tri_verts, bmin, bmax = scene_ir._live_clusters(moved)
+        r = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
+        t_l, id_l, hit_l = isect.intersect_mesh_clustered(
+            r, tri_verts, mesh.cluster_id, bmin, bmax, 1e30,
+            ray_valid=rays8[:, 6] > 0.0)
+        sync(dev)
+        hit_k = out_k[:, 0] < 1e30
+        n_hit = int(hit_k.sum())
+        check(n_hit > 0, f"{label}: no ray hit the moved mesh")
+        check(bool(torch.equal(hit_k, hit_l)),
+              f"{label}: hit masks differ on {int((hit_k != hit_l).sum())}")
+        check(bool(torch.equal(id_k, id_l)),
+              f"{label}: ids differ on {int((id_k != id_l).sum())} rays")
+        check(bool(torch.equal(out_k[:, 0], t_l)), f"{label}: t differs")
+        print(f"[refresh] {label} ({rows}-row table): refreshed on {dev} = "
+              f"CPU refresh byte for byte; vertices moved by {FIT_MOVE}: "
+              f"{lib.name} over the refreshed tables vs the lockstep find on "
+              f"{rays8.shape[0]} rays, {n_hit} hits, masks, ids and t equal "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def with_bilinear(scene):
+    """The scene with bilinear texture lookups (a copy; the original
+    keeps its nearest-neighbour ones)."""
+    from hobbyraytracer_tpu_torch.scene import ir as scene_ir
+    out = scene_ir.replace(scene, textures=scene_ir.replace(scene.textures))
+    out.textures.bilinear = True
+    return out
+
+
+def loss_grads(scene, camera, width, height, sampler, spp, depth, target,
+               fit_vertices=False, move=None, backend="kernel_replay"):
+    """One render_loss and its backward from the scene's own parameters
+    (the vertices moved by `move` for a vertex fit) -> (loss, {name:
+    gradient}), the gradients of unused parameters zeros."""
+    import torch
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    params, rebuild = fit_mod.select_params(scene, fit_vertices)
+    if move is not None:
+        with torch.no_grad():
+            for v in params["verts"]:
+                v += move
+    loss = fit_mod.render_loss(params, rebuild, camera, width, height,
+                               sampler, spp, target, depth,
+                               mesh_backend=backend)
+    loss.backward()
+    leaves = dict(params["materials"])
+    leaves.update({f"verts{i}": v for i, v in
+                   enumerate(params.get("verts", []))})
+    return loss.detach(), {k: (torch.zeros_like(v) if v.grad is None
+                               else v.grad) for k, v in leaves.items()}
+
+
+def phase_fit_grads(dev, card, scene, camera, width, height, k1, hires,
+                    k2):
+    """s. render_loss and its backward through "kernel_replay": timed, K1's
+    launches held to fit_launches; the same with the find forced to K1's
+    plain version (material gradients bitwise equal, both under
+    torch.use_deterministic_algorithms, which makes the index backward's
+    sums deterministic); a vertex fit with bilinear lookups and the mesh
+    moved, through the refreshed tables against "lockstep"; and a vertex
+    fit step of the 32-row hires mesh (hires = (scene, camera)) through K2,
+    its launches held to fit_launches. -> (ms, K1 launches, K2 launches)."""
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import perturb_materials
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    spp, depth = FIT_SPP, FIT_DEPTH
+    sampler = Sampler(SEED, dev)
+    with torch.no_grad():
+        target = fit_mod.render_linear(scene, camera, width, height, sampler,
+                                       spp, depth)
+    start = perturb_materials(scene)
+    want = fit_launches(spp, depth)
+    k1.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    loss, grads = loss_grads(start, camera, width, height, sampler, spp,
+                             depth, target)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    k1_step = k1.launches
+    check(dev.type != "cuda" or k1_step == want,
+          f"a fit step launched K1 {k1_step} times, predicted {want}")
+    check(bool(torch.isfinite(loss)) and float(loss) > 0, f"loss {loss}")
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"non-finite gradient {name}")
+    check(bool((grads["albedo"] != 0).any()), "no albedo gradient")
+    print(f"[fit grads] shiny_teapot {width}x{height} @ {spp} spp, depth "
+          f"{depth}, kernel_replay: loss {float(loss):.6f}, loss + backward "
+          f"{ms:.1f} ms, K1 launches {k1_step} (predicted {want}) on {card}")
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    real = kmod.traverse_clusters
+    try:
+        runs = {}
+        for label in ("K1", "K1's plain version"):
+            if label != "K1":
+                kmod.traverse_clusters = kmod.traverse_clusters_plain
+            k1.launches = 0
+            runs[label] = loss_grads(start, camera, width, height, sampler,
+                                     spp, depth, target)
+            sync(dev)
+            print(f"  {label}: loss {float(runs[label][0]):.8f}, K1 "
+                  f"launches {k1.launches}")
+        kmod.traverse_clusters = real
+        (la, ga), (lb, gb) = runs.values()
+        check(bool(torch.equal(la, lb)), f"kernel vs plain: loss {la} {lb}")
+        for name in ga:
+            check(bool(torch.equal(ga[name], gb[name])),
+                  f"kernel vs plain: {name} gradients differ")
+        print(f"  K1 vs its plain version: loss and the gradients of "
+              f"{sorted(ga)} bitwise equal")
+
+        bil = with_bilinear(scene)
+        with torch.no_grad():
+            btarget = fit_mod.render_linear(bil, camera, width, height,
+                                            sampler, spp, depth)
+        move = torch.tensor(FIT_MOVE, device=dev)
+        vruns = {backend: loss_grads(bil, camera, width, height, sampler,
+                                     spp, depth, btarget, True, move,
+                                     backend)
+                 for backend in ("kernel_replay", "lockstep")}
+        (la, ga), (lb, gb) = vruns.values()
+        gv, gl = ga["verts0"], gb["verts0"]
+        check(bool((gv != 0).any()), "the vertex fit has no vertex gradient")
+        err = (gv - gl).abs().max().item()
+        scale = gl.abs().max().item()
+        check(bool(torch.allclose(gv, gl, rtol=VERTEX_RTOL,
+                                  atol=VERTEX_ATOL * scale)),
+              f"vertex fit: kernel_replay vs lockstep gradients {err} apart")
+        check(abs(float(la) - float(lb)) <= VERTEX_RTOL * abs(float(lb)),
+              f"vertex fit: losses {float(la)} {float(lb)}")
+        print(f"  vertex fit (bilinear, mesh moved by {FIT_MOVE}): "
+              f"kernel_replay over the refreshed tables vs lockstep: losses "
+              f"{float(la):.8f} / {float(lb):.8f}, vertex gradients max "
+              f"|diff| {err:.3g} of max {scale:.3g} (bitwise: "
+              f"{bool(torch.equal(gv, gl))}; tolerance rtol {VERTEX_RTOL}, "
+              f"atol {VERTEX_ATOL} x max)")
+    finally:
+        kmod.traverse_clusters = real
+        torch.use_deterministic_algorithms(False)
+
+    hscene, hcamera = hires
+    hw, hh, hspp, hdepth = HIRES_FIT
+    with torch.no_grad():
+        htarget = fit_mod.render_linear(hscene, hcamera, hw, hh, sampler,
+                                        hspp, hdepth)
+    k1.launches = k2.launches = 0
+    hloss, hgrads = loss_grads(hscene, hcamera, hw, hh, sampler, hspp,
+                               hdepth, htarget * 0.5, True, move)
+    sync(dev)
+    k2_step = k2.launches
+    hwant = fit_launches(hspp, hdepth)
+    check(dev.type != "cuda" or (k2_step, k1.launches) == (hwant, 0),
+          f"a teapot_hires vertex fit step launched K2 {k2_step} and K1 "
+          f"{k1.launches} times, predicted {hwant} and 0")
+    check(bool(torch.isfinite(hgrads["verts0"]).all()),
+          "teapot_hires: non-finite vertex gradients")
+    print(f"  teapot_hires vertex fit step {hw}x{hh} @ {hspp} spp, depth "
+          f"{hdepth}, mesh moved, 32-row tables refreshed: loss "
+          f"{float(hloss):.6f}, K2 launches {k2_step} (predicted {hwant})")
+    return ms, k1_step, k2_step
+
+
+def phase_fit(dev, card, k1, steps=None, width=None, height=None):
+    """t. The CLI's fit (cli/main.py:fit_demo) on FIT_SCENE at its defaults:
+    the final loss below the first; the median ms a step (host clock
+    between the steps' render_loss calls, each step ending in its loss's
+    host read), K1's launches a step, and the peak memory. -> dict."""
+    import numpy as np
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import fit_demo
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    marks = []
+    real = fit_mod.render_loss
+
+    def timed(*args, **kwargs):
+        marks.append(time.perf_counter())
+        return real(*args, **kwargs)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    k1.launches = 0
+    fit_mod.render_loss = timed
+    try:
+        t0 = time.perf_counter()
+        res = fit_demo(FIT_SCENE, dev, width, height, steps=steps or FIT_STEPS)
+        sync(dev)
+        marks.append(time.perf_counter())
+    finally:
+        fit_mod.render_loss = real
+    n = len(res.losses)
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    want = FIT_SPP * FIT_DEPTH + n * fit_launches(FIT_SPP, FIT_DEPTH)
+    check(dev.type != "cuda" or k1.launches == want,
+          f"the fit launched K1 {k1.launches} times, predicted {want}")
+    check(bool(np.isfinite(res.losses).all()), "non-finite fit losses")
+    check(res.losses[-1] < res.losses[0],
+          f"the fit's final loss {res.losses[-1]} is not below its first "
+          f"{res.losses[0]}")
+    out = {"steps": n, "median_step_ms": statistics.median(step_ms),
+           "k1_launches": k1.launches,
+           "k1_launches_per_step": fit_launches(FIT_SPP, FIT_DEPTH),
+           "peak_bytes": peak, "first_loss": float(res.losses[0]),
+           "final_loss": float(res.losses[-1]),
+           "seconds": time.perf_counter() - t0}
+    print(f"[fit] {FIT_SCENE} at the CLI's defaults ({n} Adam steps, "
+          f"{FIT_SPP} spp, depth {FIT_DEPTH}): loss {out['first_loss']:.6f} "
+          f"-> {out['final_loss']:.6f}, median {out['median_step_ms']:.1f} ms "
+          f"a step (min {min(step_ms):.1f}, max {max(step_ms):.1f}), K1 "
+          f"launches {k1.launches} ({FIT_SPP * FIT_DEPTH} for the target + "
+          f"{fit_launches(FIT_SPP, FIT_DEPTH)} a step), peak memory "
+          f"{peak if peak is None else f'{peak / 2**30:.3f} GiB'}, "
+          f"{out['seconds']:.1f} s in all, on {card}")
+    return out
+
+
+def bounce_saved_bytes(scene, camera, sampler, n_rays):
+    """The bytes autograd saves for one bounce of trace_diff without its
+    checkpoint, at n_rays camera rays that carry gradients (as every bounce
+    after the first does): what a bounce's recompute holds in the backward
+    pass."""
+    import torch
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.integrator import path as path_mod
+    from hobbyraytracer_tpu_torch.ops.camera import get_rays
+    params, rebuild = fit_mod.select_params(scene)
+    g = torch.Generator(device=sampler.device).manual_seed(SEED)
+    st = torch.rand((2, n_rays), generator=g, device=sampler.device)
+    cam = get_rays(camera, st[0], st[1])
+    rays = type(cam)(o=cam.o.clone().requires_grad_(True),
+                     d=cam.d.clone().requires_grad_(True))
+    seen = {}
+
+    def pack(t):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    real = path_mod.checkpoint
+    path_mod.checkpoint = lambda fn, *args, **kwargs: fn(*args)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            path_mod.trace_diff(rebuild(params), rays, sampler, 1)
+    finally:
+        path_mod.checkpoint = real
+    return sum(seen.values())
+
+
+def phase_full_film(dev, card, scene, camera, width, height):
+    """u. One render_loss and its backward at the scene's full film, 1 spp,
+    depth FIT_DEPTH: the gradients finite; the peak memory beside what the
+    checkpoints predict: what was allocated before, the depth's saved
+    carries (o, d, result, throughput: 4 x 12 bytes, active 1 byte, a ray
+    and bounce) and one bounce's saved tensors (measured at 65,536 rays,
+    scaled to the film)."""
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import perturb_materials
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    n = width * height
+    sampler = Sampler(SEED, dev)
+    per_ray = bounce_saved_bytes(scene, camera, sampler, 65_536) / 65_536
+    with torch.no_grad():
+        target = fit_mod.render_linear(scene, camera, width, height, sampler,
+                                       1, FIT_DEPTH)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    else:
+        before = 0
+    t0 = time.perf_counter()
+    loss, grads = loss_grads(perturb_materials(scene), camera, width, height,
+                             sampler, 1, FIT_DEPTH, target)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"full film: non-finite {name}")
+    check(bool((grads["albedo"] != 0).any()), "full film: no albedo gradient")
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    predicted = before + FIT_DEPTH * 49 * n + per_ray * n
+    print(f"[full film] shiny_teapot {width}x{height} @ 1 spp, depth "
+          f"{FIT_DEPTH}: loss {float(loss):.6f}, loss + backward "
+          f"{seconds:.2f} s, gradients finite; peak memory "
+          f"{peak if peak is None else f'{peak / 2**30:.3f} GiB'} against "
+          f"{predicted / 2**30:.3f} GiB predicted by the checkpoints "
+          f"({before / 2**30:.3f} allocated before + {FIT_DEPTH} x 49 B "
+          f"carry + {per_ray:.0f} B of one bounce's saved tensors, a ray) "
+          f"on {card}")
+    return {"peak_bytes": peak, "predicted_bytes": predicted,
+            "seconds": seconds}
+
+
+def phase_boundary(dev, card):
+    """v. One Adam step of a boundary=True vertex fit on FIT_SCENE at
+    BOUNDARY_SIZE: the vertex gradient finite and non-zero. With
+    nearest-neighbour lookups the shading chain gives the vertices no
+    gradient, so a non-zero one is the edge-sampled term's."""
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import fit_demo
+    w, h = BOUNDARY_SIZE
+    t0 = time.perf_counter()
+    res = fit_demo(FIT_SCENE, dev, w, h, steps=1, fit_vertices=True,
+                   boundary=True, verbose=False)
+    sync(dev)
+    g = res.params["verts"][0].grad
+    check(g is not None and bool(torch.isfinite(g).all()),
+          "boundary step: non-finite vertex gradient")
+    check(bool((g != 0).any()), "boundary step: zero vertex gradient")
+    print(f"[boundary] {FIT_SCENE} {w}x{h}, one boundary=True vertex-fit "
+          f"step: loss {res.losses[0]:.6f}, vertex gradient finite, "
+          f"{int((g != 0).any(dim=1).sum())} of {g.shape[0]} vertices moved "
+          f"by it, max |g| {g.abs().max().item():.4g} "
+          f"({time.perf_counter() - t0:.2f} s) on {card}")
 
 
 def main():
@@ -1212,6 +1626,33 @@ def main():
           f"{mw:.5f} "
           f"on {card}")
 
+    # r. the tables a vertex fit refreshes, on the card, and the kernels'
+    # finds over them
+    host = {path: next(i.mesh for i in load_scene(path).scene.instances
+                       if i.kind == "mesh") for path in (SCENE, HIRES)}
+    phase_refresh(dev, {
+        "teapot": (host[SCENE], mesh, sets["after one bounce"], k1),
+        "teapot_hires": (host[HIRES], hmesh, hsets["after one bounce"], k2)})
+
+    # s-v. the differentiable fit on shiny_teapot
+    fjob = build_scene(load_scene_desc(FIT_SCENE))
+    fscene, fcamera = fjob.scene.to(dev), fjob.camera.to(dev)
+    fw, fh = max(16, fjob.width // 8), max(16, fjob.height // 8)
+    fit_ms, k1_step, k2_step = phase_fit_grads(
+        dev, card, fscene, fcamera, fw, fh, k1, (hscene, hcamera), k2)
+    fit = phase_fit(dev, card, k1)
+    full = phase_full_film(dev, card, fscene, fcamera, fjob.width,
+                           fjob.height)
+    phase_boundary(dev, card)
+    print("[fit numbers] " + json.dumps({
+        "card": card, "scene": FIT_SCENE, "size": [fw, fh], "spp": FIT_SPP,
+        "depth": FIT_DEPTH, "loss_backward_ms": fit_ms, **fit,
+        "full_film": dict(full, size=[fjob.width, fjob.height])}))
+    k1_by_path[f"fit step ({fw}x{fh} @ {FIT_SPP} spp, depth {FIT_DEPTH})"] = (
+        k1_step)
+    k1_by_path[f"fit ({fit['steps']} steps and the target)"] = (
+        fit["k1_launches"])
+
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
 
@@ -1231,7 +1672,11 @@ def main():
             k1_by_path["two_teapots pool_sort=0"], err_k1,
             *times_k1[False], bound_k1, ops_k1, launches_by_path=k1_by_path),
         row(k2, "mesh_traverse_stream.cu", f"{ref}:357", k2_launches,
-            err_k2, *times_k2[False], bound_k2, ops_k2),
+            err_k2, *times_k2[False], bound_k2, ops_k2,
+            launches_by_path={
+                "teapot_hires": k2_launches,
+                "vertex fit step (teapot_hires {}x{} @ {} spp, depth {})"
+                .format(*HIRES_FIT): k2_step}),
         row(k3, "coherence_keys.cu", f"{ref}:583", k3_launches, err_k3,
             *times_k3, bound_k3, ops_k3),
         row(k4, "sphere_traverse.cu",

@@ -2,14 +2,26 @@
 hobbyraytracer_tpu/cli/main.py).
 
     python -m hobbyraytracer_tpu_torch.cli.main render scenes/teapot_scene.yaml -o out.png --device cuda
+    python -m hobbyraytracer_tpu_torch.cli.main fit scenes/shiny_teapot.yaml --device cuda
 
-renders a YAML scene on the named device (default cuda; nothing falls back
-to the CPU) through the wavefront integrator, or with `--integrator batch`
-through the batch integrator (integrator/path.py), and prints the
-reference's "Loaded scene" / "Done!" lines plus the primary rays/s. A bare
-scene path means `render`, like the reference binary. The `fit` and `bench`
-subcommands and checkpointing are not ported yet; the two subcommands exit
-with an error naming their ROADMAP item.
+`render` renders a YAML scene on the named device (default cuda; nothing
+falls back to the CPU) through the wavefront integrator, or with
+`--integrator batch` through the batch integrator (integrator/path.py), and
+prints the reference's "Loaded scene" / "Done!" lines plus the primary
+rays/s. A bare scene path means `render`, like the reference binary.
+
+`fit` is the differentiable fit's demonstration (diff/fit.py): it renders
+the scene as authored at an eighth of its film (at least 16x16; 4 spp, max
+depth 6) as the target, perturbs the material table (albedo * 0.3 + 0.3,
+roughness + 0.4, both clipped to [0, 1]) and recovers it with --steps Adam
+steps (30) from the same sampler; --fit-vertices also fits the mesh
+vertices, --boundary adds their edge-sampled silhouette gradients. It
+prints the loss every tenth of the steps and the final loss, and returns
+0 when the final loss is below the first.
+
+The `bench` subcommand and checkpointing are not ported yet; `bench` exits
+with an error naming its ROADMAP item. Neither is the reference's
+multi-device fit (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -18,7 +30,6 @@ import sys
 import time
 
 _NOT_PORTED = {
-    "fit": "ROADMAP Queue 1 item 13 (differentiable fit)",
     "bench": "ROADMAP Queue 1 item 9 (port bench)",
 }
 
@@ -117,6 +128,70 @@ def cmd_render(args) -> int:
     return 0 if rc else 1
 
 
+def perturb_materials(scene):
+    """The fit demo's start: the scene with albedo * 0.3 + 0.3 and
+    roughness + 0.4, both clipped to [0, 1] (a copy; every other buffer
+    shared)."""
+    import torch
+
+    from ..scene import ir
+
+    m = scene.materials
+    return ir.replace(scene, materials=ir.replace(
+        m, albedo=torch.clamp(m.albedo * 0.3 + 0.3, 0.0, 1.0),
+        roughness=torch.clamp(m.roughness + 0.4, 0.0, 1.0)))
+
+
+def fit_demo(scene_path: str, device, width=None, height=None, spp: int = 4,
+             max_depth: int = 6, seed: int = 0, steps: int = 30,
+             fit_vertices: bool = False, boundary: bool = False,
+             verbose: bool = True):
+    """The fit of `fit` as a function: build the scene on `device`, render
+    the target at width x height (default the film / 8, at least 16 each
+    way), perturb the materials and fit them back. -> diff/fit.py's
+    FitResult."""
+    import torch
+
+    from ..core.rng import Sampler
+    from ..diff.fit import fit_materials, render_linear
+    from ..scene import build_scene, load_scene_desc
+
+    job = build_scene(load_scene_desc(scene_path))
+    scene = job.scene.to(device)
+    camera = job.camera.to(device)
+    w = width or max(16, job.width // 8)
+    h = height or max(16, job.height // 8)
+    sampler = Sampler(seed, device)
+    # the target: the scene as authored, from the sampler the fit renders
+    # with (correlated sampling)
+    with torch.no_grad():
+        target = render_linear(scene, camera, w, h, sampler, spp, max_depth)
+    return fit_materials(perturb_materials(scene), camera, target, w, h,
+                         steps=steps, n_samples=spp, max_depth=max_depth,
+                         sampler=sampler, fit_vertices=fit_vertices,
+                         boundary=boundary, verbose=verbose)
+
+
+def cmd_fit(args) -> int:
+    import torch
+
+    from ..scene.schema import SceneError
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"device {args.device!r} requested but CUDA is not available")
+        return 1
+    try:
+        res = fit_demo(args.scene, device, args.width, args.height, args.spp,
+                       args.max_depth, args.seed, args.steps,
+                       args.fit_vertices, args.boundary)
+    except SceneError as e:
+        print(e)
+        return -1
+    print(f"final loss: {res.losses[-1]:.6f} (start {res.losses[0]:.6f})")
+    return 0 if res.losses[-1] < res.losses[0] else 1
+
+
 def _not_ported(args) -> int:
     print(f"`{args.cmd}` is not ported yet: {_NOT_PORTED[args.cmd]}")
     return 2
@@ -150,6 +225,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     sp.set_defaults(fn=cmd_render)
+    sp = sub.add_parser("fit", help="differentiable material fit demo")
+    sp.add_argument("scene", nargs="?", default="teapot_scene.yaml")
+    sp.add_argument("--spp", type=int, default=4)
+    sp.add_argument("--width", type=int, default=None,
+                    help="default: the film's width / 8, at least 16")
+    sp.add_argument("--height", type=int, default=None,
+                    help="default: the film's height / 8, at least 16")
+    sp.add_argument("--max-depth", type=int, default=6)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--steps", type=int, default=30)
+    sp.add_argument("--fit-vertices", action="store_true",
+                    help="also optimize the mesh vertex positions")
+    sp.add_argument("--boundary", action="store_true",
+                    help="add edge-sampled silhouette gradients to the "
+                         "vertex fit (diff/edges.py)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to fit on (default cuda)")
+    sp.set_defaults(fn=cmd_fit)
     for name in _NOT_PORTED:
         sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})"
                        ).set_defaults(fn=_not_ported)

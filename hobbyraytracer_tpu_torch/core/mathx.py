@@ -64,10 +64,28 @@ def schlick(cosine: torch.Tensor, ref_idx: torch.Tensor) -> torch.Tensor:
     return r0 + (1.0 - r0) * (x2 * x2 * x)
 
 
+class _SafeArccos(torch.autograd.Function):
+    """arccos with the reference's custom JVP (core/mathx.py:77-90)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * (-1.0 / torch.sqrt(torch.clamp(1.0 - x * x,
+                                                     min=1e-12)))
+
+
 def safe_arccos(x: torch.Tensor) -> torch.Tensor:
-    """arccos of x clipped to [-1, 1]. Forward only: the reference's clamped
-    derivative (a custom JVP) arrives with the differentiable fit."""
-    return torch.arccos(torch.clamp(x, -1.0, 1.0))
+    """arccos of x clipped to [-1, 1], with a bounded derivative: -1 /
+    sqrt(max(1 - x^2, 1e-12)) of the unclipped x (the true derivative is
+    infinite at +-1 and would poison gradients with inf * 0 at the sphere
+    poles and straight-up environment lookups; torch's clamp would give 0
+    outside [-1, 1])."""
+    return _SafeArccos.apply(x)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

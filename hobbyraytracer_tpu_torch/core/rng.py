@@ -7,7 +7,7 @@ stream; here a `Sampler(seed, device)` seeds a fresh generator for each
 stream from (seed, purpose, iteration) through a fixed 64-bit mixing
 function (splitmix64). The draws are not the reference's bits: parity tests
 inject identical noise into both packages instead (a subclass overriding
-`uniform` / `unit_sphere` / `in_ball`).
+`uniform` / `unit_sphere` / `in_ball` / `randint` / `fold_in`).
 """
 from __future__ import annotations
 
@@ -24,6 +24,11 @@ DIELECTRIC_CHOICE = 4
 MEDIUM_FLIGHT = 5
 LENS = 6
 RUSSIAN_ROULETTE = 7
+# edge sampling (diff/edges.py; the reference's tags, diff/edges.py:55-58)
+EDGE_PICK = 201
+EDGE_S = 202
+EDGE_PICK_SH = 203
+EDGE_S_SH = 204
 _FOLD = 1 << 32      # Sampler.fold_in's purpose, apart from every tag above
 
 _MASK64 = (1 << 64) - 1
@@ -46,8 +51,8 @@ def stream_seed(seed: int, purpose: int, iteration: int) -> int:
 
 class Sampler:
     """Random draws for one render: `uniform` / `unit_sphere` / `in_ball`
-    return float32 tensors on `device`, from the stream of (purpose,
-    iteration)."""
+    return float32 tensors on `device`, `randint` int64 ones, each from the
+    stream of (purpose, iteration)."""
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
@@ -71,6 +76,13 @@ class Sampler:
     def uniform(self, purpose: int, iteration: int, shape) -> torch.Tensor:
         """U[0, 1) float32 (glm::linearRand(0, 1))."""
         return self._rand(purpose, iteration, shape)
+
+    def randint(self, purpose: int, iteration: int, shape,
+                high: int) -> torch.Tensor:
+        """Integers uniform in [0, high), int64 (jax.random.randint)."""
+        return torch.randint(0, int(high), tuple(shape),
+                             generator=self.generator(purpose, iteration),
+                             dtype=torch.int64, device=self.device)
 
     def unit_sphere(self, purpose: int, iteration: int,
                     shape) -> torch.Tensor:

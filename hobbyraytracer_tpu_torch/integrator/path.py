@@ -13,14 +13,20 @@ Where the reference runs a lax.while_loop, `trace` is a Python loop that
 reads one flag from the device every bounce (is any ray still active?) and
 stops when none is, or at max_depth. Lanes that ended keep riding along:
 this integrator is the simple one, the wavefront integrator the fast one.
-The sampler's stream index is the bounce. The differentiable variant
-(`trace_diff`) waits for the fit, ROADMAP Queue 1 item 13.
+The sampler's stream index is the bounce.
+
+`trace_diff` is the differentiable variant the fit (diff/fit.py) renders
+with: a fixed number of bounces with no host read, each bounce
+checkpointed, the discrete decisions (which triangle, reflect or refract,
+absorb) taken without gradients and the path's shading chain replayed
+with them.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import mathx
 from ..core import rng as rng_mod
@@ -48,40 +54,75 @@ def background_colour(scene, d: torch.Tensor) -> torch.Tensor:
     return tex_ops.colour_value(scene.textures, tex_id, u, v, p)
 
 
+def _bounce(scene: scene_ir.SceneIR, sampler, mesh_backend: str,
+            bounce: int, o, d, result, throughput, active):
+    """One bounce of the radiance recurrence for every ray -> the next
+    (o, d, result, throughput, active)."""
+    r = Rays(o=o, d=d)
+    hits = scene_ir.intersect_scene(scene, r, sampler=sampler, bounce=bounce,
+                                    mesh_backend=mesh_backend)
+    miss = active & ~hits.hit
+    result = result + torch.where(
+        miss[:, None], throughput * background_colour(scene, d), 0.0)
+    emit = shade_ops.emitted(scene.materials, scene.textures, hits)
+    hit_active = active & hits.hit
+    result = result + torch.where(hit_active[:, None], throughput * emit,
+                                  0.0)
+    ok, atten, new_d = shade_ops.scatter(scene.materials, scene.textures, r,
+                                         hits, sampler, bounce)
+    active = hit_active & ok
+    throughput = torch.where(active[:, None], throughput * atten, throughput)
+    o = torch.where(active[:, None], hits.p, o)
+    d = torch.where(active[:, None], new_d, d)
+    return o, d, result, throughput, active
+
+
+def _start(rays: Rays):
+    """The carry of a fresh wavefront: (o, d, result 0, throughput 1,
+    every ray active)."""
+    n = rays.o.shape[0]
+    dev = rays.o.device
+    return (rays.o, rays.d,
+            torch.zeros((n, 3), dtype=torch.float32, device=dev),
+            torch.ones((n, 3), dtype=torch.float32, device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev))
+
+
 def trace(scene: scene_ir.SceneIR, rays: Rays, sampler,
           max_depth: int = MAX_DEPTH,
           mesh_backend: str = "kernel") -> torch.Tensor:
     """Radiance (N, 3) for a wavefront of rays on `sampler.device`. Every
     draw is array-shaped, one value a ray, from the stream of (purpose,
     bounce)."""
-    n = rays.o.shape[0]
-    dev = rays.o.device
-    o, d = rays.o, rays.d
-    result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    carry = _start(rays)
     for bounce in range(max_depth):
-        if not bool(active.any()):      # the one host read of a bounce
+        if not bool(carry[4].any()):      # the one host read of a bounce
             break
-        r = Rays(o=o, d=d)
-        hits = scene_ir.intersect_scene(scene, r, sampler=sampler,
-                                        bounce=bounce,
-                                        mesh_backend=mesh_backend)
-        miss = active & ~hits.hit
-        result = result + torch.where(
-            miss[:, None], throughput * background_colour(scene, d), 0.0)
-        emit = shade_ops.emitted(scene.materials, scene.textures, hits)
-        hit_active = active & hits.hit
-        result = result + torch.where(hit_active[:, None],
-                                      throughput * emit, 0.0)
-        ok, atten, new_d = shade_ops.scatter(scene.materials, scene.textures,
-                                             r, hits, sampler, bounce)
-        active = hit_active & ok
-        throughput = torch.where(active[:, None], throughput * atten,
-                                 throughput)
-        o = torch.where(active[:, None], hits.p, o)
-        d = torch.where(active[:, None], new_d, d)
-    return result
+        carry = _bounce(scene, sampler, mesh_backend, bounce, *carry)
+    return carry[2]
+
+
+def trace_diff(scene: scene_ir.SceneIR, rays: Rays, sampler,
+               max_depth: int = 8,
+               mesh_backend: str = "kernel_replay") -> torch.Tensor:
+    """Radiance (N, 3) of `trace`, differentiable in the scene's buffers
+    and the rays (reference integrator/path.py:88-142).
+
+    The bounce loop runs exactly max_depth bounces: no early exit and no
+    host read (lanes that ended ride along masked). Each bounce runs under
+    torch.utils.checkpoint, so the backward pass keeps only the carry
+    (o, d, result, throughput, active) between bounces and recomputes a
+    bounce's intermediates when it reaches it: reverse-mode memory is
+    O(max_depth x carry). The radiance is `trace`'s. Discrete decisions
+    carry no gradient: the mesh find runs without gradients and is
+    replayed from the winning triangle (mesh_backend "kernel_replay", the
+    default: K1 / K2 over the mesh's tables; "lockstep": the lockstep
+    find over the live vertices), and scatter's choices are detached."""
+    carry = _start(rays)
+    for bounce in range(max_depth):
+        carry = checkpoint(_bounce, scene, sampler, mesh_backend, bounce,
+                           *carry, use_reentrant=False)
+    return carry[2]
 
 
 def pixel_grid(width: int, height: int, device):

@@ -19,8 +19,8 @@ Differences from the JAX version: `_regenerate` and `_segment` update the
 pool state in place (and return it) where the reference rebuilt it; the
 render loop is a Python loop that checks completion on the host every
 `steps_per_call` iterations. Iterations after completion are no-ops (no
-lane active, nothing issued), but they still advance `it`, the sampler's
-iteration index.
+lane active, nothing issued); `render_state` returns with `it` set to the
+iteration at which the pool ran dry, where the reference's loop stops.
 
 Pool sort (pool_sort=N, default POOL_SORT from HRT_POOL_SORT, 0 = off):
 every N segments the whole pool is permuted by
@@ -47,8 +47,15 @@ from ..scene import ir as scene_ir
 from .path import MAX_DEPTH, background_colour
 
 DEFAULT_POOL = 196_608   # lanes; the reference's default
-SAMPLE_CHUNK = 4         # samples per work item
-RETIRE_DIV = 12          # retirement cap = max(pool // RETIRE_DIV, 64)
+# samples per work item, and the retirement cap's divisor (cap = max(pool //
+# RETIRE_DIV, 64) lanes a segment): the reference's knobs HRT_SAMPLE_CHUNK
+# and HRT_RETIRE_DIV, read once at import with its defaults
+SAMPLE_CHUNK = int(os.environ.get("HRT_SAMPLE_CHUNK", "4"))
+RETIRE_DIV = int(os.environ.get("HRT_RETIRE_DIV", "12"))
+if RETIRE_DIV < 1:
+    raise ValueError(
+        f"HRT_RETIRE_DIV={RETIRE_DIV}: the retirement-cap divisor must be "
+        ">= 1 (cap = pool // HRT_RETIRE_DIV rows scattered per segment)")
 RR_START = 4             # bounces before Russian roulette begins
 RR_MIN_P = 0.05          # survival-probability floor
 _BIGI = 2 ** 30          # sort key of lanes with nothing to retire
@@ -278,6 +285,10 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
 
     Completion (retired == W*H*samples) is read on the host after every
     `steps_per_call` iterations, where progress_cb(retired, total) fires.
+    The iterations of the last block that ran after the pool went dry (no
+    item left to issue, none in a lane) are no-ops, and the state comes
+    back with `it` set to the first of them, the iteration at which the
+    reference's loop stops.
     plain=True runs the mesh find and the clustered sphere find through the
     kernels' plain PyTorch versions (a comparison switch). pool_sort: the
     pool sort's period, see _segment."""
@@ -288,14 +299,22 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     state = init_state(width, height, min(pool, total_items),
                        device=sampler.device)
     while True:
+        # each segment's count of retired samples (a new tensor a segment:
+        # keeping them costs the device nothing)
+        counts = []
         for _ in range(steps_per_call):
             _regenerate(state, camera, width, height, total_items, sampler)
             _segment(state, scene, width, height, sampler, max_depth,
                      samples, sample_chunk, rr, plain, pool_sort)
+            counts.append(state.retired)
         retired = int(state.retired)
         if progress_cb is not None:
             progress_cb(retired, total_samples)
         if retired >= total_samples:
+            # the pool ran dry after the segment that retired the last
+            # sample: the reference's loop stops there
+            last = int((torch.stack(counts) >= total_samples).int().argmax())
+            state.it -= steps_per_call - 1 - last
             return state
 
 

@@ -69,43 +69,60 @@ KERNEL_STREAM = KernelLibrary("mesh_traverse_stream")  # K2, 32-row table
 KEY_KERNEL = KernelLibrary("coherence_keys")           # K3
 
 
-def pack_mesh_soa(tri_verts: np.ndarray, tri_normals: np.ndarray,
-                  tri_uvs: np.ndarray) -> np.ndarray:
+def pack_mesh_soa_torch(tri_verts: torch.Tensor, tri_normals: torch.Tensor,
+                        tri_uvs: torch.Tensor) -> torch.Tensor:
     """(K,L,3,3) verts / (K,L,3,3) corner normals / (K,L,3,2) corner UVs ->
-    (K, 24, L) float32 SoA with triangles on the last axis."""
-    tri_verts = np.asarray(tri_verts, np.float32)
+    (K, 24, L) float32 SoA with triangles on the last axis, on the
+    tensors' own device (scene/ir.py:refresh_kernel_tables packs on the
+    card)."""
     v0 = tri_verts[:, :, 0, :]
-    e1 = tri_verts[:, :, 1, :] - v0
-    e2 = tri_verts[:, :, 2, :] - v0
-    tri_normals = np.asarray(tri_normals, np.float32)
-    tri_uvs = np.asarray(tri_uvs, np.float32)
-    cols = [v0, e1, e2,
+    cols = [v0, tri_verts[:, :, 1, :] - v0, tri_verts[:, :, 2, :] - v0,
             tri_normals[:, :, 0, :], tri_normals[:, :, 1, :],
             tri_normals[:, :, 2, :],
             tri_uvs[:, :, 0, :], tri_uvs[:, :, 1, :], tri_uvs[:, :, 2, :]]
-    soa = np.concatenate(cols, axis=2)                    # (K, L, 24)
-    return np.ascontiguousarray(np.swapaxes(soa, 1, 2))   # (K, 24, L)
+    return torch.cat(cols, dim=2).transpose(1, 2).contiguous()
 
 
-def pack_mesh_stream(tri_soa: np.ndarray, tri_id: np.ndarray) -> np.ndarray:
+def pack_mesh_stream_torch(tri_soa: torch.Tensor,
+                           tri_id: torch.Tensor) -> torch.Tensor:
     """(K, 24, L) SoA + (K, L) int32 ids -> the reference's (K, 32, L)
-    streaming table: ids bitcast to float32 in row 24, rows 25-31 zero."""
+    streaming table: ids bit-cast to float32 in row 24, rows 25-31 zero."""
     k, rows, leaf = tri_soa.shape
     if rows != SOA_ROWS:
         raise ValueError(f"expected a {SOA_ROWS}-row table, got {rows}")
-    id_row = np.asarray(tri_id, np.int32).view(np.float32)[:, None, :]
-    pad = np.zeros((k, STREAM_ROWS - SOA_ROWS - 1, leaf), np.float32)
-    return np.concatenate([tri_soa, id_row, pad], axis=1)
+    id_row = tri_id.to(torch.int32).contiguous().view(torch.float32)
+    pad = tri_soa.new_zeros((k, STREAM_ROWS - SOA_ROWS - 1, leaf))
+    return torch.cat([tri_soa, id_row[:, None, :], pad], dim=1)
 
 
-def pack_bounds(bmin: np.ndarray, bmax: np.ndarray) -> np.ndarray:
-    """(K,3)/(K,3) cluster bounds -> (8, K) float32 rows
-    [bmin.xyz, bmax.xyz, 0, 0]."""
-    bmin = np.asarray(bmin, np.float32)
-    bmax = np.asarray(bmax, np.float32)
-    return np.concatenate([bmin.T, bmax.T,
-                           np.zeros((2, bmin.shape[0]), np.float32)],
-                          axis=0).astype(np.float32)
+def pack_bounds_torch(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
+    """(K,3)/(K,3) cluster bounds -> (8, K) float32 rows [bmin.xyz,
+    bmax.xyz, 0, 0]."""
+    return torch.cat([bmin.T, bmax.T, bmin.new_zeros((2, bmin.shape[0]))],
+                     dim=0).contiguous()
+
+
+def _host(fn, *arrays) -> np.ndarray:
+    """A torch pack on the host: numpy in (as float32, ids as int32), numpy
+    out."""
+    return fn(*(torch.from_numpy(np.ascontiguousarray(
+        a, np.int32 if np.issubdtype(np.asarray(a).dtype, np.integer)
+        else np.float32)) for a in arrays)).numpy()
+
+
+def pack_mesh_soa(tri_verts, tri_normals, tri_uvs) -> np.ndarray:
+    """pack_mesh_soa_torch for numpy arrays (the host build)."""
+    return _host(pack_mesh_soa_torch, tri_verts, tri_normals, tri_uvs)
+
+
+def pack_mesh_stream(tri_soa, tri_id) -> np.ndarray:
+    """pack_mesh_stream_torch for numpy arrays (the host build)."""
+    return _host(pack_mesh_stream_torch, tri_soa, tri_id)
+
+
+def pack_bounds(bmin, bmax) -> np.ndarray:
+    """pack_bounds_torch for numpy arrays (the host build)."""
+    return _host(pack_bounds_torch, bmin, bmax)
 
 
 def stream_ids(table: torch.Tensor) -> torch.Tensor:

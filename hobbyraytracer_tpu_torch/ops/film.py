@@ -6,15 +6,21 @@ import numpy as np
 import torch
 
 
-def tonemap(colour: torch.Tensor) -> torch.Tensor:
+def tonemap(colour: torch.Tensor, grad_eps: float = 0.0) -> torch.Tensor:
     """NaN scrub + Narkowicz ACES + clamp + gamma 2 (film.cpp:32-52).
     NaN -> 0 as in the reference; +inf -> 1e4 and -inf -> 0, the JAX
-    package's documented fix (the reference turns +inf into NaN)."""
+    package's documented fix (the reference turns +inf into NaN).
+
+    grad_eps: sqrt(c + grad_eps). The derivative of sqrt is infinite at 0,
+    which would make a loss gradient NaN at black pixels; the fit passes a
+    tiny epsilon (far below quantization). The clamp to [0, 1] is a
+    maximum and a minimum, whose derivative at a tie is the reference's
+    (jnp.clip's) 1/2: a black pixel sits on the tie."""
     c = torch.nan_to_num(colour, nan=0.0, posinf=1e4, neginf=0.0)
     a, b, cc, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
     c = (c * (a * c + b)) / (c * (cc * c + d) + e)
-    c = torch.clamp(c, 0.0, 1.0)
-    return torch.sqrt(c)
+    c = torch.minimum(torch.maximum(c, c.new_zeros(())), c.new_ones(()))
+    return torch.sqrt(c + grad_eps) if grad_eps else torch.sqrt(c)
 
 
 def quantize(colour: np.ndarray) -> np.ndarray:

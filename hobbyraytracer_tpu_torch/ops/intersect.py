@@ -19,16 +19,15 @@
   fused traversal kernel (K1 or K2 by the table's layout) -> undo the sort,
   or none of the four with cohsort=False (HRT_NO_COHSORT, or a caller that
   sorted the whole pool already);
-- `intersect_triangles_bvh`: the kernel branch, and the lockstep branch
-  that replays t and the attributes of the winning triangle from the live
+- `intersect_triangles_bvh`: the kernel branch, and the two branches
+  that find the winning triangle without gradients (through the kernel,
+  or by the lockstep find) and replay its t and attributes from the live
   vertices, so the result carries gradients to them.
 
-The reference's kernel-find-then-replay branch ("pallas_replay") waits for
-the differentiable fit (ROADMAP Queue 1 item 13). The reference's MXU
-sphere scan
-(HRT_SPHERE_MXU), its sphere block size (HRT_SPHERE_BLOCK) and the packed
-row gathers of its sphere attributes are TPU cost choices and have no
-counterpart here: plain indexing gives the same values.
+The reference's MXU sphere scan (HRT_SPHERE_MXU), its sphere block size
+(HRT_SPHERE_BLOCK) and the packed row gathers of its sphere attributes are
+TPU cost choices and have no counterpart here: plain indexing gives the
+same values.
 """
 from __future__ import annotations
 
@@ -633,21 +632,27 @@ def intersect_triangles_bvh(rays: Rays, tri_id, tri_soa, bounds8, mat_id,
                             backend: str = "kernel", *, verts=None,
                             normals=None, uvs=None, indices=None,
                             tri_verts=None, bmin=None, bmax=None) -> Hits:
-    """Full mesh hit through the cluster BVH, by one of two backends.
+    """Full mesh hit through the cluster BVH, by one of three backends.
 
     "kernel" (the reference's backend="pallas"): the fused kernel over the
-    build-time tables tri_soa / bounds8; normal and uv come out of the
-    kernel, the normal is the raw interpolated one and front_face follows
-    it.
+    tables tri_soa / bounds8; normal and uv come out of the kernel, the
+    normal is the raw interpolated one and front_face follows it.
 
-    "lockstep" (the reference's backend="xla", its differentiable path):
-    the find runs under no_grad through intersect_mesh_clustered over the
-    live leaf vertices tri_verts (K, L, 3, 3) and bounds bmin/bmax (K, 3);
-    then t is replayed from the winning id through triangle_t and the
-    attributes through triangle_attribs over verts/normals/uvs/indices, so
-    the result carries gradients to verts. A grazing hit can miss on the
-    replay: such a lane keeps the find's t. tri_soa and bounds8 are not
-    read."""
+    The two differentiable backends find the winning triangle under
+    no_grad, on detached rays, and then replay t from its id through
+    triangle_t and the attributes through triangle_attribs over
+    verts/normals/uvs/indices, so that the result carries gradients to
+    verts (and to the rays). A grazing hit can miss on the replay: such a
+    lane keeps the find's t. They differ in the find:
+
+    - "kernel_replay" (the reference's backend="pallas_replay"): the fused
+      kernel over tri_soa / bounds8 with need_uv off, K1 or K2 on a CUDA
+      tensor (or raise), the plain version on a CPU one (plain=True forces
+      it). The tables must hold the live vertices: the build's, or those
+      of scene/ir.py:refresh_kernel_tables;
+    - "lockstep" (the reference's backend="xla"): intersect_mesh_clustered
+      over the live leaf vertices tri_verts (K, L, 3, 3) and bounds
+      bmin/bmax (K, 3); tri_soa and bounds8 are not read."""
     if backend == "kernel":
         t, _, hit, normal, uv = intersect_mesh_clustered_fused(
             rays, tri_id, tri_soa, bounds8, t_max, ray_valid,
@@ -657,13 +662,19 @@ def intersect_triangles_bvh(rays: Rays, tri_id, tri_soa, bounds8, mat_id,
                     p=ray_at(rays.o, rays.d, torch.where(hit, t, 1.0)),
                     normal=normal, uv=uv, front_face=front,
                     mat_id=torch.where(hit, mat_id, -1).to(torch.int32))
-    if backend != "lockstep":
-        raise ValueError(f"backend {backend!r}: expected 'kernel' or "
-                         "'lockstep'")
+    if backend not in ("kernel_replay", "lockstep"):
+        raise ValueError(f"backend {backend!r}: expected 'kernel', "
+                         "'kernel_replay' or 'lockstep'")
+    found = Rays(o=rays.o.detach(), d=rays.d.detach())
     with torch.no_grad():
-        t_nd, gid, hit = intersect_mesh_clustered(
-            Rays(o=rays.o.detach(), d=rays.d.detach()), tri_verts.detach(),
-            tri_id, bmin.detach(), bmax.detach(), t_max, ray_valid)
+        if backend == "kernel_replay":
+            t_nd, gid, hit, _, _ = intersect_mesh_clustered_fused(
+                found, tri_id, tri_soa, bounds8, t_max, ray_valid,
+                need_uv=False, plain=plain, cohsort=cohsort)
+        else:
+            t_nd, gid, hit = intersect_mesh_clustered(
+                found, tri_verts.detach(), tri_id, bmin.detach(),
+                bmax.detach(), t_max, ray_valid)
     safe = torch.clamp(gid, min=0).long()
     corner = verts[indices[safe].long()]                  # (R, 3, 3)
     t_replay = triangle_t(rays, corner[:, None, 0], corner[:, None, 1],

@@ -182,8 +182,11 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
     if has_metal or has_pbr:
         # Metal (material.h:159-182): reflect(unit_d, unit_n) +
         # min(|roughness|, 1) * unit_sphere + FLT_EPSILON; absorbed when
-        # dot(scattered, unit_n) <= 0
-        met_rough = torch.clamp(rough.abs(), max=1.0)
+        # dot(scattered, unit_n) <= 0. |r| as a select and the cap as a
+        # minimum, so that their derivatives at 0 and at 1 (where the fit's
+        # projection leaves a roughness) are the reference's: 1 and 1/2
+        met_rough = torch.minimum(torch.where(rough >= 0.0, rough, -rough),
+                                  rough.new_ones(()))
         met_dir = (mathx.reflect(unit_d, unit_n)
                    + met_rough[..., None] * sph + mathx.EPS_F32)
         met_ok = mathx.dot(met_dir, unit_n) > 0.0

@@ -1,10 +1,12 @@
-"""Texture table + batched nearest-neighbour lookups (reference
-texture.h / texture.cpp; counterpart of hobbyraytracer_tpu/ops/texture.py).
+"""Texture table + batched lookups (reference texture.h / texture.cpp;
+counterpart of hobbyraytracer_tpu/ops/texture.py).
 
 All image and environment pixels live in one flat float32 atlas; solid and
 checkered textures are arithmetic; dispatch is a masked select over the
-four texture types. The reference's bilinear filtering (an extension for
-the differentiable fit) arrives with the fit, ROADMAP Queue 1 item 13.
+four texture types. Image and environment lookups are the reference's
+nearest-neighbour ones, or bilinear with `TextureTable.bilinear` (an
+extension of the JAX package for the differentiable fit: it makes uv and
+direction gradients smooth instead of zero almost everywhere).
 """
 from __future__ import annotations
 
@@ -28,10 +30,14 @@ class TextureTable(nn.Module):
 
     ttype/offset/width/height (T,) int32; solid/solid2 (T, 3) float32
     (solid colour / checkered even, checkered odd); atlas (Npix, 3)
-    float32 with at least one row."""
+    float32 with at least one row. `bilinear` (a plain attribute, like the
+    reference's static field; default False) switches image and
+    environment lookups from nearest-neighbour to bilinear filtering."""
 
-    def __init__(self, ttype, solid, solid2, atlas, offset, width, height):
+    def __init__(self, ttype, solid, solid2, atlas, offset, width, height,
+                 bilinear: bool = False):
         super().__init__()
+        self.bilinear = bool(bilinear)
         i32, f32 = torch.int32, torch.float32
         for name, val, dt in (("ttype", ttype, i32), ("solid", solid, f32),
                               ("solid2", solid2, f32), ("atlas", atlas, f32),
@@ -110,22 +116,43 @@ def colour_value(tab: TextureTable, tex_id: torch.Tensor, u: torch.Tensor,
                + torch.minimum(torch.clamp(i, min=0), wi - 1))
         return tab.atlas[torch.clamp(idx, 0, n_atlas - 1).long()]
 
+    def bilerp(x, y):
+        """Sample at continuous texel coordinates (x, y): smooth in both."""
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0)[..., None]
+        fy = (y - y0)[..., None]
+        i0 = x0.to(torch.int32)
+        j0 = y0.to(torch.int32)
+        return ((1 - fx) * (1 - fy) * fetch(i0, j0)
+                + fx * (1 - fy) * fetch(i0 + 1, j0)
+                + (1 - fx) * fy * fetch(i0, j0 + 1)
+                + fx * fy * fetch(i0 + 1, j0 + 1))
+
     cyan = torch.tensor(DEBUG_CYAN, dtype=torch.float32, device=u.device)
     has_data = (w > 0)[..., None]
 
-    if TEX_IMAGE in types:  # nearest by truncation (texture.cpp:63-74)
+    if TEX_IMAGE in types:
         vc = 1.0 - torch.clamp(v, 0.0, 1.0)
-        i_img = torch.minimum((uc * w.float()).to(torch.int32), wi - 1)
-        j_img = torch.minimum((vc * h.float()).to(torch.int32), hi - 1)
-        c_img = torch.where(has_data, fetch(i_img, j_img), cyan)
+        if tab.bilinear:
+            c_img = bilerp(uc * (w - 1).float(), vc * (h - 1).float())
+        else:  # nearest by truncation (texture.cpp:63-74)
+            i_img = torch.minimum((uc * w.float()).to(torch.int32), wi - 1)
+            j_img = torch.minimum((vc * h.float()).to(torch.int32), hi - 1)
+            c_img = fetch(i_img, j_img)
+        c_img = torch.where(has_data, c_img, cyan)
     else:
         c_img = c_solid
 
-    if TEX_ENVIRONMENT in types:  # +0.5 rounding (texture.cpp:86-97)
+    if TEX_ENVIRONMENT in types:
         ve = torch.clamp(v, 0.0, 1.0)
-        i_env = (uc * (w - 1).float() + 0.5).to(torch.int32)
-        j_env = (ve * (h - 1).float() + 0.5).to(torch.int32)
-        c_env = torch.where(has_data, fetch(i_env, j_env), cyan)
+        if tab.bilinear:
+            c_env = bilerp(uc * (w - 1).float(), ve * (h - 1).float())
+        else:  # +0.5 rounding on (dim - 1) (texture.cpp:86-97)
+            i_env = (uc * (w - 1).float() + 0.5).to(torch.int32)
+            j_env = (ve * (h - 1).float() + 0.5).to(torch.int32)
+            c_env = fetch(i_env, j_env)
+        c_env = torch.where(has_data, c_env, cyan)
     else:
         c_env = c_solid
 

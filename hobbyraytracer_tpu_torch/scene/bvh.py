@@ -10,17 +10,25 @@ one (native/objbvh.cpp) when its library builds, the numpy copies below
 otherwise or with HRT_NO_NATIVE=1. The two SAH builders pick different
 splits (23 of the teapot's 30 leaves differ), so both packages must take
 the same one for their tables to agree. The constrained SAH split is the
-default, as in the reference; the median split is kept beside it.
+default, as in the reference (HRT_BVH_SAH=0 selects the median split);
+the median split is kept beside it.
 
 `build_sphere_clusters` groups a sphere pool into the clusters that the
 sphere kernel K4 (kernels/sphere_traverse.py) visits.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .. import native
 
+# HRT_BVH_SAH: the constrained SAH cluster build (default) or, with 0, the
+# longest-axis median split. Read once at import, as the reference reads
+# it; a module attribute read at call time, so a caller may switch it
+# in-process.
+BVH_SAH = os.environ.get("HRT_BVH_SAH", "1") != "0"
 
 def median_split_order(centroids: np.ndarray, leaf_size: int) -> list:
     """Recursively median-split triangle indices on the centroids' longest
@@ -84,14 +92,16 @@ def sah_split_order(tri_verts: np.ndarray, leaf_size: int) -> list:
 
 
 def build_clusters(verts: np.ndarray, indices: np.ndarray,
-                   leaf_size: int = 32, sah: bool = True) -> dict:
+                   leaf_size: int = 32, sah=None) -> dict:
     """-> dict with:
     tri_verts (K, L, 3, 3) float32 — leaf triangles, padded with all-zero
         triangles that never intersect (det == 0);
     tri_id (K, L) int32 — global triangle index, -1 for padding;
     bmin/bmax (K, 3) float32 — cluster bounds, padded by 1e-4 like the
         reference's triangle boxes (triangle.cpp:42-55).
-    sah=False selects the median split."""
+    sah: True the SAH split, False the median split, None BVH_SAH."""
+    if sah is None:
+        sah = BVH_SAH
     built = native.build_clusters(verts, indices, leaf_size, sah=sah)
     if built is not None:
         return built

@@ -36,12 +36,20 @@ The dict layout follows the reference's pytree field names:
 A mesh's tri_soa comes across in either layout: the 24-row resident
 table (kernel K1) or the 32-row streaming table (kernel K2). A sphere
 table's kernel_* entries are the cluster tables of kernel K4, or None (a
-dict without them reads as None). What the port does not render yet
-(bilinear textures, the lens) raises NotImplementedError.
+dict without them reads as None). What the port does not render yet (the
+lens) raises NotImplementedError.
+
+A fit's parameters cross the same way (`params_from_arrays` /
+`params_to_arrays`): the dict of diff/fit.py:select_params, {"materials":
+{albedo, roughness, strength, ior, metallness}, "verts": [(V, 3), ...]}
+(no "verts" for a material fit), as numpy arrays on one side and leaf
+tensors that require grad on the other, so that both packages start a fit
+from the same point.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.camera import Camera
 from ..ops.shade import MaterialTable
@@ -134,10 +142,6 @@ def scene_from_arrays(d: dict) -> ir.SceneIR:
     """Nested dict of numpy arrays (layout above) -> the port's SceneIR,
     on the CPU."""
     tex = d["textures"]
-    if tex.get("bilinear", False):
-        raise NotImplementedError(
-            "bilinear textures (the fit's filtering) are not ported yet: "
-            "ROADMAP Queue 1 item 13")
     instances = []
     for inst in d["instances"]:
         kind = inst["kind"]
@@ -157,7 +161,8 @@ def scene_from_arrays(d: dict) -> ir.SceneIR:
             present=mats["present"], textured=mats["textured"],
             tex_types=mats["tex_types"]),
         textures=TextureTable(
-            **{f: np.asarray(tex[f]) for f in TEXTURE_FIELDS}),
+            **{f: np.asarray(tex[f]) for f in TEXTURE_FIELDS},
+            bilinear=bool(tex.get("bilinear", False))),
         background_tex=int(np.asarray(d["background_tex"])),
         spheres=_spheres(d.get("spheres")),
         media=[_medium(m) for m in d.get("media", ())])
@@ -184,11 +189,33 @@ def scene_to_arrays(scene: ir.SceneIR) -> dict:
         "materials": dict(_np(mats, MATERIAL_FIELDS), present=mats.present,
                           textured=mats.textured, tex_types=mats.tex_types),
         "textures": dict(_np(scene.textures, TEXTURE_FIELDS),
-                         bilinear=False),
+                         bilinear=scene.textures.bilinear),
         "background_tex": int(scene.background_tex),
         "spheres": _spheres_np(scene.spheres),
         "media": [_medium_np(m) for m in scene.media],
     }
+
+
+def params_from_arrays(d: dict, device="cpu") -> dict:
+    """A fit's parameter dict of numpy arrays -> leaf float32 tensors on
+    `device` that require grad (the layout of diff/fit.py:select_params)."""
+    def leaf(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device, requires_grad=True)
+    out = {"materials": {f: leaf(a) for f, a in d["materials"].items()}}
+    if "verts" in d:
+        out["verts"] = [leaf(v) for v in d["verts"]]
+    return out
+
+
+def params_to_arrays(params: dict) -> dict:
+    """The port's fit parameters -> the same dict of numpy arrays."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+    out = {"materials": {f: arr(t) for f, t in params["materials"].items()}}
+    if "verts" in params:
+        out["verts"] = [arr(v) for v in params["verts"]]
+    return out
 
 
 def camera_from_arrays(d: dict) -> Camera:

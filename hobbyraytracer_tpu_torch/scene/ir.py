@@ -10,22 +10,29 @@ hobbyraytracer_tpu/scene/ir.py).
   their window (constantMedium.cpp:4-38); their free-flight draw needs the
   sampler, so `intersect_scene` takes it and raises for a scene with media
   when it has none;
-- `SceneIR.to(device)` moves every table.
+- `SceneIR.to(device)` moves every table; `replace` rebuilds a table or
+  the scene with some buffers or parts swapped and shares the rest (the
+  fit's way to put its parameters into a scene).
 
 t stays in world units through the transforms (o' = q^-1((o-T)/S),
 d' = q^-1(d/S)), as in the reference.
 
-A mesh goes one of three ways. Without cluster tables (`use_bvh` false:
+A mesh goes one of four ways. Without cluster tables (`use_bvh` false:
 under scene/build.py:BVH_MIN_TRIS triangles, or a standalone triangle) it
 takes the dense scan. With them, `mesh_backend` chooses: "kernel" (the
 default; the reference's "auto" / "pallas") is the fused kernel over the
-build-time tables, "lockstep" (the reference's "xla") the exact lockstep
-find over the live vertices with the cluster bounds recomputed from them.
-The tensor's device decides between a kernel and its plain version (a CUDA
-tensor launches K1 / K2 or raises, a CPU tensor runs the plain version), so
-the reference's platform checks (_resolve_mesh_backend's TPU test,
-HRT_NO_PALLAS, HRT_PALLAS_INTERPRET) have no counterpart, and nothing here
-moves from a kernel to the lockstep find on its own.
+mesh's tables; "kernel_replay" (the reference's "auto_diff" /
+"pallas_replay", the fit's) finds the winner through the same kernel
+without gradients and replays it from the live vertices; "lockstep" (the
+reference's "xla") is the exact lockstep find over the live vertices with
+the cluster bounds recomputed from them, replayed the same way. A vertex
+fit keeps the tables in step with its vertices through
+`refresh_kernel_tables`. The tensor's device decides between a kernel and
+its plain version (a CUDA tensor launches K1 / K2 or raises, a CPU tensor
+runs the plain version), so the reference's platform checks
+(_resolve_mesh_backend's TPU test, HRT_NO_PALLAS, HRT_PALLAS_INTERPRET)
+have no counterpart, and nothing here moves from a kernel to the lockstep
+find on its own.
 
 The pooled spheres take the reference's routing: the dense scan by
 default, the clustered find of kernel K4 when `ops.intersect.SPHERE_KERNEL`
@@ -36,6 +43,7 @@ CPU tensor runs the plain version), so that check has no counterpart.
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -46,6 +54,7 @@ from ..core import quat
 from ..core import rng as rng_mod
 from ..core.mathx import BIG, T_MIN, length, ray_at
 from ..core.types import Hits, Rays, as_buffer, closer, set_face_normal
+from ..kernels import mesh_traverse as kmod
 from ..ops import intersect as isect
 from ..ops.shade import MaterialTable
 from ..ops.texture import TextureTable
@@ -232,7 +241,59 @@ class SceneIR(nn.Module):
                              as_buffer(background_tex, torch.int32))
 
 
-MESH_BACKENDS = ("kernel", "lockstep")
+def replace(module: nn.Module, **fields) -> nn.Module:
+    """A shallow copy of `module` with the named buffers or submodules
+    swapped (the counterpart of flax's `.replace`); every other buffer and
+    submodule is the original's own object. A swapped-in buffer may carry
+    gradients: the fit puts its parameters into the scene so."""
+    new = copy.copy(module)
+    new._buffers = dict(module._buffers)
+    new._modules = dict(module._modules)
+    for name, val in fields.items():
+        if name in new._buffers:
+            new._buffers[name] = val
+        elif name in new._modules:
+            new._modules[name] = val
+        else:
+            raise ValueError(f"{type(module).__name__} has no buffer or "
+                             f"submodule {name!r}")
+    return new
+
+
+def refresh_kernel_tables(m: MeshGeom) -> MeshGeom:
+    """The mesh with its kernel tables (tri_soa, bounds8, cluster_bmin,
+    cluster_bmax) rebuilt on its device from its live vertices, without
+    gradients: pads masked out of the bounds and zeroed in the table, boxes
+    inflated by 1e-4 as the host build inflates them. The table keeps the
+    mesh's own layout, 24 or 32 rows.
+
+    A vertex fit moves `verts` every step, and a find over the build-time
+    tables would go on reporting hits where the triangles used to be. The
+    tables feed only the find of "kernel_replay", which runs without
+    gradients anyway; everything differentiable is replayed from the live
+    vertices (ops/intersect.py:intersect_triangles_bvh). A mesh without
+    cluster tables comes back as it is."""
+    if not m.use_bvh:
+        return m
+    with torch.no_grad():
+        v = m.verts.detach()
+        corner = m.indices[torch.clamp(m.cluster_id, min=0).long()].long()
+        pad = (m.cluster_id < 0)[..., None]                   # (K, L, 1)
+        tri_verts = torch.where(pad[..., None], 0.0, v[corner])
+        tmin = torch.where(pad, BIG, tri_verts.min(dim=2).values).min(
+            dim=1).values - 1e-4
+        tmax = torch.where(pad, -BIG, tri_verts.max(dim=2).values).max(
+            dim=1).values + 1e-4
+        soa = kmod.pack_mesh_soa_torch(tri_verts, m.normals[corner],
+                                       m.uvs[corner])
+        if m.tri_soa.shape[1] == kmod.STREAM_ROWS:
+            soa = kmod.pack_mesh_stream_torch(soa, m.cluster_id)
+        bounds8 = kmod.pack_bounds_torch(tmin, tmax)
+    return replace(m, tri_soa=soa, bounds8=bounds8, cluster_bmin=tmin,
+                   cluster_bmax=tmax)
+
+
+MESH_BACKENDS = ("kernel", "kernel_replay", "lockstep")
 
 
 def _live_clusters(m: MeshGeom):
@@ -315,6 +376,12 @@ def _intersect_instance(inst: Instance, rays: Rays, t_min,
                 r, m.cluster_id, m.tri_soa, m.bounds8, m.mat_id, BIG,
                 ray_valid=ray_valid, need_uv=need_uv, plain=plain,
                 cohsort=mesh_cohsort)
+        elif mesh_backend == "kernel_replay":
+            h = isect.intersect_triangles_bvh(
+                r, m.cluster_id, m.tri_soa, m.bounds8, m.mat_id, BIG,
+                ray_valid=ray_valid, plain=plain, cohsort=mesh_cohsort,
+                backend="kernel_replay", verts=m.verts, normals=m.normals,
+                uvs=m.uvs, indices=m.indices)
         elif mesh_backend == "lockstep":
             tri_verts, bmin, bmax = _live_clusters(m)
             h = isect.intersect_triangles_bvh(
@@ -432,9 +499,9 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
     PyTorch versions (a comparison switch). sampler and bounce (the
     sampler's stream index: the wavefront's iteration, or the batch
     integrator's bounce) feed the media's free-flight draws; a scene with
-    media and no sampler raises. mesh_backend: "kernel" or "lockstep", see
-    the module docstring. mesh_cohsort=False tells every mesh find that
-    the rays are sorted already.
+    media and no sampler raises. mesh_backend: "kernel", "kernel_replay"
+    or "lockstep", see the module docstring. mesh_cohsort=False tells
+    every mesh find that the rays are sorted already.
     """
     if len(scene.media) and sampler is None:
         raise ValueError("the scene has participating media: intersect_scene "
@@ -446,9 +513,9 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
         sp = scene.spheres
         # the reference's routing: the clustered find is opt-in
         # (isect.SPHERE_KERNEL), needs the pool's cluster tables and goes
-        # with the kernel mesh backend
+        # with the kernel mesh backends
         if (isect.SPHERE_KERNEL and sp.kernel_table is not None
-                and mesh_backend == "kernel"):
+                and mesh_backend in ("kernel", "kernel_replay")):
             best = closer(best, isect.intersect_spheres_clustered(
                 rays, sp.center, sp.radius, sp.mat_id, sp.kernel_table,
                 sp.kernel_bounds, sp.kernel_ids, t_min, BIG,

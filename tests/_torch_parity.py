@@ -11,7 +11,8 @@ the name does not start with test_).
   the sphere find and the key kernel);
 - `Noise`: seeded numpy noise per (purpose, iteration), fed identically
   to the port (through a Sampler subclass) and to the JAX package
-  (through a monkeypatch of hobbyraytracer_tpu.core.rng).
+  (through a monkeypatch of hobbyraytracer_tpu.core.rng; for the fit's
+  per-sample keys, also of jax.random.uniform and jax.checkpoint).
 """
 from __future__ import annotations
 
@@ -135,8 +136,12 @@ def assert_tree_close(a, b, path="", atol=1e-6):
 class Noise:
     """Deterministic numpy noise per (purpose, iteration, shape)."""
 
-    def __init__(self, seed: int = 0):
+    def __init__(self, seed=0):
         self.seed = seed
+
+    def fold_in(self, index) -> "Noise":
+        """Independent noise for sub-render `index` (Sampler.fold_in)."""
+        return Noise((self.seed, int(index)))
 
     def _rng(self, purpose, iteration, shape, kind):
         h = zlib.crc32(repr((self.seed, int(purpose), int(iteration),
@@ -146,6 +151,10 @@ class Noise:
     def uniform(self, purpose, iteration, shape) -> np.ndarray:
         return self._rng(purpose, iteration, shape, "u").random(
             tuple(shape), dtype=np.float32)
+
+    def randint(self, purpose, iteration, shape, high) -> np.ndarray:
+        return self._rng(purpose, iteration, shape, "i").integers(
+            0, high, tuple(shape))
 
     def unit_sphere(self, purpose, iteration, shape) -> np.ndarray:
         g = self._rng(purpose, iteration, shape, "s").normal(
@@ -173,6 +182,13 @@ class NoiseSampler(Sampler):
         return torch.from_numpy(self.noise.uniform(purpose, iteration,
                                                    shape)).to(self.device)
 
+    def fold_in(self, index):
+        return NoiseSampler(self.noise.fold_in(index), self.device)
+
+    def randint(self, purpose, iteration, shape, high):
+        return torch.from_numpy(self.noise.randint(
+            purpose, iteration, shape, high)).to(self.device)
+
     def unit_sphere(self, purpose, iteration, shape):
         return torch.from_numpy(self.noise.unit_sphere(
             purpose, iteration, shape)).to(self.device)
@@ -198,6 +214,53 @@ def patch_jax_rng(monkeypatch, noise: Noise) -> None:
                         jnp.asarray(noise.unit_sphere(k[0], k[1], shape)))
     monkeypatch.setattr(rng, "in_ball", lambda k, shape=(), span=None:
                         jnp.asarray(noise.in_ball(k[0], k[1], shape)))
+
+
+def patch_jax_fit_rng(monkeypatch, noise: Noise, key, n_samples) -> None:
+    """Route the draws of the JAX package's diff/fit.py:render_linear
+    (sample s of n_samples: pixel jitter from jax.random.uniform on the
+    keys split from fold_in(key, s), the integrator's draws through
+    hobbyraytracer_tpu.core.rng on the third of them) to
+    noise.fold_in(s), as the port's Sampler.fold_in(s) draws them; and run
+    jax.checkpoint's body as it is (it would trace it). Eager calls only
+    (under jax.disable_jit())."""
+    import jax
+    import jax.numpy as jnp
+
+    from hobbyraytracer_tpu.core import rng
+
+    def raw(k):
+        return np.asarray(jax.random.key_data(k)
+                          if jnp.issubdtype(k.dtype, jax.dtypes.prng_key)
+                          else k).tobytes()
+
+    jitter, trace_keys = {}, {}
+    for s in range(n_samples):
+        ku, kv, kt = jax.random.split(jax.random.fold_in(key, s), 3)
+        jitter[raw(ku)] = (s, 0)          # PIXEL_JITTER_U
+        jitter[raw(kv)] = (s, 1)          # PIXEL_JITTER_V
+        trace_keys[raw(kt)] = s
+    real_uniform = jax.random.uniform
+
+    def uniform(k, shape=(), dtype=jnp.float32, *args, **kwargs):
+        hit = jitter.get(raw(k))
+        if hit is None:
+            return real_uniform(k, shape, dtype, *args, **kwargs)
+        return jnp.asarray(noise.fold_in(hit[0]).uniform(hit[1], 0, shape))
+
+    def sub(k):
+        return noise.fold_in(k[0])
+
+    monkeypatch.setattr(jax.random, "uniform", uniform)
+    monkeypatch.setattr(jax, "checkpoint", lambda f, *a, **k: f)
+    monkeypatch.setattr(rng, "stream", lambda k, purpose, bounce=0: (
+        trace_keys[raw(k)], int(purpose), int(np.asarray(bounce))))
+    monkeypatch.setattr(rng, "uniform", lambda k, shape=(), span=None:
+                        jnp.asarray(sub(k).uniform(k[1], k[2], shape)))
+    monkeypatch.setattr(rng, "unit_sphere", lambda k, shape=(), span=None:
+                        jnp.asarray(sub(k).unit_sphere(k[1], k[2], shape)))
+    monkeypatch.setattr(rng, "in_ball", lambda k, shape=(), span=None:
+                        jnp.asarray(sub(k).in_ball(k[1], k[2], shape)))
 
 
 def random_mesh(seed, n_tris=500, spread=3.0):

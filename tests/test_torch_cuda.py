@@ -580,21 +580,114 @@ def test_smoke_segment_on_card_matches_cpu(dev):
     assert int(a.counter) == int(b.counter)
 
 
-def test_two_teapots_render_launches_k1_twice_a_segment(dev):
+def test_two_teapots_render_launches_k1_twice_a_segment(dev, monkeypatch):
     """A small two_teapots render by the default route and with the pool
-    sorted every second segment: K1 launches twice a segment in both, every
-    sample retires, and the two images agree statistically (a permuted
-    lane draws other numbers from the same streams): means within 10%."""
+    sorted every second segment: K1 launches twice a segment in both (the
+    segments counted as they run: render_state's `it` stops where the pool
+    ran dry, before the no-op segments of its last block), every sample
+    retires, and the two images agree statistically (a permuted lane draws
+    other numbers from the same streams): means within 10%."""
     job = build_scene(load_scene_desc(TWO_TEAPOTS))
     scene, camera = job.scene.to(dev), job.camera.to(dev)
+    segments = [0]
+    segment = wavefront._segment
+
+    def counted(*args, **kwargs):
+        segments[0] += 1
+        return segment(*args, **kwargs)
+
+    monkeypatch.setattr(wavefront, "_segment", counted)
     imgs = []
     for pool_sort in (0, 2):
-        pk.KERNEL.launches = 0
+        pk.KERNEL.launches = segments[0] = 0
         st = wavefront.render_state(scene, camera, 48, 48, 4, Sampler(5, dev),
                                     pool=2048, pool_sort=pool_sort)
-        assert pk.KERNEL.launches == 2 * st.it
+        assert pk.KERNEL.launches == 2 * segments[0]
+        assert st.it <= segments[0]
         assert int(st.retired) == 48 * 48 * 4
         imgs.append(wavefront.framebuffer(st).cpu())
     assert torch.isfinite(imgs[0]).all()
     assert abs(float(imgs[0].mean()) - float(imgs[1].mean())) <= (
         0.1 * float(imgs[0].mean()))
+
+
+@pytest.mark.parametrize("scene_path,rows", [(TEAPOT, 24), (HIRES, 32)])
+@pytest.mark.parametrize("moved", [False, True])
+def test_refreshed_tables_on_card_equal_cpu(dev, scene_path, rows, moved):
+    """scene/ir.py:refresh_kernel_tables on the card gives the CPU's
+    tables byte for byte (the build's vertices, and moved), in the mesh's
+    own layout."""
+    from hobbyraytracer_tpu_torch.scene import ir as pir
+    job = build_scene(load_scene_desc(scene_path))
+    mesh = next(i.mesh for i in job.scene.instances if i.kind == "mesh")
+    assert mesh.tri_soa.shape[1] == rows
+    shift = torch.tensor([0.6, -0.4, 0.5]) if moved else torch.zeros(3)
+    verts = mesh.verts + shift
+    cpu = pir.refresh_kernel_tables(pir.replace(mesh, verts=verts))
+    card = pir.refresh_kernel_tables(pir.replace(mesh.to(dev),
+                                                 verts=verts.to(dev)))
+    for f in ("tri_soa", "bounds8", "cluster_bmin", "cluster_bmax"):
+        a, b = getattr(cpu, f), getattr(card, f).cpu()
+        assert a.shape == b.shape and a.numpy().tobytes() == \
+            b.numpy().tobytes(), f
+
+
+def test_kernel_replay_grads_kernel_equal_plain(dev):
+    """"kernel_replay" through K1 and with plain=True (the find by K1's
+    plain version) on the card: hits, and the gradients of the hit t and
+    normal to the vertices, bitwise equal; K1 launched once, by the kernel
+    call only."""
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    verts, idx, normals, uvs = (torch.from_numpy(a).to(dev)
+                                for a in random_mesh(7, 600))
+    bounds8, soa, tri_id, _ = cluster_tables(*random_mesh(7, 600))
+    o, d, valid = random_rays(8, 4096, spread=4.0, valid_every=2)
+    rays = Rays(o=torch.from_numpy(o).to(dev), d=torch.from_numpy(d).to(dev))
+    out = []
+    for plain in (False, True):
+        v = verts.clone().requires_grad_(True)
+        pk.KERNEL.launches = 0
+        h = pisect.intersect_triangles_bvh(
+            rays, *_on(dev, tri_id, soa, bounds8),
+            torch.tensor(0, dtype=torch.int32, device=dev), 1e30,
+            ray_valid=torch.from_numpy(valid).to(dev), plain=plain,
+            backend="kernel_replay", verts=v, normals=normals, uvs=uvs,
+            indices=idx)
+        loss = (torch.where(h.hit, h.t, 0.0).sum()
+                + (h.normal * h.hit[:, None]).sum())
+        (g,) = torch.autograd.grad(loss, v)
+        torch.cuda.synchronize()
+        assert pk.KERNEL.launches == (0 if plain else 1)
+        out.append((h.hit, h.t.detach(), h.normal.detach(), g))
+    assert out[0][0].any() and (out[0][3] != 0).any()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_kernel_replay_raises_when_the_kernel_cannot_run(dev, monkeypatch,
+                                                         tmp_path):
+    """"kernel_replay" on CUDA tensors whose kernel does not build raises;
+    neither the plain version nor the lockstep find takes over."""
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.kernels import build as kbuild
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    from hobbyraytracer_tpu_torch.scene import ir as pir
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def other(*args, **kwargs):
+        raise AssertionError("fell back from the kernel")
+
+    monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(pk, "KERNEL", kbuild.KernelLibrary("mesh_traverse"))
+    monkeypatch.setattr(pk, "traverse_clusters_plain", other)
+    monkeypatch.setattr(pisect, "intersect_mesh_clustered", other)
+    scene = build_scene(load_scene_desc(TEAPOT)).scene.to(dev)
+    o, d, _ = random_rays(9, 256)
+    rays = Rays(o=torch.from_numpy(o).to(dev), d=torch.from_numpy(d).to(dev))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pir.intersect_scene(scene, rays, mesh_backend="kernel_replay")
+    assert pk.KERNEL.launches == 0

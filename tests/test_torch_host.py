@@ -224,10 +224,10 @@ def test_convert_carries_jax_scene_exactly():
 
 
 def test_convert_refuses_unported_parts():
-    """Bilinear textures and the lens are refused; spheres come across (a
-    table without the kernel tables reads them as None), and so do media
-    (held against the JAX build in
-    test_media_triangles_and_small_meshes_build)."""
+    """The lens is refused; spheres come across (a table without the
+    kernel tables reads them as None), and so do media (held against the
+    JAX build in test_media_triangles_and_small_meshes_build) and the
+    fit's bilinear texture filtering."""
     job_j = jax_build_scene(jschema.load_scene_desc(TEAPOT))
     arrays = jax_scene_arrays(job_j.scene)
     with_spheres = dict(arrays, spheres={
@@ -243,9 +243,10 @@ def test_convert_refuses_unported_parts():
         "mat_id": np.int32(1)}]))
     assert with_medium.media[0].btype == "sphere"
     assert with_medium.media[0].bmin is None
-    with pytest.raises(NotImplementedError, match="item 13"):
-        convert.scene_from_arrays(dict(arrays, textures=dict(
-            arrays["textures"], bilinear=True)))
+    bilinear = convert.scene_from_arrays(dict(arrays, textures=dict(
+        arrays["textures"], bilinear=True)))
+    assert bilinear.textures.bilinear and not scene.textures.bilinear
+    assert convert.scene_to_arrays(bilinear)["textures"]["bilinear"] is True
     cam = jax_camera_arrays(job_j.camera)
     with pytest.raises(NotImplementedError, match="item 4"):
         convert.camera_from_arrays(dict(cam, use_lens=True))

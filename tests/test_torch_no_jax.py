@@ -75,6 +75,9 @@ def test_every_module_imports_without_jax():
                 "hobbyraytracer_tpu_torch.integrator.wavefront",
                 "hobbyraytracer_tpu_torch.integrator.path",
                 "hobbyraytracer_tpu_torch.core.rng",
+                "hobbyraytracer_tpu_torch.diff.fit",
+                "hobbyraytracer_tpu_torch.diff.edges",
+                "hobbyraytracer_tpu_torch.diff.fd",
                 "hobbyraytracer_tpu_torch.cli.main"):
         assert mod in names, (mod, names)
     assert int(names[0]) == len(list(PKG.rglob("*.py"))) - 1   # not itself
@@ -85,7 +88,7 @@ def test_package_sources_never_import_jax():
     scripts names JAX or the JAX package."""
     extra = [pathlib.Path(ROOT) / f for f in (
         "chip_smoke.py", "scripts/profile_port.py",
-        "scripts/time_mesh_kernels.py")]
+        "scripts/profile_fit.py", "scripts/time_mesh_kernels.py")]
     for path in [*PKG.rglob("*.py"), *extra]:
         for line in path.read_text().splitlines():
             words = line.split()
@@ -118,12 +121,15 @@ def test_cli_batch_and_media_render_without_importing_jax(tmp_path):
     assert out.exists()
 
 
-def test_cli_refuses_missing_device_and_unported_commands():
+def test_cli_refuses_missing_device_and_unported_commands(capsys):
+    """`render` and `fit` refuse a CUDA device that is not there (rc 1);
+    `bench` is not ported and names its ROADMAP item (rc 2)."""
     from hobbyraytracer_tpu_torch.cli import main as cli
     if not torch.cuda.is_available():
         assert cli.main(["render", TEAPOT, "--device", "cuda"]) == 1
-    assert cli.main(["fit"]) == 2
+        assert cli.main(["fit", TEAPOT, "--device", "cuda"]) == 1
     assert cli.main(["bench"]) == 2
+    assert "item 9" in capsys.readouterr().out
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
@@ -252,11 +258,12 @@ def test_sphere_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
 
 
 def test_mesh_find_never_moves_to_the_lockstep_find(monkeypatch, tmp_path):
-    """A mesh scene on tensors off the CPU, through intersect_scene and a
-    wavefront segment with the pool sort on: when K1 cannot be built the
-    call raises; neither the plain version nor the lockstep find (which
-    serves the explicit "lockstep" backend and the mesh-boundary media
-    only) takes over."""
+    """A mesh scene on tensors off the CPU, through intersect_scene (by
+    the "kernel" and the fit's "kernel_replay" backend), a wavefront
+    segment with the pool sort on, and the fit's differentiable
+    integrator: when K1 cannot be built the call raises; neither the plain
+    version nor the lockstep find (which serves the explicit "lockstep"
+    backend and the mesh-boundary media only) takes over."""
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.core.types import Rays
     from hobbyraytracer_tpu_torch.integrator import wavefront as pwf
@@ -281,11 +288,16 @@ def test_mesh_find_never_moves_to_the_lockstep_find(monkeypatch, tmp_path):
     scene = job.scene.to("meta")
     rays = Rays(o=torch.empty((64, 3), device="meta"),
                 d=torch.empty((64, 3), device="meta"))
-    for cohsort in (None, False):
-        with pytest.raises(RuntimeError, match="nvcc"):
-            pir.intersect_scene(scene, rays, mesh_cohsort=cohsort)
+    for backend in ("kernel", "kernel_replay"):
+        for cohsort in (None, False):
+            with pytest.raises(RuntimeError, match="nvcc"):
+                pir.intersect_scene(scene, rays, mesh_cohsort=cohsort,
+                                    mesh_backend=backend)
     state = pwf.init_state(8, 8, 64, "meta")
     with pytest.raises(RuntimeError, match="nvcc"):
         pwf._segment(state, scene, 8, 8, Sampler(0, "meta"), 50, 1,
                      pool_sort=1)
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ppath.trace_diff(scene, rays, Sampler(0, "meta"), 2)
     assert kmod.KERNEL.launches == 0

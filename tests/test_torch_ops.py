@@ -187,13 +187,13 @@ def test_emitted_and_scatter(monkeypatch, textured):
 def test_unported_material_types_raise():
     """Every material type of the reference builds now (none is refused);
     media, whose isotropic phase material is one of them, no longer raise
-    either. What is still unported raises with its ROADMAP item: the
-    fit's bilinear texture filtering."""
+    either, nor does the fit's bilinear texture filtering. What is still
+    unported raises with its ROADMAP item: the thin-lens camera."""
     tab = pshade.build_table([{"mtype": t} for t in range(7)])
     assert tab.present == tuple(range(7))
-    scene = {"media": [], "textures": {"bilinear": True}, "instances": []}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        convert.scene_from_arrays(scene)
+    cam = {f: np.zeros((3,), np.float32) for f in convert.CAMERA_FIELDS}
+    with pytest.raises(NotImplementedError, match="item 4"):
+        convert.camera_from_arrays(dict(cam, use_lens=True))
 
 
 _LOBES = {

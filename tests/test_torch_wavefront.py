@@ -155,6 +155,37 @@ def test_pool_drains_exactly(teapot, spp, chunk):
     assert torch.isfinite(state.fb).all()
 
 
+def test_render_state_stops_where_jax_stops(monkeypatch, teapot):
+    """render_state on a 16x16 teapot render (4 spp, max depth 2, pool 256)
+    with the same injected noise as JAX's render_state (run eagerly): the
+    final `it` is the reference's, the iteration at which its loop found
+    the pool dry, whatever the host-read period (steps_per_call 8 and 3);
+    the framebuffers agree (rtol 1e-4) but on the pixels of lanes whose
+    bounce ray re-hit its own triangle on one side only (XLA's CPU FMAs,
+    see test_segments_match_jax), counted (<= 5%). At depth 2 such a lane's
+    sample still ends after its second segment in both, so `it` is exact."""
+    monkeypatch.setenv("HRT_PALLAS_INTERPRET", "1")
+    noise = Noise(17)
+    patch_jax_rng(monkeypatch, noise)
+    job, scene, camera = teapot
+    w = h = 16
+    with jax.disable_jit():
+        js = jwf.render_state(job.scene, job.camera, w, h, 4,
+                              jax.random.PRNGKey(0), max_depth=2, pool=256)
+    fb_j = np.asarray(js.fb)
+    for steps in (8, 3):
+        ps = pwf.render_state(scene, camera, w, h, 4, NoiseSampler(noise),
+                              max_depth=2, pool=256, steps_per_call=steps)
+        assert ps.it == int(js.it), (steps, ps.it, int(js.it))
+        assert int(ps.retired) == int(js.retired) == w * h * 4
+        fb_p = ps.fb.numpy()
+        close = np.isclose(fb_p, fb_j, rtol=1e-4, atol=1e-5).all(axis=0)
+        assert close.mean() >= 0.95, (~close).sum()
+    # the pool does not run dry on a multiple of both periods: a state that
+    # kept the trailing no-op iterations would fail above
+    assert int(js.it) % 8 or int(js.it) % 3
+
+
 def test_trailing_iterations_are_noops(teapot):
     """Iterations after completion issue nothing and change no lane's
     work (idle lanes' `depth` counts on, as in the reference; it is reset
