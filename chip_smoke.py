@@ -114,13 +114,40 @@ u. one loss and backward at the film's full 1920x1080 @ 1 spp, depth 6:
    finite gradients; the peak memory beside the checkpoints' prediction;
 v. one boundary=True vertex-fit step at 64x36: a finite, non-zero vertex
    gradient (the edge-sampled term's: nearest-neighbour lookups give the
-   shading chain none).
+   shading chain none);
+w. checkpoint/resume on the main path (the teapot 640x640 @ 16 spp, pool
+   196,608, depth 50, RR) under torch.use_deterministic_algorithms: the
+   render stopped at its first checkpoint (checkpoint_cb after the first
+   block), written by io/checkpoint.py:save_state, loaded onto the card
+   and resumed equals the uninterrupted render bit for bit (fb, retired,
+   it), K1 launched; the file's size and the save and load ms;
+x. the CLI (`render --checkpoint --checkpoint-every 2`) at shiny_teapot's
+   full 1920x1080 film @ 100 spp, killed once its checkpoint holds
+   0 < retired < total, then `--resume`: rc 0, "Resumed checkpoint", the
+   PNG's mean against a JAX CPU render;
+y. parallel/shard.py:render_wavefront_sharded of the teapot (640x640 @ 16
+   spp, pool 196,608) over two workers on the one card: every sample
+   retired, the mean against the JAX CPU render, K1 once a segment of
+   each worker and no other kernel, rays/s; a stacked mid-render
+   checkpoint resumed bit for bit; two processes on the card (gloo, one
+   worker each, this script run with --dist-worker) at 256x256 equal bit
+   for bit to the in-process two-worker render;
+z. the sharded fit at the CLI's size (240x135 @ 4 spp, depth 6) over two
+   workers: render_linear_slice bitwise the rows of render_linear (the two
+   halves and an unaligned slice); loss within rtol 1e-6 and material
+   gradients within rtol 1e-5
+   of the single-device ones, K1 launched 2 x fit_launches, three steps
+   descend; ms a step beside one worker's.
+Beside phase c, K1 and K2 are timed on one mesh packed both ways (the
+teapot, and teapot_hires's 32-row table with its first 24 rows as K1's):
+bitwise equal, timed in turns.
 
-A line `[fit numbers] {...}` holds phases s-u's numbers. The
+A line `[fit numbers] {...}` holds phases s-u's numbers, a line
+`[checkpoint and workers numbers] {...}` those of phases w-z. The
 second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render (K1: the two_teapots render by the default
 route, K2: teapot_hires's, with their counts on the other paths, the fit's
-among them, under `launches_by_path`), its
+and the two workers' among them, under `launches_by_path`), its
 time and its plain version's at 196,608 rays, and `bound_ms`, the least time the card could take for the same work
 (the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
 of float32; the operations are those this run's rays need: one scan of the
@@ -179,7 +206,17 @@ JAX_CPU_MEAN_TWO = 0.3237
 # 128x128 and seed 2 at the scene's 256x256 gave 0.46916, 0.46627, 0.46909,
 # 0.46966, 0.47167; their mean is 0.4692.
 JAX_CPU_MEAN_SMOKE = 0.4692
+# The same for scenes/shiny_teapot.yaml at its own 100 spp (the JAX CPU mesh
+# find, max depth 50, RR on, pool 196,608; square images of the scene's
+# 16:9 camera). The mean falls a little as the image grows: seeds 0-2 gave
+# 0.51828, 0.51866 at 64x64 and 0.51756 at 96x96, and seeds 3, 4, 5 gave
+# 0.51499, 0.51278, 0.51166 at 128x128, 192x192 and 256x256; the mean of
+# those last three is 0.5131 (phase x's resumed 1920x1080 render is held
+# to it).
+JAX_CPU_MEAN_SHINY = 0.5131
 MEAN_BAND = 0.05
+# phase y: the size of the two-process render on the one card
+DIST_SIZE = 256
 # phase p: the mesh-boundary medium scene (the teapot room with the teapot
 # as a fog's boundary), its segments, and the fewest rays the fog must
 # scatter over them
@@ -963,6 +1000,471 @@ def phase_boundary(dev, card):
           f"({time.perf_counter() - t0:.2f} s) on {card}")
 
 
+class _Stop(Exception):
+    """Ends a render at its first checkpoint."""
+
+
+def deterministic(on):
+    """torch.use_deterministic_algorithms for a phase that compares renders
+    bit for bit: the framebuffer's index_add_ then sums in a fixed order
+    instead of the order its atomics land in."""
+    import torch
+    torch.use_deterministic_algorithms(on, warn_only=on)
+
+
+def counted_segments(wavefront):
+    """Wrap wavefront._segment to count the segments that run; -> (counter
+    list, restore function)."""
+    segments = [0]
+    segment = wavefront._segment
+
+    def counted(*args, **kwargs):
+        segments[0] += 1
+        return segment(*args, **kwargs)
+
+    wavefront._segment = counted
+
+    def restore():
+        wavefront._segment = segment
+    return segments, restore
+
+
+def interrupted(render, path, meta):
+    """Run render(checkpoint_cb=...) to its first checkpoint, write that
+    state to `path` with save_state (timed) and stop -> save ms."""
+    import torch
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    ms = []
+
+    def save_once(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_state(path, state, meta=meta)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        raise _Stop
+
+    try:
+        render(checkpoint_cb=save_once)
+    except _Stop:
+        return ms[0]
+    raise RuntimeError("the render never reached a checkpoint")
+
+
+def load_timed(path, meta, dev):
+    """load_state onto dev -> (state, ms)."""
+    import torch
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    t0 = time.perf_counter()
+    state = ckpt.load_state(path, expect=meta, device=dev)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) * 1e3
+
+
+def phase_resume(dev, card, scene, camera, k1):
+    """w. The main path (the teapot at 640x640 @ 16 spp, pool 196,608,
+    depth 50, RR) under deterministic algorithms: uninterrupted; then
+    stopped at its first checkpoint (after the first block), written with
+    save_state, loaded onto the card with load_state and resumed: fb
+    bitwise equal, retired and `it` equal, K1 launched by the resumed part.
+    -> dict of the file size, save and load ms, K1 launches."""
+    import torch
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.integrator import wavefront
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    meta = ckpt.render_meta(WIDTH, HEIGHT, SPP, wavefront.SAMPLE_CHUNK)
+
+    def render(**kw):
+        return wavefront.render_state(scene, camera, WIDTH, HEIGHT, SPP,
+                                      Sampler(SEED, dev), max_depth=50,
+                                      pool=POOL, rr=True, **kw)
+
+    deterministic(True)
+    try:
+        ref = render()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "teapot.npz")
+            save_ms = interrupted(render, path, meta)
+            size = os.path.getsize(path)
+            state, load_ms = load_timed(path, meta, dev)
+        mid, mid_it = int(state.retired), state.it
+        check(0 < mid < WIDTH * HEIGHT * SPP, f"resume: {mid} samples done")
+        k1.launches = 0
+        out = render(state=state)
+        torch.cuda.synchronize()
+    finally:
+        deterministic(False)
+    check(k1.launches > 0, "the resumed render never launched K1")
+    check(bool(torch.equal(out.fb, ref.fb)),
+          f"resumed fb differs from the uninterrupted one on "
+          f"{int((out.fb != ref.fb).sum())} values")
+    check(int(out.retired) == int(ref.retired) == WIDTH * HEIGHT * SPP
+          and out.it == ref.it,
+          f"resumed: retired {int(out.retired)}, it {out.it}; uninterrupted "
+          f"{int(ref.retired)}, {ref.it}")
+    print(f"[resume] teapot {WIDTH}x{HEIGHT} @ {SPP} spp, pool {POOL}, "
+          f"deterministic algorithms: stopped after the first block "
+          f"({mid} samples, it {mid_it}), checkpoint {size:,} bytes, "
+          f"save_state {save_ms:.1f} ms, load_state onto {dev} "
+          f"{load_ms:.1f} ms; resumed to the end (it {out.it}, K1 launched "
+          f"{k1.launches} times): fb bitwise equal to the uninterrupted "
+          f"render's on {card}")
+    return {"bytes": size, "save_ms": save_ms, "load_ms": load_ms,
+            "k1_resumed": k1.launches}
+
+
+def read_png(path):
+    """The (H, W, 3) uint8 image of a PNG written by the port
+    (io/images.py:write_png: 8-bit RGB, one IDAT, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            check((depth, ctype) == (8, 2), f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    check(not rows[:, 0].any(), f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_cli_resume(card, width=1920, height=1080, spp=100, every=2):
+    """x. The CLI at shiny_teapot's full film (1920x1080 @ 100 spp) with
+    --checkpoint and --checkpoint-every 2: the process is killed once its
+    checkpoint holds 0 < retired < total, then `--resume` finishes it: rc
+    0, "Resumed checkpoint", the PNG written, its mean within MEAN_BAND of
+    the JAX CPU render's. -> dict."""
+    import numpy as np
+    total = width * height * spp
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "shiny.npz")
+        out = os.path.join(tmp, "shiny.png")
+        cmd = [sys.executable, "-m", "hobbyraytracer_tpu_torch.cli.main",
+               "render", FIT_SCENE, "-o", out, "--device", DEVICE,
+               "--checkpoint", ck, "--checkpoint-every", str(every),
+               "--width", str(width), "--height", str(height), "--spp",
+               str(spp)]
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "first.log"), "w") as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+            done = 0
+            try:
+                while proc.poll() is None and time.perf_counter() - t0 < 600:
+                    if os.path.exists(ck):
+                        with np.load(ck) as z:
+                            done = int(z["retired"])
+                        if 0 < done < total:
+                            break
+                    time.sleep(0.2)
+            finally:
+                proc.kill()
+                proc.wait()
+        first_s = time.perf_counter() - t0
+        check(0 < done < total, f"the CLI wrote no mid-render checkpoint "
+              f"(retired {done} of {total}, rc {proc.returncode}): "
+              + open(os.path.join(tmp, "first.log")).read()[-2000:])
+        check(not os.path.exists(out), "the killed render wrote its PNG")
+        size = os.path.getsize(ck)
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd + ["--resume"], capture_output=True,
+                             text=True, timeout=900)
+        resume_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"--resume: rc {res.returncode}\n"
+              f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+        check(f"Resumed checkpoint: {ck} ({done} samples done)" in res.stdout,
+              f"--resume did not report the checkpoint: {res.stdout[-2000:]}")
+        img = read_png(out)
+    check(img.shape == (height, width, 3), f"PNG {img.shape}")
+    mean = float(((img.astype(np.float64) + 0.5) / 256.0).mean())
+    check(abs(mean - JAX_CPU_MEAN_SHINY) <= MEAN_BAND * JAX_CPU_MEAN_SHINY,
+          f"resumed shiny_teapot mean {mean:.5f} outside "
+          f"{JAX_CPU_MEAN_SHINY} +- {MEAN_BAND:.0%}")
+    rate = [ln for ln in res.stdout.splitlines() if "primary rays/s" in ln]
+    print(f"[cli resume] {FIT_SCENE} {width}x{height} @ {spp} spp, "
+          f"--checkpoint-every {every}: killed after {first_s:.1f} s at {done:,} of {total:,} samples "
+          f"(checkpoint {size:,} bytes); --resume: rc 0 in {resume_s:.1f} s, "
+          f"PNG mean {mean:.5f} (JAX CPU {JAX_CPU_MEAN_SHINY}); "
+          f"{rate[-1].strip() if rate else ''} on {card}")
+    return {"bytes": size, "killed_at": done, "first_s": first_s,
+            "resume_s": resume_s, "mean": mean}
+
+
+def dist_worker(rank, port, out, device, size, spp, pool):
+    """One process of phase y's two-process render (chip_smoke.py
+    --dist-worker RANK PORT OUT DEVICE SIZE SPP POOL): one worker on
+    `device`, gloo, the teapot at SIZE x SIZE, deterministic algorithms;
+    rank 0 saves the image to OUT (.npy)."""
+    import numpy as np
+    import torch
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.parallel import shard
+    shard.init_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    job = load_scene(SCENE)
+    dev = torch.device(device)
+    deterministic(True)
+    img = shard.render_wavefront_sharded(
+        job.scene.to(dev), job.camera.to(dev), size, size, spp,
+        Sampler(SEED, dev), [dev], max_depth=50, pool=pool)
+    if rank == 0:
+        np.save(out, img.cpu().numpy())
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sharded_render(dev, card, scene, camera, libs, single):
+    """y. render_wavefront_sharded of the teapot (640x640 @ 16 spp, pool
+    196,608) over [cuda:0, cuda:0]: every sample retired, the mean against
+    the JAX CPU render's, K1 once a segment of each worker and no other
+    kernel; a stacked mid-render checkpoint resumed bit for bit
+    (deterministic algorithms); two processes on the card (gloo, one worker
+    each) at DIST_SIZE equal bit for bit to the in-process two-worker
+    render. single: (K1 launches, rays/s) of phase 4. -> dict."""
+    import socket
+
+    import numpy as np
+    import torch
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.integrator import wavefront
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    from hobbyraytracer_tpu_torch.parallel import shard
+    mesh = [dev, dev]
+    k1 = libs[0]
+
+    def render(size=WIDTH, **kw):
+        return shard.render_wavefront_sharded(
+            scene, camera, size, size, SPP, Sampler(SEED, dev), mesh,
+            max_depth=50, pool=POOL, **kw)
+
+    render(64)   # warm-up
+    torch.cuda.synchronize()
+    seen = []
+    for lib in libs:
+        lib.launches = 0
+    segments, restore = counted_segments(wavefront)
+    try:
+        t0 = time.perf_counter()
+        img = render(progress_cb=lambda r, t: seen.append((r, t)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {lib.name: lib.launches for lib in libs}
+    total = WIDTH * HEIGHT * SPP
+    check(seen[-1] == (total, total), f"two workers: retired {seen[-1]}")
+    check(bool(torch.isfinite(img).all()), "two workers: non-finite pixels")
+    mean = img.mean().item()
+    check(abs(mean - JAX_CPU_MEAN) <= MEAN_BAND * JAX_CPU_MEAN,
+          f"two workers: mean {mean:.5f} outside {JAX_CPU_MEAN} +- "
+          f"{MEAN_BAND:.0%}")
+    check(launches[k1.name] == segments[0] > 0,
+          f"two workers: K1 launched {launches[k1.name]} times in "
+          f"{segments[0]} segments")
+    check(sum(launches.values()) == launches[k1.name],
+          f"two workers launched {launches}")
+    rays = total / seconds
+    print(f"[sharded render] teapot {WIDTH}x{HEIGHT} @ {SPP} spp over "
+          f"{len(mesh)} workers on {dev} (pool {POOL // len(mesh)} each): "
+          f"{seconds:.3f} s, {rays:,.0f} primary rays/s (one worker, phase "
+          f"4: {single[1]:,.0f}), {segments[0]} segments, K1 launches "
+          f"{launches[k1.name]} (one worker: {single[0]}), mean {mean:.5f} "
+          f"(JAX CPU {JAX_CPU_MEAN}) on {card}")
+
+    meta = ckpt.render_meta(WIDTH, HEIGHT, SPP, wavefront.SAMPLE_CHUNK,
+                            n_workers=len(mesh))
+    deterministic(True)
+    try:
+        ref = render()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "stacked.npz")
+            save_ms = interrupted(render, path, meta)
+            size = os.path.getsize(path)
+            state, load_ms = load_timed(path, meta, dev)
+        mid = int(state.retired.sum())
+        check(0 < mid < total and tuple(state.retired.shape) == (2,),
+              f"stacked checkpoint: {mid} samples, {state.retired.shape}")
+        out = render(state=state)
+        check(bool(torch.equal(out, ref)), "the resumed two-worker render "
+              "differs from the uninterrupted one")
+        print(f"  stacked checkpoint after the first block ({mid} samples, "
+              f"{size:,} bytes, save {save_ms:.1f} ms, load {load_ms:.1f} "
+              f"ms) resumed: image bitwise equal")
+        one = render(DIST_SIZE).cpu().numpy()
+    finally:
+        deterministic(False)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "img.npy")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(r), port, out, str(dev), str(DIST_SIZE), str(SPP),
+             str(POOL)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0,
+                  f"two processes: rank {r} rc {p.returncode}\n{log[-3000:]}")
+        two = np.load(out)
+        dist_s = time.perf_counter() - t0
+    check(two.shape == one.shape and np.array_equal(two, one),
+          "two processes on the card differ from the in-process two-worker "
+          "render")
+    print(f"  two processes on {dev} (gloo, one worker each) at "
+          f"{DIST_SIZE}x{DIST_SIZE}: image bitwise equal to the in-process "
+          f"two-worker render ({dist_s:.1f} s with their start-up)")
+    return {"seconds": seconds, "rays_per_s": rays, "k1": launches[k1.name],
+            "segments": segments[0], "mean": mean, "stacked_bytes": size,
+            "stacked_save_ms": save_ms, "stacked_load_ms": load_ms}
+
+
+def phase_sharded_fit(dev, card, scene, camera, width, height, k1):
+    """z. The sharded fit at the CLI's size (FIT_SPP, FIT_DEPTH) over
+    [cuda:0, cuda:0]: render_linear_slice bitwise equal to the rows of
+    render_linear; loss rtol 1e-6 and material gradients rtol 1e-5 /
+    atol 1e-8 against single-device render_loss; K1 launched 2 x
+    fit_launches; three make_sharded_fit_step steps descend; ms a step
+    beside a single-device step's (loss, backward, Adam). -> dict."""
+    import numpy as np
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import perturb_materials
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.parallel import shard
+    mesh = [dev, dev]
+    spp, depth = FIT_SPP, FIT_DEPTH
+    sampler = Sampler(SEED, dev)
+    with torch.no_grad():
+        target = fit_mod.render_linear(scene, camera, width, height, sampler,
+                                       spp, depth)
+    # a worker's pixel slice is the rows of the whole image, bit for bit,
+    # at any offset on the card (target is the whole image's render)
+    wh = width * height
+    with torch.no_grad():
+        for a, n in ((0, wh // 2), (wh // 2, wh - wh // 2),
+                     (wh // 7, wh // 3)):
+            part = fit_mod.render_linear_slice(scene, camera, width, height,
+                                               sampler, spp, a, n, depth)
+            check(bool(torch.equal(part, target[a:a + n])),
+                  f"render_linear_slice({a}, {n}) differs from those rows "
+                  f"of render_linear")
+    print(f"[sharded fit] render_linear_slice at (pixel, count) (0, "
+          f"{wh // 2}), ({wh // 2}, {wh - wh // 2}) and ({wh // 7}, {wh // 3}) "
+          f"of {width}x{height}: bitwise the rows of render_linear")
+    start = perturb_materials(scene)
+    runs = {}
+    for label in ("single", "sharded"):
+        params, rebuild = fit_mod.select_params(start)
+        k1.launches = 0
+        if label == "single":
+            loss = fit_mod.render_loss(params, rebuild, camera, width, height,
+                                       sampler, spp, target, depth)
+        else:
+            loss = shard.sharded_render_loss(params, rebuild, camera, width,
+                                             height, sampler, spp, target,
+                                             mesh, depth)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[label] = (float(loss.detach()), {
+            f: None if t.grad is None else t.grad.cpu().numpy()
+            for f, t in params["materials"].items()}, k1.launches)
+    (l1, g1, n1), (l2, g2, n2) = runs["single"], runs["sharded"]
+    want = len(mesh) * fit_launches(spp, depth)
+    check(n2 == want, f"sharded loss + backward launched K1 {n2} times, "
+          f"predicted {want}")
+    check(abs(l2 - l1) <= 1e-6 * abs(l1), f"sharded loss {l2} vs {l1}")
+    some = sorted(f for f in g1 if g1[f] is not None)
+    check("albedo" in some and some == sorted(
+        f for f in g2 if g2[f] is not None),
+          f"gradients of {some} vs {sorted(f for f in g2 if g2[f] is not None)}")
+    for f in some:
+        check(np.allclose(g2[f], g1[f], rtol=1e-5, atol=1e-8),
+              f"sharded {f} gradient {np.abs(g2[f] - g1[f]).max()} apart")
+    print(f"[sharded fit] {FIT_SCENE} {width}x{height} @ {spp} spp, depth "
+          f"{depth}, over {len(mesh)} workers: loss {l2:.8f} vs single "
+          f"{l1:.8f}, gradients of {some} within rtol 1e-5 (the other "
+          f"parameters get none in either); K1 "
+          f"launches {n2} (single {n1}, predicted {want})")
+
+    steps = {}
+    for label in ("single", "sharded"):
+        params, rebuild = fit_mod.select_params(start)
+        opt = torch.optim.Adam(shard._leaves(params), lr=2e-2,
+                               betas=(0.9, 0.999), eps=1e-8)
+        if label == "sharded":
+            step = shard.make_sharded_fit_step(rebuild, camera, width, height,
+                                               spp, target, mesh, opt,
+                                               max_depth=depth)
+        else:
+            step = shard.make_sharded_fit_step(rebuild, camera, width, height,
+                                               spp, target, [dev], opt,
+                                               max_depth=depth)
+        losses, ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(params, sampler))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        steps[label] = (losses, ms)
+    losses, ms = steps["sharded"]
+    check(losses[-1] < losses[0], f"three sharded steps: losses {losses}")
+    print(f"  three steps: sharded losses {[f'{x:.6f}' for x in losses]}, "
+          f"ms a step {[f'{x:.1f}' for x in ms]} (median "
+          f"{statistics.median(ms):.1f}); one worker "
+          f"{[f'{x:.1f}' for x in steps['single'][1]]} (median "
+          f"{statistics.median(steps['single'][1]):.1f}) on {card}")
+    return {"loss": l2, "single_loss": l1, "k1": n2,
+            "step_ms": statistics.median(ms),
+            "single_step_ms": statistics.median(steps["single"][1])}
+
+
+def same_mesh_k1_k2(dev, label, rays8, bounds8, soa, ids, stream):
+    """K1 over a mesh's 24-row table against K2 over the same mesh's
+    32-row table: bitwise equal, then timed in turns (K1 K2 K2 K1) by CUDA
+    events. -> (K1 ms, K2 ms)."""
+    import torch
+    from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    out_1, id_1 = kmod.traverse_clusters(rays8, bounds8, soa, ids,
+                                         need_uv=False)
+    out_2, id_2 = kmod.traverse_clusters(rays8, bounds8, stream, None,
+                                         need_uv=False)
+    torch.cuda.synchronize()
+    compare_exact(out_2, id_2, out_1, id_1, f"K2 vs K1 on {label}")
+    t = {"K1": [], "K2": []}
+    for name in ("K1", "K2", "K2", "K1"):
+        if name == "K1":
+            t[name].append(cuda_ms(lambda: kmod.traverse_clusters(
+                rays8, bounds8, soa, ids, need_uv=False)))
+        else:
+            t[name].append(cuda_ms(lambda: kmod.traverse_clusters(
+                rays8, bounds8, stream, None, need_uv=False)))
+    k1_ms, k2_ms = (statistics.mean(t["K1"]), statistics.mean(t["K2"]))
+    print(f"[same mesh] {label}, K = {bounds8.shape[1]}, {rays8.shape[0]} "
+          f"rays: K1 (24 rows) {k1_ms:.4f} ms, K2 (32 rows) {k2_ms:.4f} ms "
+          f"(each the mean of two turns of 10, K1 K2 K2 K1: "
+          f"{t['K1'][0]:.4f} {t['K2'][0]:.4f} {t['K2'][1]:.4f} "
+          f"{t['K1'][1]:.4f})")
+    return k1_ms, k2_ms
+
+
 def main():
     import torch
     # 1. the card
@@ -1093,6 +1595,7 @@ def main():
     check(launches[k1.name] > 0, "the render never launched K1")
     check(launches[k2.name] == 0, "the teapot render launched K2")
     k1_launches = launches[k1.name]
+    rays_teapot = rays_per_s
     print(f"[render] teapot {WIDTH}x{HEIGHT} @ {SPP} spp, pool {POOL}: "
           f"{seconds:.3f} s, {rays_per_s:,.0f} primary rays/s, launches "
           f"{launches}, retired {retired}/{total}, mean {mean:.5f} "
@@ -1200,6 +1703,17 @@ def main():
                                                f"K2 vs K1, {tag}"))
             err_k1 = max(err_k1, compare_exact(out_1, id_1, out_p, id_p,
                                                f"K1 vs plain, {tag}"))
+
+    # the resident-vs-stream rule: K1 and K2 on one mesh, packed both ways
+    same_mesh = {
+        "teapot": same_mesh_k1_k2(
+            dev, "the teapot", sets["after one bounce"], mesh.bounds8,
+            mesh.tri_soa, mesh.cluster_id,
+            kmod.pack_mesh_stream_torch(mesh.tri_soa, mesh.cluster_id)),
+        "teapot_hires": same_mesh_k1_k2(
+            dev, "teapot_hires", hsets["after one bounce"], hmesh.bounds8,
+            hmesh.tri_soa[:, :kmod.SOA_ROWS].contiguous(), hmesh.cluster_id,
+            hmesh.tri_soa)}
 
     # d. K3 vs plain on phase b's rays
     err_k3 = 0.0
@@ -1653,6 +2167,21 @@ def main():
     k1_by_path[f"fit ({fit['steps']} steps and the target)"] = (
         fit["k1_launches"])
 
+    # w-z. checkpoint/resume, the CLI's resume, two workers, the sharded fit
+    resume = phase_resume(dev, card, scene, camera, k1)
+    cli = phase_cli_resume(card)
+    two = phase_sharded_render(dev, card, scene, camera, libs,
+                               (k1_launches, rays_teapot))
+    sfit = phase_sharded_fit(dev, card, fscene, fcamera, fw, fh, k1)
+    print("[checkpoint and workers numbers] " + json.dumps({
+        "card": card, "resume": resume, "cli_resume": cli,
+        "two_workers": two, "sharded_fit": sfit,
+        "same_mesh_ms": same_mesh}))
+    k1_by_path["teapot, resumed after its first block"] = resume["k1_resumed"]
+    k1_by_path["teapot over two workers"] = two["k1"]
+    k1_by_path[f"sharded loss + backward, two workers ({fw}x{fh} @ "
+               f"{FIT_SPP} spp, depth {FIT_DEPTH})"] = sfit["k1"]
+
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
 
@@ -1673,6 +2202,7 @@ def main():
             *times_k1[False], bound_k1, ops_k1, launches_by_path=k1_by_path),
         row(k2, "mesh_traverse_stream.cu", f"{ref}:357", k2_launches,
             err_k2, *times_k2[False], bound_k2, ops_k2,
+            same_mesh_k1_k2_ms=same_mesh,
             launches_by_path={
                 "teapot_hires": k2_launches,
                 "vertex fit step (teapot_hires {}x{} @ {} spp, depth {})"
@@ -1688,4 +2218,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        rank, port, out, device, size, spp, pool = sys.argv[2:9]
+        sys.exit(dist_worker(int(rank), port, out, device, int(size),
+                             int(spp), int(pool)))
     sys.exit(main())

@@ -1,9 +1,9 @@
 """hobbyraytracer_tpu_torch — the path tracer ported to PyTorch and CUDA.
 
 A second package beside `hobbyraytracer_tpu` (the JAX reference, which it
-never imports). The layout mirrors the reference (`core/`, `io/`, `scene/`,
-`ops/`, `kernels/`, `integrator/`, `cli/`) so each module has an obvious
-counterpart there:
+never imports). The layout mirrors the reference (`core/`, `io/`,
+`scene/`, `ops/`, `kernels/`, `integrator/`, `diff/`, `parallel/`,
+`cli/`) so each module has an obvious counterpart there:
 
 - scene tables are `nn.Module`s holding buffers (`scene.to(device)`);
 - rays, hits and the wavefront pool state are dataclasses of tensors;
@@ -17,9 +17,12 @@ Every entry point takes an explicit device; nothing falls back to the CPU.
 Ported so far: the forward renderer, by the wavefront and the batch
 integrator, for spheres, rects, boxes, triangles, dense and clustered OBJ
 meshes and constant media with all seven material types (all eight scenes
-in `scenes/`); what is left out (the fit, distribution, checkpoints, image
-textures) raises `NotImplementedError` naming its ROADMAP item or is
-absent.
+in `scenes/`); the differentiable fit (`diff/`); checkpoint/resume in the
+JAX package's format (`io/checkpoint.py`); rendering and fitting over
+several workers and processes (`parallel/`); the CLI (`cli/main.py`) and
+`entry.py`. What is left out (image textures and other codecs, the lens,
+the `bench` subcommand) raises `NotImplementedError` naming its ROADMAP
+item, or is absent (the procedural scene generators).
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,12 @@ stream from (seed, purpose, iteration) through a fixed 64-bit mixing
 function (splitmix64). The draws are not the reference's bits: parity tests
 inject identical noise into both packages instead (a subclass overriding
 `uniform` / `unit_sphere` / `in_ball` / `randint` / `fold_in`).
+
+span=(offset, total) on a draw (reference core/rng.py:33-55): the full
+(total, ...) batch is drawn from the stream and rows offset:offset+n are
+returned, n the leading size of `shape`. A worker that renders a slice of
+the rays then sees the same numbers as the same rows of an unsliced
+render, bit for bit (parallel/shard.py).
 """
 from __future__ import annotations
 
@@ -41,6 +47,19 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def _full_shape(shape, span):
+    """The shape of the whole batch a span-sliced draw takes rows of."""
+    shape = tuple(shape)
+    return shape if span is None else (int(span[1]),) + shape[1:]
+
+
+def _rows(full: torch.Tensor, shape, span, axis: int = 0) -> torch.Tensor:
+    """This worker's rows of a full-batch draw along `axis`."""
+    if span is None:
+        return full
+    return full.narrow(axis, int(span[0]), int(tuple(shape)[0]))
+
+
 def stream_seed(seed: int, purpose: int, iteration: int) -> int:
     """63-bit generator seed for one (seed, purpose, iteration) stream."""
     h = _splitmix64(seed & _MASK64)
@@ -52,7 +71,8 @@ def stream_seed(seed: int, purpose: int, iteration: int) -> int:
 class Sampler:
     """Random draws for one render: `uniform` / `unit_sphere` / `in_ball`
     return float32 tensors on `device`, `randint` int64 ones, each from the
-    stream of (purpose, iteration)."""
+    stream of (purpose, iteration); each takes span=(offset, total) for a
+    slice of a larger batch's draw."""
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
@@ -73,28 +93,36 @@ class Sampler:
         return torch.rand(tuple(shape), generator=self.generator(
             purpose, iteration), dtype=torch.float32, device=self.device)
 
-    def uniform(self, purpose: int, iteration: int, shape) -> torch.Tensor:
+    def uniform(self, purpose: int, iteration: int, shape,
+                span=None) -> torch.Tensor:
         """U[0, 1) float32 (glm::linearRand(0, 1))."""
-        return self._rand(purpose, iteration, shape)
+        return _rows(self._rand(purpose, iteration, _full_shape(shape, span)),
+                     shape, span)
 
-    def randint(self, purpose: int, iteration: int, shape,
-                high: int) -> torch.Tensor:
+    def randint(self, purpose: int, iteration: int, shape, high: int,
+                span=None) -> torch.Tensor:
         """Integers uniform in [0, high), int64 (jax.random.randint)."""
-        return torch.randint(0, int(high), tuple(shape),
+        full = torch.randint(0, int(high), _full_shape(shape, span),
                              generator=self.generator(purpose, iteration),
                              dtype=torch.int64, device=self.device)
+        return _rows(full, shape, span)
 
-    def unit_sphere(self, purpose: int, iteration: int,
-                    shape) -> torch.Tensor:
+    def unit_sphere(self, purpose: int, iteration: int, shape,
+                    span=None) -> torch.Tensor:
         """Uniform on the unit sphere (glm::sphericalRand(1)): shape + (3,),
-        from z = 2*U1 - 1 and phi = 2*pi*U2 as in the reference."""
-        return _on_sphere(*self._rand(purpose, iteration,
-                                      (2,) + tuple(shape)))
+        from z = 2*U1 - 1 and phi = 2*pi*U2 as in the reference. The two
+        uniforms are one (2,) + shape draw, so a span slices its axis 1."""
+        u = self._rand(purpose, iteration, (2,) + _full_shape(shape, span))
+        return _on_sphere(*_rows(u, shape, span, axis=1))
 
-    def in_ball(self, purpose: int, iteration: int, shape) -> torch.Tensor:
+    def in_ball(self, purpose: int, iteration: int, shape,
+                span=None) -> torch.Tensor:
         """Uniform inside the unit ball (glm::ballRand(1)): shape + (3,), a
-        unit-sphere direction times cbrt(U3), as in the reference."""
-        u = self._rand(purpose, iteration, (3,) + tuple(shape))
+        unit-sphere direction times cbrt(U3), as in the reference (one
+        (3,) + shape draw; a span slices its axis 1)."""
+        u = _rows(self._rand(purpose, iteration,
+                             (3,) + _full_shape(shape, span)),
+                  shape, span, axis=1)
         return _on_sphere(u[0], u[1]) * torch.pow(u[2], 1.0 / 3.0)[..., None]
 
 

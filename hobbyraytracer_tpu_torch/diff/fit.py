@@ -17,8 +17,8 @@ from the live vertices. A vertex fit's `rebuild` refreshes the kernel's
 tables from the live vertices (scene/ir.py:refresh_kernel_tables), so the
 find follows the moving geometry.
 
-The reference's `render_linear_slice` (one worker's pixels of the sharded
-fit) belongs with the multi-device port, ROADMAP Queue 1 item 14.
+`render_linear_slice` renders one worker's pixels of the sharded fit
+(parallel/shard.py) with the whole image's draws sliced to them.
 """
 from __future__ import annotations
 
@@ -96,18 +96,34 @@ def render_linear(scene: scene_ir.SceneIR, camera, width: int, height: int,
     draws from sampler.fold_in(s), as integrator/path.py:sample_radiance.
     Each sample runs under torch.utils.checkpoint, so the backward pass
     holds one sample's bounce chain at a time, whatever n_samples."""
-    x, y = path_mod.pixel_grid(width, height, sampler.device)
+    return render_linear_slice(scene, camera, width, height, sampler,
+                               n_samples, 0, width * height, max_depth,
+                               mesh_backend)
+
+
+def render_linear_slice(scene: scene_ir.SceneIR, camera, width: int,
+                        height: int, sampler, n_samples: int, pix0: int,
+                        n_pix: int, max_depth: int = 6,
+                        mesh_backend: str = "kernel_replay") -> torch.Tensor:
+    """render_linear for the n_pix pixels from flat index pix0 on -> (n_pix,
+    3). Every draw is the whole image's draw sliced to these pixels
+    (core/rng.py span), so the result equals render_linear(...)[pix0:pix0 +
+    n_pix] bit for bit: one worker's share of the sharded fit
+    (parallel/shard.py:sharded_render_loss)."""
+    wh = width * height
+    x, y = path_mod.pixel_grid(width, height, sampler.device, pix0, n_pix)
+    span = None if n_pix == wh else (pix0, wh)
 
     def one_sample(s):
         sub = sampler.fold_in(s)
-        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape)
-        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape)
+        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape, span)
+        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape, span)
         rays = get_rays(camera, (x + ju) / (width - 1),
                         (y + jv) / (height - 1))
         return path_mod.trace_diff(scene, rays, sub, max_depth,
-                                   mesh_backend=mesh_backend)
+                                   mesh_backend=mesh_backend, rng_span=span)
 
-    acc = torch.zeros((width * height, 3), dtype=torch.float32,
+    acc = torch.zeros((n_pix, 3), dtype=torch.float32,
                       device=sampler.device)
     for s in range(n_samples):
         acc = acc + checkpoint(one_sample, s, use_reentrant=False)

@@ -54,13 +54,15 @@ def background_colour(scene, d: torch.Tensor) -> torch.Tensor:
     return tex_ops.colour_value(scene.textures, tex_id, u, v, p)
 
 
-def _bounce(scene: scene_ir.SceneIR, sampler, mesh_backend: str,
+def _bounce(scene: scene_ir.SceneIR, sampler, mesh_backend: str, span,
             bounce: int, o, d, result, throughput, active):
     """One bounce of the radiance recurrence for every ray -> the next
-    (o, d, result, throughput, active)."""
+    (o, d, result, throughput, active). span: the rays are rows of a larger
+    batch (core/rng.py)."""
     r = Rays(o=o, d=d)
     hits = scene_ir.intersect_scene(scene, r, sampler=sampler, bounce=bounce,
-                                    mesh_backend=mesh_backend)
+                                    mesh_backend=mesh_backend,
+                                    rng_span=span)
     miss = active & ~hits.hit
     result = result + torch.where(
         miss[:, None], throughput * background_colour(scene, d), 0.0)
@@ -69,7 +71,7 @@ def _bounce(scene: scene_ir.SceneIR, sampler, mesh_backend: str,
     result = result + torch.where(hit_active[:, None], throughput * emit,
                                   0.0)
     ok, atten, new_d = shade_ops.scatter(scene.materials, scene.textures, r,
-                                         hits, sampler, bounce)
+                                         hits, sampler, bounce, span)
     active = hit_active & ok
     throughput = torch.where(active[:, None], throughput * atten, throughput)
     o = torch.where(active[:, None], hits.p, o)
@@ -90,21 +92,26 @@ def _start(rays: Rays):
 
 def trace(scene: scene_ir.SceneIR, rays: Rays, sampler,
           max_depth: int = MAX_DEPTH,
-          mesh_backend: str = "kernel") -> torch.Tensor:
+          mesh_backend: str = "kernel", rng_span=None) -> torch.Tensor:
     """Radiance (N, 3) for a wavefront of rays on `sampler.device`. Every
     draw is array-shaped, one value a ray, from the stream of (purpose,
-    bounce)."""
+    bounce); with rng_span=(offset, total) the rays are rows offset:offset+N
+    of a batch of `total`, and each draw takes those rows of that batch's
+    draw. The loop stops when no ray of these is active, which changes no
+    ray's radiance."""
     carry = _start(rays)
     for bounce in range(max_depth):
         if not bool(carry[4].any()):      # the one host read of a bounce
             break
-        carry = _bounce(scene, sampler, mesh_backend, bounce, *carry)
+        carry = _bounce(scene, sampler, mesh_backend, rng_span, bounce,
+                        *carry)
     return carry[2]
 
 
 def trace_diff(scene: scene_ir.SceneIR, rays: Rays, sampler,
                max_depth: int = 8,
-               mesh_backend: str = "kernel_replay") -> torch.Tensor:
+               mesh_backend: str = "kernel_replay",
+               rng_span=None) -> torch.Tensor:
     """Radiance (N, 3) of `trace`, differentiable in the scene's buffers
     and the rays (reference integrator/path.py:88-142).
 
@@ -117,19 +124,24 @@ def trace_diff(scene: scene_ir.SceneIR, rays: Rays, sampler,
     carry no gradient: the mesh find runs without gradients and is
     replayed from the winning triangle (mesh_backend "kernel_replay", the
     default: K1 / K2 over the mesh's tables; "lockstep": the lockstep
-    find over the live vertices), and scatter's choices are detached."""
+    find over the live vertices), and scatter's choices are detached.
+    rng_span: as in `trace`."""
     carry = _start(rays)
     for bounce in range(max_depth):
-        carry = checkpoint(_bounce, scene, sampler, mesh_backend, bounce,
-                           *carry, use_reentrant=False)
+        carry = checkpoint(_bounce, scene, sampler, mesh_backend, rng_span,
+                           bounce, *carry, use_reentrant=False)
     return carry[2]
 
 
-def pixel_grid(width: int, height: int, device):
+def pixel_grid(width: int, height: int, device, pix0: int = 0,
+               n_pix=None):
     """Pixel positions in the reference's indexing (main.cpp:114-116):
-    x = i % W, y = H - i // W, each (W*H,) float32 (y runs over [1, H], so
-    v can pass 1 in the top row: the reference's quirk, kept)."""
-    pidx = torch.arange(width * height, dtype=torch.int32, device=device)
+    x = i % W, y = H - i // W, each (n_pix,) float32 for the pixels i =
+    pix0 .. pix0 + n_pix - 1 (default all W*H) (y runs over [1, H], so v
+    can pass 1 in the top row: the reference's quirk, kept)."""
+    if n_pix is None:
+        n_pix = width * height - pix0
+    pidx = torch.arange(pix0, pix0 + n_pix, dtype=torch.int32, device=device)
     x = torch.remainder(pidx, width).to(torch.float32)
     y = (height - torch.div(pidx, width, rounding_mode="floor")).to(
         torch.float32)
@@ -139,22 +151,57 @@ def pixel_grid(width: int, height: int, device):
 def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
                     height: int, sampler, n_samples: int,
                     max_depth: int = MAX_DEPTH,
-                    mesh_backend: str = "kernel") -> torch.Tensor:
-    """Sum of radiance (W*H, 3) over n_samples jittered samples a pixel:
+                    mesh_backend: str = "kernel", pix0: int = 0,
+                    n_pix=None) -> torch.Tensor:
+    """Sum of radiance (n_pix, 3) over n_samples jittered samples a pixel
+    for the pixels pix0 .. pix0 + n_pix - 1 (default the whole W*H image):
     u = (x + U) / (W - 1), v = (y + U) / (H - 1) (main.cpp:120-121).
-    Sample s draws from sampler.fold_in(s)."""
-    x, y = pixel_grid(width, height, sampler.device)
-    acc = torch.zeros((width * height, 3), dtype=torch.float32,
+    Sample s draws from sampler.fold_in(s), every draw the image's draw
+    sliced to these pixels, so a slice equals the same rows of the whole
+    image bit for bit (the batch render of parallel/shard.py)."""
+    wh = width * height
+    x, y = pixel_grid(width, height, sampler.device, pix0, n_pix)
+    span = None if x.shape[0] == wh else (pix0, wh)
+    acc = torch.zeros((x.shape[0], 3), dtype=torch.float32,
                       device=sampler.device)
     for s in range(n_samples):
         sub = sampler.fold_in(s)
-        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape)
-        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape)
+        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape, span)
+        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape, span)
         rays = get_rays(camera, (x + ju) / (width - 1),
                         (y + jv) / (height - 1))
         acc = acc + trace(scene, rays, sub, max_depth,
-                          mesh_backend=mesh_backend)
+                          mesh_backend=mesh_backend, rng_span=span)
     return acc
+
+
+def radiance_sum(scene: scene_ir.SceneIR, camera: Camera, width: int,
+                 height: int, samples: int, sampler,
+                 max_depth: int = MAX_DEPTH, sample_chunk: int = 0,
+                 progress_cb=None, pix0: int = 0, n_pix=None) -> torch.Tensor:
+    """The radiance sum (n_pix, 3) of render_image before its film, for the
+    pixels pix0 .. pix0 + n_pix - 1 (default the whole image), equal to
+    those rows of the whole image's bit for bit."""
+    n = width * height - pix0 if n_pix is None else n_pix
+    if sample_chunk <= 0 or sample_chunk >= samples:
+        total = sample_radiance(scene, camera, width, height, sampler,
+                                samples, max_depth, pix0=pix0, n_pix=n)
+        if progress_cb is not None:
+            progress_cb(n * samples, n * samples)
+        return total
+    total = torch.zeros((n, 3), dtype=torch.float32, device=sampler.device)
+    done = 0
+    chunk_i = 0
+    while done < samples:
+        c = min(sample_chunk, samples - done)
+        total = total + sample_radiance(
+            scene, camera, width, height, sampler.fold_in(1000003 + chunk_i),
+            c, max_depth, pix0=pix0, n_pix=n)
+        done += c
+        chunk_i += 1
+        if progress_cb is not None:
+            progress_cb(n * done, n * samples)
+    return total
 
 
 def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
@@ -168,24 +215,6 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
     drawing from sampler.fold_in(1000003 + i); progress_cb(done_samples,
     total_samples) fires after each chunk (a render in one chunk reports
     its completion only)."""
-    wh = width * height
-    if sample_chunk <= 0 or sample_chunk >= samples:
-        total = sample_radiance(scene, camera, width, height, sampler,
-                                samples, max_depth)
-        if progress_cb is not None:
-            progress_cb(wh * samples, wh * samples)
-    else:
-        total = torch.zeros((wh, 3), dtype=torch.float32,
-                            device=sampler.device)
-        done = 0
-        chunk_i = 0
-        while done < samples:
-            c = min(sample_chunk, samples - done)
-            total = total + sample_radiance(
-                scene, camera, width, height,
-                sampler.fold_in(1000003 + chunk_i), c, max_depth)
-            done += c
-            chunk_i += 1
-            if progress_cb is not None:
-                progress_cb(wh * done, wh * samples)
+    total = radiance_sum(scene, camera, width, height, samples, sampler,
+                         max_depth, sample_chunk, progress_cb)
     return film_ops.tonemap(total / float(samples)).reshape(height, width, 3)

@@ -27,8 +27,17 @@ every N segments the whole pool is permuted by
 scene/ir.py:wavefront_sort_key, and every mesh find of every segment skips
 its own sort (cohsort=False). The state's tensors are indexed by the
 permutation one by one; the reference's packed (P, 16) gather is a TPU
-cost choice. Resuming from a state and checkpoint callbacks are ROADMAP
-Queue 1 item 15.
+cost choice.
+
+Checkpoint and resume: the state is the whole render (io/checkpoint.py
+writes it), `render_state(checkpoint_cb=)` hands it over after every block
+of `steps_per_call` iterations, and `render_state(state=)` goes on from a
+saved one, so an interrupted and resumed render equals the uninterrupted
+one bit for bit where the device's sums are deterministic (on the card,
+under torch.use_deterministic_algorithms: the framebuffer's index_add_
+otherwise adds in the order its atomics land). A multi-worker render
+(parallel/shard.py) drains one slice of the work items a worker through
+`_regenerate(item0=)`.
 """
 from __future__ import annotations
 
@@ -129,17 +138,22 @@ def _floordiv(a: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def _regenerate(state: PoolState, camera: Camera, width: int, height: int,
-                total_items: int, sampler) -> PoolState:
+                total_items: int, sampler, item0: int = 0) -> PoolState:
     """Issue new items to idle lanes and fresh camera rays to every lane
     that needs one (newly issued, or starting the next sample of its chunk,
-    flagged by depth == -1). Updates `state` in place."""
+    flagged by depth == -1). Updates `state` in place.
+
+    item0: the first work item of this worker's slice (reference
+    parallel/shard.py:210). `counter` and `total_items` count within the
+    slice; the stored ids, and so the pixels, are the image's."""
     pool = state.item.shape[0]
     wh = width * height
     idle = state.item < 0
     # exclusive prefix rank among idle lanes -> contiguous item ids
     rank = torch.cumsum(idle.to(torch.int32), 0, dtype=torch.int32) - 1
-    new_item = state.counter + rank
-    issue = idle & (new_item < total_items)
+    new_local = state.counter + rank
+    new_item = new_local + item0
+    issue = idle & (new_local < total_items)
     fresh = issue | ((state.item >= 0) & (state.depth < 0))
     item = torch.where(issue, new_item, state.item)
     pix = torch.remainder(torch.clamp(item, min=0), wh)
@@ -272,11 +286,51 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
     return state
 
 
+def _samples_of(items: range, wh: int, samples: int,
+                sample_chunk: int) -> int:
+    """The samples that the work items `items` cover (the last sample
+    chunk's items cover `last` samples, the others `chunk`)."""
+    chunk, n_chunks, last = _chunk_geometry(samples, sample_chunk)
+    in_last = max(0, items.stop - max(items.start, (n_chunks - 1) * wh))
+    return len(items) * chunk - in_last * (chunk - last)
+
+
+def _issue_block(state: PoolState, scene, camera, width: int, height: int,
+                 samples: int, sampler, items: range, steps: int,
+                 max_depth: int, sample_chunk: int, rr: bool, plain: bool,
+                 pool_sort: Optional[int]) -> list:
+    """Advance one worker's pool by `steps` iterations over its work items
+    `items` (in place, no host read) -> each iteration's retired count, a
+    () tensor each (keeping them costs the device nothing)."""
+    counts = []
+    for _ in range(steps):
+        _regenerate(state, camera, width, height, len(items), sampler,
+                    item0=items.start)
+        _segment(state, scene, width, height, sampler, max_depth, samples,
+                 sample_chunk, rr, plain, pool_sort)
+        counts.append(state.retired)
+    return counts
+
+
+def _close_block(state: PoolState, counts: list, need: int) -> int:
+    """The retired samples after a block, read on the host. When the pool
+    ran dry inside the block (all `need` samples retired), `it` is set
+    back to the iteration at which it did (the trailing iterations were
+    no-ops), where the reference's loop stops."""
+    retired = int(state.retired)
+    if retired >= need:
+        last = int((torch.stack(counts) >= need).int().argmax())
+        state.it -= len(counts) - 1 - last
+    return retired
+
+
 def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
                  steps_per_call: int = 8,
                  progress_cb: Optional[Callable[[int, int], None]] = None,
+                 state: Optional[PoolState] = None,
+                 checkpoint_cb: Optional[Callable[[PoolState], None]] = None,
                  sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
                  plain: bool = False,
                  pool_sort: Optional[int] = None) -> PoolState:
@@ -284,11 +338,18 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     must already be there); fb holds the radiance SUM over `samples`.
 
     Completion (retired == W*H*samples) is read on the host after every
-    `steps_per_call` iterations, where progress_cb(retired, total) fires.
+    block of `steps_per_call` iterations, where progress_cb(retired, total)
+    and then checkpoint_cb(state) fire, the latter with the live state
+    (the next block updates it in place: copy what must outlive the call).
     The iterations of the last block that ran after the pool went dry (no
     item left to issue, none in a lane) are no-ops, and the state comes
     back with `it` set to the first of them, the iteration at which the
     reference's loop stops.
+    state: resume from a saved state (io/checkpoint.py:load_state) of this
+    render, on `sampler.device`; it goes on from its own `it`, and one
+    whose pool is dry already comes back at once. A stacked multi-worker
+    state belongs to parallel/shard.py:render_wavefront_sharded and is
+    refused.
     plain=True runs the mesh find and the clustered sphere find through the
     kernels' plain PyTorch versions (a comparison switch). pool_sort: the
     pool sort's period, see _segment."""
@@ -296,39 +357,47 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     _, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
     total_items = wh * n_chunks
     total_samples = wh * samples
-    state = init_state(width, height, min(pool, total_items),
-                       device=sampler.device)
-    while True:
-        # each segment's count of retired samples (a new tensor a segment:
-        # keeping them costs the device nothing)
-        counts = []
-        for _ in range(steps_per_call):
-            _regenerate(state, camera, width, height, total_items, sampler)
-            _segment(state, scene, width, height, sampler, max_depth,
-                     samples, sample_chunk, rr, plain, pool_sort)
-            counts.append(state.retired)
-        retired = int(state.retired)
+    if state is None:
+        state = init_state(width, height, min(pool, total_items),
+                           device=sampler.device)
+    elif state.retired.ndim != 0:
+        raise ValueError(
+            f"checkpoint holds {state.retired.shape[0]} stacked worker "
+            "states; resume it on a mesh of that size, not single-device")
+    retired = int(state.retired)
+    while retired < total_samples:
+        counts = _issue_block(state, scene, camera, width, height, samples,
+                              sampler, range(total_items), steps_per_call,
+                              max_depth, sample_chunk, rr, plain, pool_sort)
+        retired = _close_block(state, counts, total_samples)
         if progress_cb is not None:
             progress_cb(retired, total_samples)
-        if retired >= total_samples:
-            # the pool ran dry after the segment that retired the last
-            # sample: the reference's loop stops there
-            last = int((torch.stack(counts) >= total_samples).int().argmax())
-            state.it -= steps_per_call - 1 - last
-            return state
+        if checkpoint_cb is not None:
+            checkpoint_cb(state)
+    return state
 
 
 def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
-                 progress_cb=None, sample_chunk: int = SAMPLE_CHUNK,
+                 progress_cb=None, state: Optional[PoolState] = None,
+                 checkpoint_cb=None, sample_chunk: int = SAMPLE_CHUNK,
                  rr: bool = True, plain: bool = False,
                  pool_sort: Optional[int] = None) -> torch.Tensor:
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
-    -> ACES -> gamma, as the reference)."""
+    -> ACES -> gamma, as the reference); state / checkpoint_cb as in
+    render_state."""
     state = render_state(scene, camera, width, height, samples, sampler,
                          max_depth=max_depth, pool=pool,
-                         progress_cb=progress_cb, sample_chunk=sample_chunk,
-                         rr=rr, plain=plain, pool_sort=pool_sort)
-    mean = framebuffer(state) / float(samples)
-    return film_ops.tonemap(mean).reshape(height, width, 3)
+                         progress_cb=progress_cb, state=state,
+                         checkpoint_cb=checkpoint_cb,
+                         sample_chunk=sample_chunk, rr=rr, plain=plain,
+                         pool_sort=pool_sort)
+    return film_image(state.fb, width, height, samples)
+
+
+def film_image(fb: torch.Tensor, width: int, height: int,
+               samples: int) -> torch.Tensor:
+    """A (3, W*H) radiance sum over `samples` -> the tonemapped (H, W, 3)
+    image."""
+    return film_ops.tonemap(fb.T / float(samples)).reshape(height, width, 3)

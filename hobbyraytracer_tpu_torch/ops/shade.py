@@ -132,9 +132,10 @@ def emitted(mats: MaterialTable, tab: tex_ops.TextureTable,
 
 
 def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
-            hits: Hits, sampler, bounce: int) -> tuple:
+            hits: Hits, sampler, bounce: int, span=None) -> tuple:
     """Batched Material::scatter over the wavefront, drawing from `sampler`
-    at iteration `bounce`.
+    at iteration `bounce` (span: the rays are rows of a larger batch, see
+    core/rng.py).
 
     Returns (did_scatter (N,) bool, attenuation (N, 3), new_d (N, 3)); the
     new origin is hits.p for every material. Each lobe follows its
@@ -166,7 +167,7 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
         rough = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     # one draw per purpose per iteration, shared by the lobes
-    sph = sampler.unit_sphere(rng_mod.SCATTER_SPHERE, bounce, (n,))
+    sph = sampler.unit_sphere(rng_mod.SCATTER_SPHERE, bounce, (n,), span)
 
     unit_d = mathx.normalize(rays.d)
     unit_n = (mathx.normalize(nrm, eps=1e-12) if has_metal or has_pbr
@@ -200,7 +201,8 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
         # refract with the rough offset; attenuation (1, 1, 1). The raw hit
         # normal is used, and schlick gets the refraction ratio, both as
         # the reference passes them
-        u_choice = sampler.uniform(rng_mod.DIELECTRIC_CHOICE, bounce, (n,))
+        u_choice = sampler.uniform(rng_mod.DIELECTRIC_CHOICE, bounce, (n,),
+                                   span)
         ior = mats.ior[mid]
         ratio = torch.where(hits.front_face, 1.0 / ior, ior)
         cos_t = torch.clamp(mathx.dot(-unit_d, nrm), max=1.0)
@@ -218,7 +220,7 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
 
     if has_isotropic:
         # Isotropic (material.h:73-89): a direction uniform in the ball
-        ball = sampler.in_ball(rng_mod.SCATTER_BALL, bounce, (n,))
+        ball = sampler.in_ball(rng_mod.SCATTER_BALL, bounce, (n,), span)
         new_d = torch.where((mt == MAT_ISOTROPIC)[..., None], ball, new_d)
 
     if has_pbr:

@@ -14,6 +14,7 @@ NotImplementedError naming their ROADMAP item, never silently.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
@@ -42,14 +43,19 @@ BVH_LEAF_SIZE = 128
 # streaming table (hobbyraytracer_tpu/kernels/mesh_traverse.py:
 # mesh_fits_vmem at its default BLOCK = 256). It is the TPU's rule: a
 # budget of TPU VMEM, kept here only so the port's tables equal the
-# reference's leaf for leaf.
+# reference's leaf for leaf. HRT_FORCE_STREAM=1 (read once at import, as
+# the reference reads it) gives every mesh the streaming table, so that
+# every mesh find runs kernel K2.
 _TPU_BLOCK = 256
 _TPU_VMEM_BUDGET_BYTES = 14 * 1024 * 1024
+FORCE_STREAM = os.environ.get("HRT_FORCE_STREAM", "0") != "0"
 
 
 def tpu_mesh_fits_vmem(k_clusters: int, leaf: int) -> bool:
     """The TPU rule: do the resident tables and a 256-ray block's working
-    set fit the TPU kernel's VMEM budget?"""
+    set fit the TPU kernel's VMEM budget? Never under HRT_FORCE_STREAM."""
+    if FORCE_STREAM:
+        return False
     tables = k_clusters * (32 * leaf * 4 + leaf * 4)
     block_ws = _TPU_BLOCK * k_clusters * 4 + 12 * _TPU_BLOCK * leaf * 4
     return tables + block_ws <= _TPU_VMEM_BUDGET_BYTES

@@ -455,11 +455,12 @@ def _medium_span(med: Medium, r: Rays):
 
 
 def _intersect_medium(med: Medium, rays: Rays, sampler, bounce,
-                      med_index: int, t_min, t_max) -> Hits:
+                      med_index: int, t_min, t_max, span=None) -> Hits:
     """ConstantMedium::hit for a wavefront (constantMedium.cpp:4-38): the
     two boundary hits, clamped to [t_min, t_max] (t_max a float or (R,)),
     an exponential free flight drawn from the stream (MEDIUM_FLIGHT,
-    bounce * 131 + med_index), and a scatter point where it ends inside."""
+    bounce * 131 + med_index; span: the rays are rows of a larger batch),
+    and a scatter point where it ends inside."""
     r = med.transform.ray_to_object(rays) if med.transform else rays
     t1, t2, valid = _medium_span(med, r)
     valid = valid & (t2 > t1 + 1e-4)
@@ -470,7 +471,7 @@ def _intersect_medium(med: Medium, rays: Rays, sampler, bounce,
     ray_len = length(rays.d)   # t is in world units of the ray's parameter
     dist_inside = (t2 - t1) * ray_len
     u = sampler.uniform(rng_mod.MEDIUM_FLIGHT, bounce * 131 + med_index,
-                        t1.shape)
+                        t1.shape, span)
     hit_dist = med.neg_inv_density * torch.log(torch.clamp(u, min=1e-37))
     valid = valid & (hit_dist <= dist_inside)
     t = t1 + hit_dist / ray_len
@@ -488,7 +489,7 @@ def _intersect_medium(med: Medium, rays: Rays, sampler, bounce,
 def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
                     ray_valid=None, plain: bool = False, sampler=None,
                     bounce: int = 0, mesh_backend: str = "kernel",
-                    mesh_cohsort=None) -> Hits:
+                    mesh_cohsort=None, rng_span=None) -> Hits:
     """Closest hit against the whole scene (vectorized HittableList::hit):
     pooled spheres, pooled rects, then every instance, min-merged; media
     last, each with the closest hit so far as the far end of its window.
@@ -501,7 +502,9 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
     integrator's bounce) feed the media's free-flight draws; a scene with
     media and no sampler raises. mesh_backend: "kernel", "kernel_replay"
     or "lockstep", see the module docstring. mesh_cohsort=False tells
-    every mesh find that the rays are sorted already.
+    every mesh find that the rays are sorted already. rng_span: the rays
+    are rows of a larger batch, and the media's draws take those rows of
+    the batch's draw (core/rng.py).
     """
     if len(scene.media) and sampler is None:
         raise ValueError("the scene has participating media: intersect_scene "
@@ -538,5 +541,5 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
             mesh_cohsort=mesh_cohsort))
     for i, med in enumerate(scene.media):
         best = closer(best, _intersect_medium(med, rays, sampler, bounce, i,
-                                              t_min, best.t))
+                                              t_min, best.t, rng_span))
     return best

@@ -171,59 +171,81 @@ class Noise:
             np.float32)
 
 
+def _span_rows(full: np.ndarray, shape, span) -> np.ndarray:
+    """Rows offset:offset+n of a full-batch draw (core/rng.py span)."""
+    if span is None:
+        return full
+    return full[int(span[0]):int(span[0]) + int(tuple(shape)[0])]
+
+
+def _full(shape, span):
+    return tuple(shape) if span is None else (int(span[1]),) + tuple(
+        shape)[1:]
+
+
 class NoiseSampler(Sampler):
-    """The port's Sampler drawing from a `Noise` instead of generators."""
+    """The port's Sampler drawing from a `Noise` instead of generators; a
+    span draws the full batch's noise and takes its rows."""
 
     def __init__(self, noise: Noise, device="cpu"):
         super().__init__(0, device)
         self.noise = noise
 
-    def uniform(self, purpose, iteration, shape):
-        return torch.from_numpy(self.noise.uniform(purpose, iteration,
-                                                   shape)).to(self.device)
+    def _out(self, full, shape, span):
+        return torch.from_numpy(np.ascontiguousarray(
+            _span_rows(full, shape, span))).to(self.device)
+
+    def uniform(self, purpose, iteration, shape, span=None):
+        return self._out(self.noise.uniform(purpose, iteration,
+                                            _full(shape, span)), shape, span)
 
     def fold_in(self, index):
         return NoiseSampler(self.noise.fold_in(index), self.device)
 
-    def randint(self, purpose, iteration, shape, high):
-        return torch.from_numpy(self.noise.randint(
-            purpose, iteration, shape, high)).to(self.device)
+    def randint(self, purpose, iteration, shape, high, span=None):
+        return self._out(self.noise.randint(purpose, iteration,
+                                            _full(shape, span), high),
+                         shape, span)
 
-    def unit_sphere(self, purpose, iteration, shape):
-        return torch.from_numpy(self.noise.unit_sphere(
-            purpose, iteration, shape)).to(self.device)
+    def unit_sphere(self, purpose, iteration, shape, span=None):
+        return self._out(self.noise.unit_sphere(purpose, iteration,
+                                                _full(shape, span)),
+                         shape, span)
 
-
-    def in_ball(self, purpose, iteration, shape):
-        return torch.from_numpy(self.noise.in_ball(
-            purpose, iteration, shape)).to(self.device)
+    def in_ball(self, purpose, iteration, shape, span=None):
+        return self._out(self.noise.in_ball(purpose, iteration,
+                                            _full(shape, span)), shape, span)
 
 
 def patch_jax_rng(monkeypatch, noise: Noise) -> None:
     """Route hobbyraytracer_tpu.core.rng draws to `noise` (eager calls
-    only: the stream index is read as a Python int)."""
+    only: the stream index is read as a Python int); a span draws the full
+    batch's noise and takes its rows."""
     import jax.numpy as jnp
 
     from hobbyraytracer_tpu.core import rng
 
+    def draw(kind):
+        def f(k, shape=(), span=None):
+            full = getattr(noise, kind)(k[0], k[1], _full(shape, span))
+            return jnp.asarray(_span_rows(full, shape, span))
+        return f
+
     monkeypatch.setattr(rng, "stream", lambda key, purpose, bounce=0: (
         int(purpose), int(np.asarray(bounce))))
-    monkeypatch.setattr(rng, "uniform", lambda k, shape=(), span=None:
-                        jnp.asarray(noise.uniform(k[0], k[1], shape)))
-    monkeypatch.setattr(rng, "unit_sphere", lambda k, shape=(), span=None:
-                        jnp.asarray(noise.unit_sphere(k[0], k[1], shape)))
-    monkeypatch.setattr(rng, "in_ball", lambda k, shape=(), span=None:
-                        jnp.asarray(noise.in_ball(k[0], k[1], shape)))
+    for kind in ("uniform", "unit_sphere", "in_ball"):
+        monkeypatch.setattr(rng, kind, draw(kind))
 
 
 def patch_jax_fit_rng(monkeypatch, noise: Noise, key, n_samples) -> None:
-    """Route the draws of the JAX package's diff/fit.py:render_linear
-    (sample s of n_samples: pixel jitter from jax.random.uniform on the
-    keys split from fold_in(key, s), the integrator's draws through
-    hobbyraytracer_tpu.core.rng on the third of them) to
-    noise.fold_in(s), as the port's Sampler.fold_in(s) draws them; and run
-    jax.checkpoint's body as it is (it would trace it). Eager calls only
-    (under jax.disable_jit())."""
+    """Route the draws of the JAX package's diff/fit.py:render_linear and
+    render_linear_slice (sample s of n_samples: pixel jitter from
+    jax.random.uniform, or from core.rng.uniform with a span, on the keys
+    ku, kv split from fold_in(key, s); the integrator's draws through
+    hobbyraytracer_tpu.core.rng on the third of them) to noise.fold_in(s),
+    as the port's Sampler.fold_in(s) draws them; a span draws the full
+    batch's noise and takes its rows. Also run jax.checkpoint's body as it
+    is (it would trace it). Eager calls only (under jax.disable_jit())."""
     import jax
     import jax.numpy as jnp
 
@@ -248,19 +270,23 @@ def patch_jax_fit_rng(monkeypatch, noise: Noise, key, n_samples) -> None:
             return real_uniform(k, shape, dtype, *args, **kwargs)
         return jnp.asarray(noise.fold_in(hit[0]).uniform(hit[1], 0, shape))
 
-    def sub(k):
-        return noise.fold_in(k[0])
+    def draw(kind):
+        def f(k, shape=(), span=None):
+            if isinstance(k, tuple):      # a stream of the integrator
+                src, purpose, it = noise.fold_in(k[0]), k[1], k[2]
+            else:                         # a sample's jitter key
+                s, purpose = jitter[raw(k)]
+                src, it = noise.fold_in(s), 0
+            full = getattr(src, kind)(purpose, it, _full(shape, span))
+            return jnp.asarray(_span_rows(full, shape, span))
+        return f
 
     monkeypatch.setattr(jax.random, "uniform", uniform)
     monkeypatch.setattr(jax, "checkpoint", lambda f, *a, **k: f)
     monkeypatch.setattr(rng, "stream", lambda k, purpose, bounce=0: (
         trace_keys[raw(k)], int(purpose), int(np.asarray(bounce))))
-    monkeypatch.setattr(rng, "uniform", lambda k, shape=(), span=None:
-                        jnp.asarray(sub(k).uniform(k[1], k[2], shape)))
-    monkeypatch.setattr(rng, "unit_sphere", lambda k, shape=(), span=None:
-                        jnp.asarray(sub(k).unit_sphere(k[1], k[2], shape)))
-    monkeypatch.setattr(rng, "in_ball", lambda k, shape=(), span=None:
-                        jnp.asarray(sub(k).in_ball(k[1], k[2], shape)))
+    for kind in ("uniform", "unit_sphere", "in_ball"):
+        monkeypatch.setattr(rng, kind, draw(kind))
 
 
 def random_mesh(seed, n_tris=500, spread=3.0):

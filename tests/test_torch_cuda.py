@@ -691,3 +691,55 @@ def test_kernel_replay_raises_when_the_kernel_cannot_run(dev, monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         pir.intersect_scene(scene, rays, mesh_backend="kernel_replay")
     assert pk.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("pix0,n_pix", [(0, 64), (37, 101), (1000, 3000)])
+def test_render_linear_slice_rows_on_card(dev, pix0, n_pix):
+    """On the card every element of an elementwise kernel is computed
+    alike, so a pixel slice equals the rows of the whole image bit for bit
+    at any offset and length (the teapot at 64x64, 2 spp, depth 3, K1
+    finding)."""
+    from hobbyraytracer_tpu_torch.diff import fit as pfit
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    s = Sampler(5, dev)
+    with torch.no_grad():
+        full = pfit.render_linear(scene, camera, 64, 64, s, 2, 3)
+        part = pfit.render_linear_slice(scene, camera, 64, 64, s, 2, pix0,
+                                        n_pix, 3)
+    assert torch.equal(part, full[pix0:pix0 + n_pix])
+    assert full.max() > 0
+
+
+def test_stacked_resume_on_card(dev, tmp_path):
+    """The teapot at 64x64 @ 4 spp over [cuda, cuda] under deterministic
+    algorithms: a stacked state saved at the first checkpoint, loaded onto
+    the card and resumed gives the uninterrupted image bit for bit."""
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    from hobbyraytracer_tpu_torch.parallel import shard
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    path = str(tmp_path / "ck.npz")
+
+    class Stop(Exception):
+        pass
+
+    def save_once(state):
+        ckpt.save_state(path, state)
+        raise Stop
+
+    def render(**kw):
+        return shard.render_wavefront_sharded(
+            scene, camera, 64, 64, 4, Sampler(2, dev), [dev, dev],
+            max_depth=8, pool=4096, **kw)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = render()
+        with pytest.raises(Stop):
+            render(checkpoint_cb=save_once)
+        state = ckpt.load_state(path, device=dev)
+        assert 0 < int(state.retired.sum()) < 64 * 64 * 4
+        assert torch.equal(render(state=state), ref)
+    finally:
+        torch.use_deterministic_algorithms(False)

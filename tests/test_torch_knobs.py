@@ -1,6 +1,7 @@
 """The reference's environment knobs that the port reads, each at import in
 a fresh process as the reference reads it: HRT_SAMPLE_CHUNK and
-HRT_RETIRE_DIV (integrator/wavefront.py), HRT_BVH_SAH (scene/bvh.py)."""
+HRT_RETIRE_DIV (integrator/wavefront.py), HRT_BVH_SAH (scene/bvh.py),
+HRT_FORCE_STREAM (scene/build.py)."""
 import os
 import subprocess
 import sys
@@ -86,3 +87,34 @@ def test_bvh_sah_knob_builds_the_reference_tables(sah):
     proc = _python(code, HRT_BVH_SAH=sah)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert f"SAH {sah == '1'} {sah == '1'}" in proc.stdout
+
+
+@pytest.mark.parametrize("force", ["0", "1"])
+def test_force_stream_builds_the_reference_tables(force):
+    """HRT_FORCE_STREAM=1 gives the teapot (K = 30, a 24-row resident table
+    by default) the 32-row streaming table, as the reference's
+    mesh_fits_vmem then says no to every mesh: the port's tables equal a
+    JAX build made under the same setting byte for byte, and a refresh (a
+    vertex fit's) keeps the layout."""
+    code = (
+        "import numpy as np\n"
+        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+        "from hobbyraytracer_tpu.kernels import mesh_traverse as jk\n"
+        "from hobbyraytracer_tpu.scene import build_scene as jb, "
+        "load_scene_desc as jl\n"
+        "from hobbyraytracer_tpu_torch.scene import build as pbuild, ir\n"
+        "from hobbyraytracer_tpu_torch.scene import build_scene as pb, "
+        "load_scene_desc as pl\n"
+        f"mj = jb(jl({TEAPOT!r})).scene.instances[0].mesh\n"
+        f"mp = pb(pl({TEAPOT!r})).scene.instances[0].mesh\n"
+        "for f in ('cluster_id', 'tri_soa', 'bounds8'):\n"
+        "    a = getattr(mp, f).numpy(); b = np.asarray(getattr(mj, f))\n"
+        "    assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f\n"
+        "rows = ir.refresh_kernel_tables(mp).tri_soa.shape[1]\n"
+        "print('STREAM', jk.FORCE_STREAM, pbuild.FORCE_STREAM, "
+        "mp.tri_soa.shape[1], rows)\n")
+    proc = _python(code, HRT_FORCE_STREAM=force)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    on = force == "1"
+    rows = 32 if on else 24
+    assert f"STREAM {on} {on} {rows} {rows}" in proc.stdout

@@ -253,9 +253,9 @@ def test_flight_stream_is_bounce_times_131_plus_index(media):
     seen = []
 
     class Spy(Sampler):
-        def uniform(self, purpose, iteration, shape):
+        def uniform(self, purpose, iteration, shape, span=None):
             seen.append((purpose, iteration, tuple(shape)))
-            return super().uniform(purpose, iteration, shape)
+            return super().uniform(purpose, iteration, shape, span)
 
     rp, _ = _both(*_rays_np(16))
     pir._intersect_medium(media["box"][0], rp, Spy(0, "cpu"), 7, 2, 1e-3,

@@ -78,6 +78,10 @@ def test_every_module_imports_without_jax():
                 "hobbyraytracer_tpu_torch.diff.fit",
                 "hobbyraytracer_tpu_torch.diff.edges",
                 "hobbyraytracer_tpu_torch.diff.fd",
+                "hobbyraytracer_tpu_torch.io.checkpoint",
+                "hobbyraytracer_tpu_torch.parallel",
+                "hobbyraytracer_tpu_torch.parallel.shard",
+                "hobbyraytracer_tpu_torch.entry",
                 "hobbyraytracer_tpu_torch.cli.main"):
         assert mod in names, (mod, names)
     assert int(names[0]) == len(list(PKG.rglob("*.py"))) - 1   # not itself
@@ -88,7 +92,8 @@ def test_package_sources_never_import_jax():
     scripts names JAX or the JAX package."""
     extra = [pathlib.Path(ROOT) / f for f in (
         "chip_smoke.py", "scripts/profile_port.py",
-        "scripts/profile_fit.py", "scripts/time_mesh_kernels.py")]
+        "scripts/profile_fit.py", "scripts/time_mesh_kernels.py",
+        "scripts/time_checkpoint.py")]
     for path in [*PKG.rglob("*.py"), *extra]:
         for line in path.read_text().splitlines():
             words = line.split()
@@ -300,4 +305,65 @@ def test_mesh_find_never_moves_to_the_lockstep_find(monkeypatch, tmp_path):
     from hobbyraytracer_tpu_torch.integrator import path as ppath
     with pytest.raises(RuntimeError, match="nvcc"):
         ppath.trace_diff(scene, rays, Sampler(0, "meta"), 2)
+    assert kmod.KERNEL.launches == 0
+
+
+def test_import_starts_no_process_group_and_no_cuda():
+    """Importing every module of the package (parallel/ among them)
+    initialises no torch.distributed process group and no CUDA context."""
+    code = (
+        "import importlib, pkgutil\n"
+        "import torch, torch.distributed as dist\n"
+        "import hobbyraytracer_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('STATE', dist.is_initialized(), torch.cuda.is_initialized())\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "STATE False False" in proc.stdout
+
+
+def test_sharded_paths_raise_instead_of_falling_back(monkeypatch, tmp_path):
+    """The sharded wavefront render and fit loss of a mesh scene on two
+    workers off the CPU: when K1 cannot be built each raises; neither its
+    plain version nor the lockstep find takes over."""
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.diff import fit as pfit
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    from hobbyraytracer_tpu_torch.parallel import shard
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def other(*args, **kwargs):
+        raise AssertionError("fell back from the kernel")
+
+    monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kmod, "KERNEL", kbuild.KernelLibrary("mesh_traverse"))
+    monkeypatch.setattr(kmod, "traverse_clusters_plain", other)
+    monkeypatch.setattr(pisect, "intersect_mesh_clustered", other)
+    class MetaSampler(Sampler):
+        """Draws of the right shapes on the meta device (no generator
+        runs there)."""
+
+        def _rand(self, purpose, iteration, shape):
+            return torch.empty(tuple(shape), device=self.device)
+
+        def fold_in(self, index):
+            return MetaSampler(index, self.device)
+
+    job = build_scene(load_scene_desc(TEAPOT))
+    mesh = ["meta", "meta"]
+    scene, camera = job.scene.to("meta"), job.camera.to("meta")
+    sampler = MetaSampler(0, "meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        shard.render_wavefront_sharded(scene, camera, 8, 8, 1, sampler, mesh,
+                                       pool=64)
+    params, rebuild = pfit.select_params(scene)
+    target = torch.empty((64, 3), device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        shard.sharded_render_loss(params, rebuild, camera, 8, 8, sampler, 1,
+                                  target, mesh)
     assert kmod.KERNEL.launches == 0
