@@ -137,13 +137,31 @@ z. the sharded fit at the CLI's size (240x135 @ 4 spp, depth 6) over two
    halves and an unaligned slice); loss within rtol 1e-6 and material
    gradients within rtol 1e-5
    of the single-device ones, K1 launched 2 x fit_launches, three steps
-   descend; ms a step beside one worker's.
+   descend; ms a step beside one worker's;
+aa. the long tail: a scene written here (long_tail_scene: the teapot
+   scene's walls, light and environment, the teapot read from a binary
+   little-endian PLY written from assets/teapot.obj, the back wall
+   textured by a checker PNG written by the port's writer, the thin lens
+   on at aperture 0.2) rendered at 640x640, 16 spp, pool 196,608, max
+   depth 50 with Russian roulette through the function the CLI calls:
+   the PLY's cluster tables equal the pinned digest (the JAX package's
+   build of the same PLY), the texture's lookups on the card equal the
+   host's and none is debug cyan, every sample retired, a finite image,
+   K1 once a segment and no other kernel, the tonemapped mean against a
+   JAX CPU render of the same files; the image written as TGA and BMP and
+   read back equal;
+bb. `cli/main.py bench` at its defaults (the teapot 640x640 @ 100 spp,
+   three repeats) in a process of its own: its JSON line, printed on a
+   line of this script's;
+cc. procgen's teapot_hires and fixtures.ensure_assets written into a
+   temporary directory: byte for byte the repository's assets/.
 Beside phase c, K1 and K2 are timed on one mesh packed both ways (the
 teapot, and teapot_hires's 32-row table with its first 24 rows as K1's):
 bitwise equal, timed in turns.
 
 A line `[fit numbers] {...}` holds phases s-u's numbers, a line
-`[checkpoint and workers numbers] {...}` those of phases w-z. The
+`[checkpoint and workers numbers] {...}` those of phases w-z, a line
+`[long tail numbers] {...}` those of phases aa-cc. The
 second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render (K1: the two_teapots render by the default
 route, K2: teapot_hires's, with their counts on the other paths, the fit's
@@ -214,6 +232,13 @@ JAX_CPU_MEAN_SMOKE = 0.4692
 # those last three is 0.5131 (phase x's resumed 1920x1080 render is held
 # to it).
 JAX_CPU_MEAN_SHINY = 0.5131
+# The same for phase aa's long-tail scene with the lens on
+# (scripts/jax_cpu_means.py long-tail, which writes the scene's files with
+# this script's own helpers; 16 spp, max depth 50, RR on, pool 196,608):
+# seeds 0 and 1 at 64x64 and 96x96, then seeds 2, 3, 4 at 128x128, 192x192
+# and 256x256 gave 0.33374, 0.33285, 0.33266, 0.32838, 0.33038, 0.33124,
+# 0.32982; their mean is 0.3313.
+JAX_CPU_MEAN_LONG_TAIL = 0.3313
 MEAN_BAND = 0.05
 # phase y: the size of the two-process render on the one card
 DIST_SIZE = 256
@@ -331,6 +356,112 @@ TABLE_SHA256 = {
     # the sphere pool's cluster tables (numpy median split, K = 4)
     BALLS: "588ceea6a76a98b7ee1ca587d74e33b0e69c06fac27ce1de00055ec61d6eecfa",
 }
+
+# phase aa, the long tail: the teapot scene with its mesh read from a
+# binary little-endian PLY written here from assets/teapot.obj, its back
+# wall textured by a PNG written by the port's own writer (a checker with
+# a gradient), and the thin lens on at an aperture of 0.2 at the scene's
+# focal distance 8.5 (the YAML's 0.001 would not blur). No YAML field turns
+# the lens on, as in the JAX package, so the phase sets camera.use_lens.
+LONG_TAIL_SCENE = """
+film: {{width: 640, height: 640, samples: 16, output: long_tail.png}}
+camera:
+    position: [0, 2.5, 8.5]
+    look_at: [0, 2.5, 0]
+    up: [0, 1, 0]
+    fov: 45
+    aperture: {aperture}
+    focal_distance: 8.5
+    background: hall
+textures:
+  - {{name: hall, type: environment, path: {hall}}}
+  - {{name: checker, type: image, path: checker.png}}
+materials:
+  - {{name: white, type: lambertian, albedo: [0.73, 0.73, 0.73]}}
+  - {{name: red, type: lambertian, albedo: [0.65, 0.05, 0.05]}}
+  - {{name: green, type: lambertian, albedo: [0.12, 0.45, 0.15]}}
+  - {{name: board, type: lambertian, albedo: checker}}
+  - {{name: light, type: diffuse_light, albedo: [0.93, 0.75, 0.43],
+     strength: 4.5}}
+objects:
+  - {{type: yz_rect, y: [0, 5], z: [-2.5, 2.5], k: 2.5, material: red}}
+  - {{type: yz_rect, y: [0, 5], z: [-2.5, 2.5], k: -2.5, material: green}}
+  - {{type: xz_rect, x: [-2.5, 2.5], z: [-2.5, 2.5], k: 0, material: white}}
+  - {{type: xz_rect, x: [-2.5, 2.5], z: [-2.5, 2.5], k: 5, material: white}}
+  - {{type: xy_rect, x: [-2.5, 2.5], y: [0, 5], k: -2.5, material: board}}
+  - {{type: xz_rect, x: [-1, 1], z: [-1, 1], k: 4.99, material: light}}
+  - type: mesh
+    path: teapot.ply
+    material: white
+    transform:
+        rotate: [0, 180, 0]
+        translate: [0, 1, 0]
+        scale: [0.45, 0.45, 0.45]
+"""
+LENS_APERTURE = 0.2
+# sha256 of the PLY teapot's cluster tables (table_digest), equal to the
+# JAX package's build of the same PLY
+# (tests/test_torch_meshload.py::test_long_tail_scene_builds_as_jax). The
+# PLY stores v as a file does and the loader's FlipUVs restores the OBJ's
+# value bit for bit, so the tables are the OBJ teapot's too.
+PLY_TABLE_SHA256 = (
+    "9d1ca0e72fc7fef4ede9e7818b4cff9256a35bb4452ac5aab982f2675a156516")
+# the checker texture: its side in pixels and its cells a side
+CHECKER = (64, 8)
+
+
+def write_ply(path, mesh):
+    """A mesh dict (verts, normals, uvs, indices) as a binary little-endian
+    PLY: x y z nx ny nz u v as floats a vertex, the v coordinate as a file
+    stores it (the loaders flip it, FlipUVs), and a face as a uchar count
+    and three ints."""
+    import numpy as np
+    uvs = np.stack([mesh["uvs"][:, 0], 1.0 - mesh["uvs"][:, 1]], axis=1)
+    verts = np.concatenate([mesh["verts"], mesh["normals"], uvs],
+                           axis=1).astype("<f4")
+    faces = np.zeros(len(mesh["indices"]),
+                     dtype=[("n", "u1"), ("ids", "<i4", (3,))])
+    faces["n"] = 3
+    faces["ids"] = mesh["indices"]
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(verts)}\n"
+              + "".join(f"property float {p}\n"
+                        for p in ("x", "y", "z", "nx", "ny", "nz", "u", "v"))
+              + f"element face {len(faces)}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode() + verts.tobytes() + faces.tobytes())
+
+
+def checker_image(side, cells):
+    """(side, side, 3) uint8: cells alternate a light grey and a colour
+    that runs from orange at the left to blue at the right."""
+    import numpy as np
+    x = np.arange(side)
+    cell = side // cells
+    odd = ((x[:, None] // cell + x[None, :] // cell) % 2).astype(bool)
+    t = np.broadcast_to(x[None, :] / (side - 1), (side, side))
+    colour = np.stack([230 * (1 - t) + 30 * t, 120 + 0 * t,
+                       20 * (1 - t) + 220 * t], axis=-1)
+    img = np.where(odd[..., None], colour, 210.0)
+    return img.astype(np.uint8)
+
+
+def long_tail_scene(tmp):
+    """Write the long-tail scene into the directory tmp: teapot.ply (from
+    assets/teapot.obj through the port's OBJ parser), checker.png (through
+    the port's PNG writer) and the YAML. -> the YAML's path."""
+    from hobbyraytracer_tpu_torch.io import images
+    from hobbyraytracer_tpu_torch.scene import objloader
+    write_ply(os.path.join(tmp, "teapot.ply"),
+              objloader.parse_obj(os.path.abspath("assets/teapot.obj")))
+    images.write_png(os.path.join(tmp, "checker.png"),
+                     checker_image(*CHECKER))
+    path = os.path.join(tmp, "long_tail.yaml")
+    with open(path, "w") as f:
+        f.write(LONG_TAIL_SCENE.format(
+            aperture=LENS_APERTURE, hall=os.path.abspath("assets/hall.hdr")))
+    return path
 
 
 def table_digest(geom):
@@ -580,12 +711,13 @@ def pool_ray_sets(scene, camera, mesh_inst=None, sort_key=None):
 
 
 def render(scene, camera, libs, label, jax_mean, width=WIDTH, height=HEIGHT,
-           spp=SPP, pool_sort=None):
+           spp=SPP, pool_sort=None, keep=None):
     """A main-path render (640x640 @ 16 spp unless told otherwise) through
     wavefront.render_image (what the CLI calls) with every kernel count set
     to 0 just before it and read just after. The segments are counted by
     wrapping wavefront._segment for the render. Returns (launches by kernel
-    name, seconds, mean, rays/s, (retired, total), segments)."""
+    name, seconds, mean, rays/s, (retired, total), segments); the image is
+    appended to the list `keep` when one is given."""
     import torch
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.integrator import wavefront
@@ -626,6 +758,8 @@ def render(scene, camera, libs, label, jax_mean, width=WIDTH, height=HEIGHT,
           f"{label}: image mean {mean:.5f} outside {jax_mean} +- "
           f"{MEAN_BAND:.0%}")
     rays_per_s = width * height * spp / seconds
+    if keep is not None:
+        keep.append(img)
     return launches, seconds, mean, rays_per_s, (retired, total), segments[0]
 
 
@@ -1112,31 +1246,6 @@ def phase_resume(dev, card, scene, camera, k1):
             "k1_resumed": k1.launches}
 
 
-def read_png(path):
-    """The (H, W, 3) uint8 image of a PNG written by the port
-    (io/images.py:write_png: 8-bit RGB, one IDAT, filter 0 on every row)."""
-    import struct
-    import zlib
-
-    import numpy as np
-    with open(path, "rb") as f:
-        data = f.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
-    pos, idat = 8, b""
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
-            check((depth, ctype) == (8, 2), f"{path}: not 8-bit RGB")
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
-    check(not rows[:, 0].any(), f"{path}: filtered rows")
-    return rows[:, 1:].reshape(h, w, 3)
-
-
 def phase_cli_resume(card, width=1920, height=1080, spp=100, every=2):
     """x. The CLI at shiny_teapot's full film (1920x1080 @ 100 spp) with
     --checkpoint and --checkpoint-every 2: the process is killed once its
@@ -1144,6 +1253,8 @@ def phase_cli_resume(card, width=1920, height=1080, spp=100, every=2):
     0, "Resumed checkpoint", the PNG written, its mean within MEAN_BAND of
     the JAX CPU render's. -> dict."""
     import numpy as np
+
+    from hobbyraytracer_tpu_torch.io import images
     total = width * height * spp
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "shiny.npz")
@@ -1182,7 +1293,7 @@ def phase_cli_resume(card, width=1920, height=1080, spp=100, every=2):
               f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
         check(f"Resumed checkpoint: {ck} ({done} samples done)" in res.stdout,
               f"--resume did not report the checkpoint: {res.stdout[-2000:]}")
-        img = read_png(out)
+        img = images.read_png(out)
     check(img.shape == (height, width, 3), f"PNG {img.shape}")
     mean = float(((img.astype(np.float64) + 0.5) / 256.0).mean())
     check(abs(mean - JAX_CPU_MEAN_SHINY) <= MEAN_BAND * JAX_CPU_MEAN_SHINY,
@@ -1434,6 +1545,130 @@ def phase_sharded_fit(dev, card, scene, camera, width, height, k1):
     return {"loss": l2, "single_loss": l1, "k1": n2,
             "step_ms": statistics.median(ms),
             "single_step_ms": statistics.median(steps["single"][1])}
+
+
+def phase_long_tail(dev, card, libs, k1):
+    """aa. The long-tail scene (long_tail_scene: the teapot read from a
+    binary PLY, the back wall textured by a PNG, the lens on) through the
+    function the CLI calls at 640x640 @ 16 spp, pool 196,608, depth 50, RR
+    on: the PLY's cluster tables equal the pinned digest; the checker
+    loaded (its lookups on the card equal the host's, none debug cyan);
+    every sample retired, a finite image, K1 once a segment and no other
+    kernel, the mean against the JAX CPU render of the same files; the
+    image written as TGA and BMP (ops/film.py:output_film) and read back
+    equal. -> dict."""
+    import numpy as np
+    import torch
+    from hobbyraytracer_tpu_torch.io import images
+    from hobbyraytracer_tpu_torch.ops import film
+    from hobbyraytracer_tpu_torch.ops import texture as ptex
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    with tempfile.TemporaryDirectory() as tmp:
+        job = build_scene(load_scene_desc(long_tail_scene(tmp)))
+        mesh = next(i.mesh for i in job.scene.instances if i.kind == "mesh")
+        digest = table_digest(mesh)
+        check(digest == PLY_TABLE_SHA256,
+              f"PLY teapot: cluster tables {digest} differ from the JAX "
+              "package's build of the same PLY")
+        job.camera.use_lens = True   # no YAML field turns it on
+        tex = job.scene.textures
+        tid = int((tex.ttype == ptex.TEX_IMAGE).nonzero()[0])
+        check(int(tex.width[tid]) == CHECKER[0],
+              f"the checker texture did not load (width "
+              f"{int(tex.width[tid])})")
+        g = torch.Generator().manual_seed(SEED)
+        u, v = torch.rand((2, 4096), generator=g)
+        p = torch.zeros((4096, 3))
+        ids = torch.full((4096,), tid, dtype=torch.int32)
+        host = ptex.colour_value(tex, ids, u, v, p)
+        # Module.to moves the tables in place: the host lookup comes first
+        scene, camera = job.scene.to(dev), job.camera.to(dev)
+        card_c = ptex.colour_value(scene.textures, ids.to(dev), u.to(dev),
+                                   v.to(dev), p.to(dev)).cpu()
+        cyan = torch.tensor(ptex.DEBUG_CYAN)
+        check(torch.equal(card_c, host)
+              and not bool((card_c == cyan).all(dim=1).any())
+              and len(torch.unique(card_c, dim=0)) > 2,
+              "the checker's lookups on the card are not the texture's")
+        keep = []
+        launches, seconds, mean, rays_per_s, (retired, total), segs = render(
+            scene, camera, libs, "long tail", JAX_CPU_MEAN_LONG_TAIL,
+            keep=keep)
+        check(launches[k1.name] == segs and sum(launches.values()) == segs,
+              f"long tail: launches {launches} in {segs} segments")
+        u8 = film.quantize(keep[0].cpu().numpy())
+        back = {}
+        for ext in ("tga", "bmp"):
+            out = os.path.join(tmp, f"long_tail.{ext}")
+            check(bool(film.output_film(u8, out)), f"output_film .{ext}")
+            back[ext] = images.read_image(out)
+            check(np.array_equal(back[ext], u8),
+                  f"long tail: the .{ext} reads back otherwise")
+    print(f"[render] long tail (PLY teapot, checker texture, lens radius "
+          f"{LENS_APERTURE / 2}) {WIDTH}x{HEIGHT} @ {SPP} spp, pool {POOL}: "
+          f"{seconds:.3f} s, {rays_per_s:,.0f} primary rays/s, {segs} "
+          f"segments, K1 launches {launches[k1.name]}, retired "
+          f"{retired}/{total}, mean {mean:.5f} (JAX CPU "
+          f"{JAX_CPU_MEAN_LONG_TAIL}); TGA and BMP read back equal on {card}")
+    return {"seconds": seconds, "rays_per_s": rays_per_s, "mean": mean,
+            "segments": segs, "k1": launches[k1.name],
+            "ply_tables_sha256": digest}
+
+
+def phase_bench(card):
+    """bb. `cli/main.py bench` at its defaults (the teapot 640x640 @ 100
+    spp, wavefront, pool DEFAULT_POOL, 3 repeats; no BENCH_* variable set)
+    on the card, in a process of its own: rc 0 and its JSON line, whose
+    keys and metric are root bench.py's. -> the line's dict."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "hobbyraytracer_tpu_torch.cli.main", "bench",
+         "--device", DEVICE], capture_output=True, text=True, env=env,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench: rc {res.returncode}\n"
+          f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    check(list(line) == ["metric", "value", "unit", "vs_baseline",
+                         "repeats", "min", "max"]
+          and line["metric"] == "primary_rays_per_s_teapot_640x640@100spp"
+          and line["repeats"] == 3
+          and 0 < line["min"] <= line["value"] <= line["max"],
+          f"bench printed {lines[-1]}")
+    check(any(ln.startswith("[bench] on ") for ln in lines),
+          "bench named no device")
+    print(f"[bench] {json.dumps(line)} ({seconds:.1f} s for the process) "
+          f"on {card}")
+    return line
+
+
+def phase_assets(card):
+    """cc. procgen's teapot_hires and fixtures.ensure_assets written into a
+    temporary directory: byte for byte the repository's assets/. -> the
+    seconds it took."""
+    import filecmp
+
+    from hobbyraytracer_tpu_torch.scene import fixtures, procgen
+    names = ("teapot.obj", "teapot_hires.obj", "hall.hdr", "sky.hdr",
+             ".fixture_version")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hires = os.path.join(tmp, "hires", "teapot_hires.obj")
+        procgen.ensure_asset_obj(hires, "teapot_hires")
+        fixtures.ensure_assets(os.path.join(tmp, "assets"))
+        seconds = time.perf_counter() - t0
+        check(filecmp.cmp(hires, "assets/teapot_hires.obj", shallow=False),
+              "procgen.teapot_hires differs from assets/teapot_hires.obj")
+        for name in names:
+            check(filecmp.cmp(os.path.join(tmp, "assets", name),
+                              os.path.join("assets", name), shallow=False),
+                  f"ensure_assets wrote another {name} than assets/")
+    print(f"[assets] teapot_hires and ensure_assets in {seconds:.2f} s: "
+          f"byte for byte the repository's assets/ ({', '.join(names)})")
+    return seconds
 
 
 def same_mesh_k1_k2(dev, label, rays8, bounds8, soa, ids, stream):
@@ -2181,6 +2416,14 @@ def main():
     k1_by_path["teapot over two workers"] = two["k1"]
     k1_by_path[f"sharded loss + backward, two workers ({fw}x{fh} @ "
                f"{FIT_SPP} spp, depth {FIT_DEPTH})"] = sfit["k1"]
+
+    # aa-cc. the long tail: the PLY + image texture + lens render, bench on
+    # the card, the generated assets
+    tail = phase_long_tail(dev, card, libs, k1)
+    tail["bench"] = phase_bench(card)
+    tail["assets_seconds"] = phase_assets(card)
+    print("[long tail numbers] " + json.dumps({"card": card, **tail}))
+    k1_by_path["long tail (PLY teapot, image texture, lens)"] = tail["k1"]
 
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"

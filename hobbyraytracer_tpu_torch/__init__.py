@@ -14,15 +14,16 @@ never imports). The layout mirrors the reference (`core/`, `io/`,
   plain PyTorch version beside it that runs for CPU tensors.
 
 Every entry point takes an explicit device; nothing falls back to the CPU.
-Ported so far: the forward renderer, by the wavefront and the batch
-integrator, for spheres, rects, boxes, triangles, dense and clustered OBJ
-meshes and constant media with all seven material types (all eight scenes
-in `scenes/`); the differentiable fit (`diff/`); checkpoint/resume in the
-JAX package's format (`io/checkpoint.py`); rendering and fitting over
-several workers and processes (`parallel/`); the CLI (`cli/main.py`) and
-`entry.py`. What is left out (image textures and other codecs, the lens,
-the `bench` subcommand) raises `NotImplementedError` naming its ROADMAP
-item, or is absent (the procedural scene generators).
+The port does what the JAX package does: the forward renderer, by the
+wavefront and the batch integrator, for spheres, rects, boxes, triangles,
+dense and clustered meshes of every format of `scene/meshload.py` and
+constant media with all seven material types and image textures (all
+eight scenes in `scenes/`), and the opt-in thin lens; the image codecs
+(`io/`), the procedural assets (`scene/procgen.py`, `scene/fixtures.py`);
+the differentiable fit (`diff/`); checkpoint/resume in the JAX package's
+format (`io/checkpoint.py`); rendering and fitting over several workers
+and processes (`parallel/`); the CLI (`cli/main.py`, with `bench.py`
+behind its `bench`) and `entry.py`.
 """
 
 __version__ = "0.1.0"

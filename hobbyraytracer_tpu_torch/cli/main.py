@@ -3,6 +3,7 @@ hobbyraytracer_tpu/cli/main.py).
 
     python -m hobbyraytracer_tpu_torch.cli.main render scenes/teapot_scene.yaml -o out.png --device cuda
     python -m hobbyraytracer_tpu_torch.cli.main fit scenes/shiny_teapot.yaml --device cuda
+    python -m hobbyraytracer_tpu_torch.cli.main bench --device cuda
 
 `render` renders a YAML scene (default cuda; nothing falls back to the CPU)
 through the wavefront integrator, or with `--integrator batch` through the
@@ -36,8 +37,9 @@ vertices, --boundary adds their edge-sampled silhouette gradients. It
 prints the loss every tenth of the steps and the final loss, and returns
 0 when the final loss is below the first.
 
-The `bench` subcommand is not ported yet; it exits with an error naming
-its ROADMAP item.
+`bench` runs the benchmark of hobbyraytracer_tpu_torch/bench.py (the
+counterpart of the repository's bench.py, configured by the same BENCH_*
+variables) on --device (default cuda) and prints its JSON line.
 """
 from __future__ import annotations
 
@@ -47,11 +49,6 @@ import os
 import sys
 import threading
 import time
-
-_NOT_PORTED = {
-    "bench": "ROADMAP Queue 1 item 9 (port bench)",
-}
-
 
 def _hms(seconds: float) -> str:
     h = int(seconds // 3600)
@@ -382,9 +379,9 @@ def cmd_fit(args) -> int:
     return 0 if res.losses[-1] < res.losses[0] else 1
 
 
-def _not_ported(args) -> int:
-    print(f"`{args.cmd}` is not ported yet: {_NOT_PORTED[args.cmd]}")
-    return 2
+def cmd_bench(args) -> int:
+    from .. import bench
+    return bench.main(["--device", args.device])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -453,9 +450,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="add edge-sampled silhouette gradients to the "
                          "vertex fit (diff/edges.py)")
     sp.set_defaults(fn=cmd_fit)
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help=f"not ported yet ({_NOT_PORTED[name]})"
-                       ).set_defaults(fn=_not_ported)
+    sp = sub.add_parser("bench", help="the benchmark (BENCH_* variables, "
+                        "hobbyraytracer_tpu_torch/bench.py)")
+    sp.add_argument("--device", default="cuda",
+                    help="the device to render on (default cuda)")
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -7,7 +7,8 @@ stream; here a `Sampler(seed, device)` seeds a fresh generator for each
 stream from (seed, purpose, iteration) through a fixed 64-bit mixing
 function (splitmix64). The draws are not the reference's bits: parity tests
 inject identical noise into both packages instead (a subclass overriding
-`uniform` / `unit_sphere` / `in_ball` / `randint` / `fold_in`).
+`uniform` / `unit_sphere` / `in_ball` / `in_disk` / `randint` /
+`fold_in`).
 
 span=(offset, total) on a draw (reference core/rng.py:33-55): the full
 (total, ...) batch is drawn from the stream and rows offset:offset+n are
@@ -69,10 +70,10 @@ def stream_seed(seed: int, purpose: int, iteration: int) -> int:
 
 
 class Sampler:
-    """Random draws for one render: `uniform` / `unit_sphere` / `in_ball`
-    return float32 tensors on `device`, `randint` int64 ones, each from the
-    stream of (purpose, iteration); each takes span=(offset, total) for a
-    slice of a larger batch's draw."""
+    """Random draws for one render: `uniform` / `unit_sphere` / `in_ball` /
+    `in_disk` return float32 tensors on `device`, `randint` int64 ones,
+    each from the stream of (purpose, iteration); each takes
+    span=(offset, total) for a slice of a larger batch's draw."""
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
@@ -124,6 +125,18 @@ class Sampler:
                              (3,) + _full_shape(shape, span)),
                   shape, span, axis=1)
         return _on_sphere(u[0], u[1]) * torch.pow(u[2], 1.0 / 3.0)[..., None]
+
+    def in_disk(self, purpose: int, iteration: int, shape,
+                span=None) -> torch.Tensor:
+        """Uniform inside the unit disk (the thin lens): shape + (2,),
+        r = sqrt(U1) and phi = 2*pi*U2 as in the reference (one (2,) +
+        shape draw; a span slices its axis 1)."""
+        u = _rows(self._rand(purpose, iteration,
+                             (2,) + _full_shape(shape, span)),
+                  shape, span, axis=1)
+        r = torch.sqrt(u[0])
+        phi = u[1] * (2.0 * math.pi)
+        return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
 
 def _on_sphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

@@ -119,7 +119,7 @@ def render_linear_slice(scene: scene_ir.SceneIR, camera, width: int,
         ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape, span)
         jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape, span)
         rays = get_rays(camera, (x + ju) / (width - 1),
-                        (y + jv) / (height - 1))
+                        (y + jv) / (height - 1), sub, 0, span)
         return path_mod.trace_diff(scene, rays, sub, max_depth,
                                    mesh_backend=mesh_backend, rng_span=span)
 

@@ -169,7 +169,7 @@ def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
         ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape, span)
         jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape, span)
         rays = get_rays(camera, (x + ju) / (width - 1),
-                        (y + jv) / (height - 1))
+                        (y + jv) / (height - 1), sub, 0, span)
         acc = acc + trace(scene, rays, sub, max_depth,
                           mesh_backend=mesh_backend, rng_span=span)
     return acc

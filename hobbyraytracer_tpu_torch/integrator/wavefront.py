@@ -161,7 +161,8 @@ def _regenerate(state: PoolState, camera: Camera, width: int, height: int,
     y = (height - _floordiv(pix, width)).to(torch.float32)  # y-flip
     ju = sampler.uniform(rng_mod.PIXEL_JITTER_U, state.it, (pool,))
     jv = sampler.uniform(rng_mod.PIXEL_JITTER_V, state.it, (pool,))
-    cam = get_rays(camera, (x + ju) / (width - 1), (y + jv) / (height - 1))
+    cam = get_rays(camera, (x + ju) / (width - 1), (y + jv) / (height - 1),
+                   sampler, state.it)
 
     f3 = fresh[:, None]
     i3 = issue[:, None]

@@ -1,4 +1,4 @@
-"""Film: tonemap, quantization and PNG output (reference film.cpp;
+"""Film: tonemap, quantization and PNG/TGA/BMP output (reference film.cpp;
 counterpart of hobbyraytracer_tpu/ops/film.py)."""
 from __future__ import annotations
 
@@ -30,12 +30,17 @@ def quantize(colour: np.ndarray) -> np.ndarray:
 
 
 def output_film(pixels_u8: np.ndarray, output_name: str) -> int:
-    """Write the framebuffer as PNG. pixels_u8: (H, W, 3) uint8, row 0 =
-    top. The reference's TGA and BMP outputs are ROADMAP Queue 1 item 16.
-    Returns nonzero on success (stb convention)."""
+    """Write the framebuffer by extension: .png / .tga / else BMP
+    (film.cpp:59-79, with its "File type not supported, generating
+    bitmap!" line for an unknown extension). pixels_u8: (H, W, 3) uint8,
+    row 0 = top. Returns nonzero on success (stb convention)."""
     from ..io import images
-    if not output_name.endswith(".png"):
-        raise NotImplementedError(
-            f"output {output_name!r}: only .png is ported yet (TGA/BMP: "
-            "ROADMAP Queue 1 item 16)")
-    return images.write_png(output_name, pixels_u8)
+    name = output_name
+    if name.endswith(".png"):
+        return images.write_png(name, pixels_u8)
+    if name.endswith(".tga"):
+        return images.write_tga(name, pixels_u8)
+    if not name.endswith(".bmp"):
+        print("File type not supported, generating bitmap!")
+    print(">>> " + name)
+    return images.write_bmp(name, pixels_u8)

@@ -5,12 +5,13 @@ All asset I/O and table building happens here, on the host in numpy; the
 result is built on the CPU and moved with `job.scene.to(device)`. Built
 here: spheres (pooled, with the cluster tables of kernel K4 from
 SPHERE_CLUSTER_MIN spheres up, or transformed instances), axis rects and
-boxes (six rects; pooled, or transformed instances), OBJ meshes with an
-optional transform (clustered from BVH_MIN_TRIS triangles up, dense below),
+boxes (six rects; pooled, or transformed instances), meshes of every
+format of scene/meshload.py with an optional transform (clustered from
+BVH_MIN_TRIS triangles up, dense below),
 standalone triangles (a dense mesh of one), constant media with a box,
 sphere or mesh boundary and their isotropic phase materials, all seven
-material types, textures and the background. Image textures raise
-NotImplementedError naming their ROADMAP item, never silently.
+material types, textures (image textures through io/images.py) and the
+background.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 
 from ..core import quat as quat_ops
 from ..io import hdr as hdr_io
+from ..io import images as img_io
 from ..kernels import mesh_traverse as kmod
 from ..ops import shade as shade_ops
 from ..ops import texture as tex_ops
@@ -84,9 +86,19 @@ class _TextureBuilder:
         return len(self.specs) - 1
 
     def _load_image(self, path: str):
-        raise NotImplementedError(
-            f"image texture {path!r}: the image codecs are not ported yet "
-            "(ROADMAP Queue 1 item 16)")
+        """ImageTexture ctor (texture.cpp:30-51): 8-bit decode / 255; a
+        file that cannot be read degrades to no data (debug cyan at
+        lookup, texture.cpp:56-57). Any failure of the decoders counts,
+        as in the reference and the JAX package: a corrupt file raises
+        struct.error, KeyError or IndexError as well as ValueError."""
+        rp = self.desc.resolve_path(path)
+        try:
+            data = img_io.read_image(rp)[:, :, :3].astype(np.float32) / 255.0
+        except Exception:
+            print(f"ERROR: Could not load image file: {path}")
+            return None
+        print(f"Loaded image file: {path}")
+        return data
 
     def _load_env(self, path: str):
         """EnvironmentMap ctor (texture.cpp:99-115): float HDR decode; a

@@ -36,8 +36,7 @@ The dict layout follows the reference's pytree field names:
 A mesh's tri_soa comes across in either layout: the 24-row resident
 table (kernel K1) or the 32-row streaming table (kernel K2). A sphere
 table's kernel_* entries are the cluster tables of kernel K4, or None (a
-dict without them reads as None). What the port does not render yet (the
-lens) raises NotImplementedError.
+dict without them reads as None).
 
 A fit's parameters cross the same way (`params_from_arrays` /
 `params_to_arrays`): the dict of diff/fit.py:select_params, {"materials":
@@ -219,13 +218,10 @@ def params_to_arrays(params: dict) -> dict:
 
 
 def camera_from_arrays(d: dict) -> Camera:
-    """Camera dict -> the port's Camera (the lens is not ported)."""
-    if d.get("use_lens", False):
-        raise NotImplementedError(
-            "the thin-lens camera is not ported yet (no YAML field reaches "
-            "it): ROADMAP Queue 1 item 4")
-    return Camera(*(np.asarray(d[f]) for f in CAMERA_FIELDS))
+    """Camera dict -> the port's Camera (use_lens False when absent)."""
+    return Camera(*(np.asarray(d[f]) for f in CAMERA_FIELDS),
+                  use_lens=bool(d.get("use_lens", False)))
 
 
 def camera_to_arrays(cam: Camera) -> dict:
-    return dict(_np(cam, CAMERA_FIELDS), use_lens=False)
+    return dict(_np(cam, CAMERA_FIELDS), use_lens=cam.use_lens)

@@ -84,3 +84,24 @@ def parse_obj_python(path: str) -> dict:
         "uvs": np.asarray(out_uv, np.float32),
         "indices": np.asarray(tris, np.int32),
     }
+
+
+def write_obj(path: str, verts, indices, normals=None, uvs=None):
+    """Minimal OBJ writer (test fixtures / procgen output)."""
+    with open(path, "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        if uvs is not None:
+            for t in uvs:
+                f.write(f"vt {t[0]} {1.0 - t[1]}\n")  # undo loader flip
+        if normals is not None:
+            for n in normals:
+                f.write(f"vn {n[0]} {n[1]} {n[2]}\n")
+        for tri in indices:
+            idx = [i + 1 for i in tri]
+            if normals is not None and uvs is not None:
+                f.write("f " + " ".join(f"{i}/{i}/{i}" for i in idx) + "\n")
+            elif normals is not None:
+                f.write("f " + " ".join(f"{i}//{i}" for i in idx) + "\n")
+            else:
+                f.write("f " + " ".join(str(i) for i in idx) + "\n")

@@ -5,19 +5,26 @@ the reference constants that chip_smoke.py holds the port's renders to.
     python3 scripts/jax_cpu_means.py scenes/two_teapots.yaml --spp 16 \\
         --runs 64:0 64:1 96:0 96:1 128:2
 
+    python3 scripts/jax_cpu_means.py long-tail --spp 16 --runs 64:0 96:1
+
 Each run is SIZE:SEED, a SIZE x SIZE render through
 hobbyraytracer_tpu.integrator.wavefront.render_image at --spp samples, max
 depth 50, Russian roulette on, pool 196,608 (chip_smoke.py's settings).
-Prints one line a run and the mean of the means. Keep the sizes small: this
-runs on the host.
+The scene `long-tail` is chip_smoke.py's phase aa scene (a binary PLY
+teapot, an image texture, the thin lens on), its files written by
+chip_smoke.py's own helpers into a temporary directory. Prints one line a
+run and the mean of the means. Keep the sizes small: this runs on the
+host.
 """
 import argparse
+import importlib.util
 import os
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 def main() -> int:
@@ -34,7 +41,16 @@ def main() -> int:
     from hobbyraytracer_tpu.integrator import wavefront
     from hobbyraytracer_tpu.scene import build_scene, load_scene_desc
 
-    job = build_scene(load_scene_desc(args.scene))
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.scene == "long-tail":
+            spec = importlib.util.spec_from_file_location(
+                "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+            smoke = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(smoke)
+            job = build_scene(load_scene_desc(smoke.long_tail_scene(tmp)))
+            job.camera = job.camera.replace(use_lens=True)
+        else:
+            job = build_scene(load_scene_desc(args.scene))
     means = []
     for run in args.runs:
         size, seed = (int(x) for x in run.split(":"))

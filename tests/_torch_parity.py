@@ -170,6 +170,13 @@ class Noise:
         return (d * np.cbrt(g.random(tuple(shape)))[..., None]).astype(
             np.float32)
 
+    def in_disk(self, purpose, iteration, shape) -> np.ndarray:
+        g = self._rng(purpose, iteration, shape, "d")
+        r = np.sqrt(g.random(tuple(shape)))
+        phi = g.random(tuple(shape)) * (2.0 * np.pi)
+        return np.stack([r * np.cos(phi), r * np.sin(phi)], -1).astype(
+            np.float32)
+
 
 def _span_rows(full: np.ndarray, shape, span) -> np.ndarray:
     """Rows offset:offset+n of a full-batch draw (core/rng.py span)."""
@@ -216,11 +223,18 @@ class NoiseSampler(Sampler):
         return self._out(self.noise.in_ball(purpose, iteration,
                                             _full(shape, span)), shape, span)
 
+    def in_disk(self, purpose, iteration, shape, span=None):
+        return self._out(self.noise.in_disk(purpose, iteration,
+                                            _full(shape, span)), shape, span)
+
 
 def patch_jax_rng(monkeypatch, noise: Noise) -> None:
     """Route hobbyraytracer_tpu.core.rng draws to `noise` (eager calls
     only: the stream index is read as a Python int); a span draws the full
-    batch's noise and takes its rows."""
+    batch's noise and takes its rows. A stream of a key that is already a
+    stream keeps that stream's index: the wavefront integrator hands
+    get_rays stream(key, LENS, it), which get_rays streams again by LENS
+    (bounce 0), and the draw is the port's (LENS, it)."""
     import jax.numpy as jnp
 
     from hobbyraytracer_tpu.core import rng
@@ -231,9 +245,13 @@ def patch_jax_rng(monkeypatch, noise: Noise) -> None:
             return jnp.asarray(_span_rows(full, shape, span))
         return f
 
-    monkeypatch.setattr(rng, "stream", lambda key, purpose, bounce=0: (
-        int(purpose), int(np.asarray(bounce))))
-    for kind in ("uniform", "unit_sphere", "in_ball"):
+    def stream(key, purpose, bounce=0):
+        if isinstance(key, tuple):
+            return int(purpose), key[1]
+        return int(purpose), int(np.asarray(bounce))
+
+    monkeypatch.setattr(rng, "stream", stream)
+    for kind in ("uniform", "unit_sphere", "in_ball", "in_disk"):
         monkeypatch.setattr(rng, kind, draw(kind))
 
 
@@ -242,8 +260,9 @@ def patch_jax_fit_rng(monkeypatch, noise: Noise, key, n_samples) -> None:
     render_linear_slice (sample s of n_samples: pixel jitter from
     jax.random.uniform, or from core.rng.uniform with a span, on the keys
     ku, kv split from fold_in(key, s); the integrator's draws through
-    hobbyraytracer_tpu.core.rng on the third of them) to noise.fold_in(s),
-    as the port's Sampler.fold_in(s) draws them; a span draws the full
+    hobbyraytracer_tpu.core.rng on the third of them, the lens's
+    in_disk(stream(kt, LENS)) among them) to noise.fold_in(s), as the
+    port's Sampler.fold_in(s) draws them; a span draws the full
     batch's noise and takes its rows. Also run jax.checkpoint's body as it
     is (it would trace it). Eager calls only (under jax.disable_jit())."""
     import jax
@@ -285,7 +304,7 @@ def patch_jax_fit_rng(monkeypatch, noise: Noise, key, n_samples) -> None:
     monkeypatch.setattr(jax, "checkpoint", lambda f, *a, **k: f)
     monkeypatch.setattr(rng, "stream", lambda k, purpose, bounce=0: (
         trace_keys[raw(k)], int(purpose), int(np.asarray(bounce))))
-    for kind in ("uniform", "unit_sphere", "in_ball"):
+    for kind in ("uniform", "unit_sphere", "in_ball", "in_disk"):
         monkeypatch.setattr(rng, kind, draw(kind))
 
 

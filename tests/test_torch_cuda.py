@@ -743,3 +743,66 @@ def test_stacked_resume_on_card(dev, tmp_path):
         assert torch.equal(render(state=state), ref)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def test_long_tail_render_on_card(dev, monkeypatch, tmp_path):
+    """chip_smoke.py's long-tail scene (a binary PLY teapot, a PNG checker
+    on the back wall, the lens on) at 64x64 @ 4 spp on the card: K1 once a
+    segment and no other kernel, every sample retired, a finite image that
+    the lens changed; the checker's lookups on the card equal the host's,
+    none debug cyan; the image written as TGA and BMP reads back equal."""
+    import importlib.util
+    import os
+
+    from hobbyraytracer_tpu_torch.io import images
+    from hobbyraytracer_tpu_torch.ops import film
+    from hobbyraytracer_tpu_torch.ops import texture as ptex
+    from _torch_parity import ROOT
+    monkeypatch.chdir(ROOT)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    job = build_scene(load_scene_desc(smoke.long_tail_scene(str(tmp_path))))
+    job.camera.use_lens = True
+    tex = job.scene.textures
+    tid = int((tex.ttype == ptex.TEX_IMAGE).nonzero()[0])
+    u, v = torch.rand((2, 1024), generator=torch.Generator().manual_seed(0))
+    p = torch.zeros((1024, 3))
+    ids = torch.full((1024,), tid, dtype=torch.int32)
+    host = ptex.colour_value(tex, ids, u, v, p)
+    # Module.to moves the tables in place: the host lookup comes first
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    on_card = ptex.colour_value(scene.textures, ids.to(dev), u.to(dev),
+                                v.to(dev), p.to(dev)).cpu()
+    assert torch.equal(on_card, host)
+    assert not (on_card == torch.tensor(ptex.DEBUG_CYAN)).all(dim=1).any()
+    segments = [0]
+    segment = wavefront._segment
+
+    def counted(*args, **kwargs):
+        segments[0] += 1
+        return segment(*args, **kwargs)
+
+    monkeypatch.setattr(wavefront, "_segment", counted)
+    imgs = []
+    for lens in (True, False):
+        camera.use_lens = lens
+        for lib in (pk.KERNEL, pk.KERNEL_STREAM, pk.KEY_KERNEL,
+                    sk.SPHERE_KERNEL):
+            lib.launches = 0
+        segments[0] = 0
+        st = wavefront.render_state(scene, camera, 64, 64, 4, Sampler(3, dev),
+                                    pool=4096)
+        assert pk.KERNEL.launches == segments[0] > 0
+        assert (pk.KERNEL_STREAM.launches, pk.KEY_KERNEL.launches,
+                sk.SPHERE_KERNEL.launches) == (0, 0, 0)
+        assert int(st.retired) == 64 * 64 * 4
+        imgs.append(wavefront.framebuffer(st).cpu())
+    assert torch.isfinite(imgs[0]).all() and not torch.equal(*imgs)
+    u8 = film.quantize(film.tonemap(imgs[0] / 4.0).reshape(64, 64, 3)
+                       .numpy())
+    for ext in ("tga", "bmp"):
+        out = str(tmp_path / f"long_tail.{ext}")
+        assert film.output_film(u8, out)
+        assert np.array_equal(images.read_image(out), u8)

@@ -163,8 +163,22 @@ def test_build_scene_native_matches_reference(scene):
 
 
 def test_mesh_formats_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        meshload.load_mesh(str(tmp_path / "m.ply"))
+    """Every mesh format of the JAX package is ported: a missing file of
+    each extension raises the JAX package's OSError (the file is opened,
+    not refused), and .blend / .x3d are refused with its ValueError
+    (tests/test_torch_meshload.py parses each format)."""
+    from hobbyraytracer_tpu.scene import meshload as jmeshload
+    for ext in (".ply", ".stl", ".gltf", ".glb", ".dae", ".3ds", ".fbx"):
+        path = str(tmp_path / f"m{ext}")
+        with pytest.raises(OSError) as got:
+            meshload.load_mesh(path)
+        with pytest.raises(OSError) as ref:
+            jmeshload.load_mesh(path)
+        assert (type(got.value), str(got.value)) == (type(ref.value),
+                                                     str(ref.value))
+    (tmp_path / "m.blend").write_bytes(b"BLENDER")
+    with pytest.raises(ValueError, match="unsupported mesh format .blend"):
+        meshload.load_mesh(str(tmp_path / "m.blend"))
 
 
 @pytest.mark.parametrize("sah", [True, False])
@@ -224,10 +238,11 @@ def test_convert_carries_jax_scene_exactly():
 
 
 def test_convert_refuses_unported_parts():
-    """The lens is refused; spheres come across (a table without the
-    kernel tables reads them as None), and so do media (held against the
-    JAX build in test_media_triangles_and_small_meshes_build) and the
-    fit's bilinear texture filtering."""
+    """Nothing is refused any more: spheres come across (a table without
+    the kernel tables reads them as None), and so do media (held against
+    the JAX build in test_media_triangles_and_small_meshes_build), the
+    fit's bilinear texture filtering and the lens (use_lens both ways; a
+    dict without it reads as False)."""
     job_j = jax_build_scene(jschema.load_scene_desc(TEAPOT))
     arrays = jax_scene_arrays(job_j.scene)
     with_spheres = dict(arrays, spheres={
@@ -248,8 +263,12 @@ def test_convert_refuses_unported_parts():
     assert bilinear.textures.bilinear and not scene.textures.bilinear
     assert convert.scene_to_arrays(bilinear)["textures"]["bilinear"] is True
     cam = jax_camera_arrays(job_j.camera)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        convert.camera_from_arrays(dict(cam, use_lens=True))
+    lens = convert.camera_from_arrays(dict(cam, use_lens=True))
+    assert lens.use_lens
+    assert_tree_close(convert.camera_to_arrays(lens),
+                      dict(cam, use_lens=True), atol=0.0)
+    del cam["use_lens"]
+    assert not convert.camera_from_arrays(cam).use_lens
 
 
 @pytest.mark.parametrize("scene", ["scattered_balls", "cornell_box",

@@ -47,18 +47,21 @@ def test_cli_renders_on_cpu_without_importing_jax(tmp_path):
 
 
 def test_every_module_imports_without_jax():
-    """Every module of the package (native/, the kernel wrappers and the
-    rest) imports with JAX blocked, and pulls in no JAX."""
+    """Every module of the package (native/, the kernel wrappers, the
+    codecs and the rest) imports with JAX and Pillow blocked, and pulls in
+    neither (Pillow is imported only inside io/images.py:read_jpg, for the
+    JPEG streams io/jpeg.py refuses)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import hobbyraytracer_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "loaded = sorted(m for m in sys.modules if m.startswith(("
-        "'jax.', 'jaxlib', 'hobbyraytracer_tpu.')))\n"
+        "'jax.', 'jaxlib', 'hobbyraytracer_tpu.', 'PIL.')))\n"
         "assert not loaded, loaded\n"
         "print('MODULES', len(names), ' '.join(names))\n")
     proc = _run(["-c", code])
@@ -82,7 +85,15 @@ def test_every_module_imports_without_jax():
                 "hobbyraytracer_tpu_torch.parallel",
                 "hobbyraytracer_tpu_torch.parallel.shard",
                 "hobbyraytracer_tpu_torch.entry",
-                "hobbyraytracer_tpu_torch.cli.main"):
+                "hobbyraytracer_tpu_torch.cli.main",
+                "hobbyraytracer_tpu_torch.bench",
+                "hobbyraytracer_tpu_torch.io.images",
+                "hobbyraytracer_tpu_torch.io.jpeg",
+                "hobbyraytracer_tpu_torch.io.extra_formats",
+                "hobbyraytracer_tpu_torch.io.hdr",
+                "hobbyraytracer_tpu_torch.scene.meshload",
+                "hobbyraytracer_tpu_torch.scene.procgen",
+                "hobbyraytracer_tpu_torch.scene.fixtures"):
         assert mod in names, (mod, names)
     assert int(names[0]) == len(list(PKG.rglob("*.py"))) - 1   # not itself
 
@@ -127,14 +138,22 @@ def test_cli_batch_and_media_render_without_importing_jax(tmp_path):
 
 
 def test_cli_refuses_missing_device_and_unported_commands(capsys):
-    """`render` and `fit` refuse a CUDA device that is not there (rc 1);
-    `bench` is not ported and names its ROADMAP item (rc 2)."""
+    """`render`, `fit` and `bench` (ported; its default device is cuda)
+    refuse a CUDA device that is not there (rc 1) and never move to the
+    CPU; no subcommand answers "not ported" any more."""
+    from hobbyraytracer_tpu_torch import bench
     from hobbyraytracer_tpu_torch.cli import main as cli
-    if not torch.cuda.is_available():
-        assert cli.main(["render", TEAPOT, "--device", "cuda"]) == 1
-        assert cli.main(["fit", TEAPOT, "--device", "cuda"]) == 1
-    assert cli.main(["bench"]) == 2
-    assert "item 9" in capsys.readouterr().out
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    assert cli.main(["render", TEAPOT, "--device", "cuda"]) == 1
+    assert cli.main(["fit", TEAPOT, "--device", "cuda"]) == 1
+    assert cli.main(["bench"]) == 1
+    assert cli.main(["bench", "--device", "cuda:0"]) == 1
+    assert bench.main([]) == 1
+    out = capsys.readouterr().out
+    assert out.count("CUDA is not available") == 5
+    assert "not ported" not in out and "{" not in out
+    assert not hasattr(cli, "_NOT_PORTED")
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

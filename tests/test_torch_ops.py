@@ -83,12 +83,17 @@ def test_tonemap_and_quantize():
 
 
 def test_output_film_png_roundtrip(tmp_path):
+    """PNG, and since the codecs are ported TGA and BMP too, read back by
+    the JAX package's readers (tests/test_torch_io.py compares the bytes
+    and the unknown-extension path)."""
     img = np.random.default_rng(2).integers(0, 256, (5, 7, 3), np.uint8)
     assert pfilm.output_film(img, str(tmp_path / "a.png"))
     np.testing.assert_array_equal(jimages.read_png(str(tmp_path / "a.png")),
                                   img)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pfilm.output_film(img, str(tmp_path / "a.bmp"))
+    for ext in ("tga", "bmp"):
+        assert pfilm.output_film(img, str(tmp_path / f"a.{ext}"))
+        np.testing.assert_array_equal(
+            jimages.read_image(str(tmp_path / f"a.{ext}")), img)
 
 
 def _tex_specs():
@@ -187,13 +192,12 @@ def test_emitted_and_scatter(monkeypatch, textured):
 def test_unported_material_types_raise():
     """Every material type of the reference builds now (none is refused);
     media, whose isotropic phase material is one of them, no longer raise
-    either, nor does the fit's bilinear texture filtering. What is still
-    unported raises with its ROADMAP item: the thin-lens camera."""
+    either, nor does the fit's bilinear texture filtering, nor the
+    thin-lens camera (its use_lens comes across)."""
     tab = pshade.build_table([{"mtype": t} for t in range(7)])
     assert tab.present == tuple(range(7))
     cam = {f: np.zeros((3,), np.float32) for f in convert.CAMERA_FIELDS}
-    with pytest.raises(NotImplementedError, match="item 4"):
-        convert.camera_from_arrays(dict(cam, use_lens=True))
+    assert convert.camera_from_arrays(dict(cam, use_lens=True)).use_lens
 
 
 _LOBES = {
