@@ -8,10 +8,11 @@ in phases that each raise on failure (non-zero exit, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi) and
    turn TF32 off;
-2. (and a) build the four kernels from kernels/csrc at once, one nvcc
+2. (and a) build the five kernels from kernels/csrc at once, one nvcc
    each -- K1 mesh_traverse, K2 mesh_traverse_stream, K3 coherence_keys,
-   K4 sphere_traverse -- and print each build's time and ptxas's registers
-   and spills (K3 and K4 must not spill); require the native cluster
+   K4 sphere_traverse, and threefry (the port's draws) -- and print each
+   build's time and ptxas's registers and spills (K3 and K4 must not
+   spill); require the native cluster
    build (the reference's), print its library, and hold both scenes'
    cluster tables against their pinned digests;
 3. hold K1 against its plain PyTorch version on the teapot scene's own
@@ -21,9 +22,10 @@ in phases that each raise on failure (non-zero exit, no result line):
    in a seeded random order, bitwise; time both versions with CUDA events,
    the kernel on the unsorted rays too;
 4. render scenes/teapot_scene.yaml at 640x640, 16 spp, pool 196,608, max
-   depth 50 with Russian roulette, through the function the CLI calls;
-   check the image, K1's launch count in that render, that every sample
-   retired, and the tonemapped mean against a JAX CPU render;
+   depth 50 with Russian roulette, through the function the CLI calls
+   (the first block eager, every later one replayed from a CUDA graph);
+   check the image, K1's and threefry's launch counts in that render, that
+   every sample retired, and the tonemapped mean against a JAX CPU render;
 5. render the teapot 64x64 at 8 spp twice with one seed, through the kernel
    and with the mesh find forced to the plain version, and compare;
 b. hold K2 against its plain version on teapot_hires's own 32-row tables
@@ -154,14 +156,30 @@ bb. `cli/main.py bench` at its defaults (the teapot 640x640 @ 100 spp,
    three repeats) in a process of its own: its JSON line, printed on a
    line of this script's;
 cc. procgen's teapot_hires and fixtures.ensure_assets written into a
-   temporary directory: byte for byte the repository's assets/.
+   temporary directory: byte for byte the repository's assets/;
+dd. (run after m) the graph route: threefry.cu against its plain version
+   bit for bit (bits and uniforms; 1 to 196,608 elements at counter
+   offsets, with and without a device iteration, with 0 to 4 folds after
+   it), timed at the pool's 196,608 lanes beside torch.rand; teapot,
+   teapot_hires (and again with HRT_KEY_MODE "pallas": K3), scattered_balls
+   through K4 and two_teapots rendered at 640x640 @ 16 spp eagerly
+   (eager=True) and through the CUDA graph under
+   torch.use_deterministic_algorithms: framebuffers, `it` and every
+   kernel's launch count equal, and over the replayed blocks each kernel's
+   launches as torch.profiler saw them run equal to its counters'
+   increase; then the teapot eager and through the
+   graph in turns (eager, graph, eager, graph): rays/s and wall ms a
+   segment, and under torch.profiler the device's busy time and idle
+   share of one render each way.
 Beside phase c, K1 and K2 are timed on one mesh packed both ways (the
 teapot, and teapot_hires's 32-row table with its first 24 rows as K1's):
 bitwise equal, timed in turns.
 
 A line `[fit numbers] {...}` holds phases s-u's numbers, a line
 `[checkpoint and workers numbers] {...}` those of phases w-z, a line
-`[long tail numbers] {...}` those of phases aa-cc. The
+`[long tail numbers] {...}` those of phases aa-cc, a line `[graph
+numbers] {...}` those of phase dd. A render's segments are the iterations
+it issued (each block's, the replayed ones included). The
 second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render (K1: the two_teapots render by the default
 route, K2: teapot_hires's, with their counts on the other paths, the fit's
@@ -174,12 +192,20 @@ before its final hit), and `issue_bound_ms`, the same operations at one
 an instruction over the SMs x 128 lanes x the card's maximum SM clock: what
 code built without FMA contraction, as these kernels are so as to equal
 their plain versions, can reach. No single PyTorch call computes any of the
-four functions, so `library_ms` is null. The last line is
-{"ok": true, "device": {...}}.
+four functions, so `library_ms` is null. The threefry row replaces no
+Pallas kernel (jax.random is XLA): its `launches` are the teapot render's
+(phase 4), its times are device time a call over 100 calls under
+torch.profiler (CUDA events around one call of a few-microsecond kernel
+time the host), its bound counts 79 integer operations a threefry2x32, two an
+element (the device iteration's fold and the element's) and 11 more, at
+the float32 rate of 67 TFLOP/s (no integer peak is taken), and its
+`library_ms` is torch.rand on the same shape, which draws other bits.
+The last line is {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -279,6 +305,14 @@ BATCH_SIZE = 128
 BATCH_BAND = 0.10
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores, for `bound_ms`
+# phase dd: threefry draws held against the plain version, (elements,
+# counter offset) each; the operations of one threefry2x32 (2 xor and 2
+# adds of the key schedule, 20 rounds of add, funnel-shift rotate and xor,
+# 5 key injections of 3 adds) and of the rest of an element (its counter,
+# bits and float)
+TF_DRAWS = ((POOL, 0), (1, 0), (4097, 12_345), (POOL, 3 * POOL))
+TF_OPS = 79
+TF_ELEMENT_OPS = 11
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 # float32 operations of one slab test (6 subtractions, 6 products, 7 min or
@@ -710,32 +744,46 @@ def pool_ray_sets(scene, camera, mesh_inst=None, sort_key=None):
     return sets
 
 
+def counted_iterations(wavefront):
+    """Wrap wavefront._pool_run to count the iterations that a render
+    issues, eager or replayed from its graph (one retired count an
+    iteration); -> (counter list, restore function)."""
+    iterations = [0]
+    pool_run = wavefront._pool_run
+
+    def counted(*args, **kwargs):
+        counts = pool_run(*args, **kwargs)
+        iterations[0] += len(counts)
+        return counts
+
+    wavefront._pool_run = counted
+
+    def restore():
+        wavefront._pool_run = pool_run
+    return iterations, restore
+
+
 def render(scene, camera, libs, label, jax_mean, width=WIDTH, height=HEIGHT,
-           spp=SPP, pool_sort=None, keep=None):
+           spp=SPP, pool_sort=None, keep=None, draws=None):
     """A main-path render (640x640 @ 16 spp unless told otherwise) through
     wavefront.render_image (what the CLI calls) with every kernel count set
-    to 0 just before it and read just after. The segments are counted by
-    wrapping wavefront._segment for the render. Returns (launches by kernel
+    to 0 just before it and read just after. The segments are the
+    iterations it issued (counted_iterations). Returns (launches by kernel
     name, seconds, mean, rays/s, (retired, total), segments); the image is
-    appended to the list `keep` when one is given."""
+    appended to the list `keep` when one is given, and the threefry
+    kernel's launches to the list `draws`."""
     import torch
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.integrator import wavefront
+    from hobbyraytracer_tpu_torch.kernels import threefry
     dev = camera.origin.device
     wavefront.render_image(scene, camera, 64, 64, 4, Sampler(SEED, dev),
                            pool=POOL, pool_sort=pool_sort)  # warm-up
     torch.cuda.synchronize()
     seen = []
-    segments = [0]
-    segment = wavefront._segment
-
-    def counted(*args, **kwargs):
-        segments[0] += 1
-        return segment(*args, **kwargs)
-
-    for lib in libs:
+    for lib in (*libs, threefry.THREEFRY):
         lib.launches = 0
-    wavefront._segment = counted
+    segments, restore = counted_iterations(wavefront)
     try:
         t0 = time.perf_counter()
         img = wavefront.render_image(
@@ -746,8 +794,10 @@ def render(scene, camera, libs, label, jax_mean, width=WIDTH, height=HEIGHT,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        wavefront._segment = segment
+        restore()
     launches = {lib.name: lib.launches for lib in libs}
+    if draws is not None:
+        draws.append(threefry.THREEFRY.launches)
     check(tuple(img.shape) == (height, width, 3), f"image {img.shape}")
     check(bool(torch.isfinite(img).all()), f"{label}: non-finite pixels")
     retired, total = seen[-1]
@@ -1700,6 +1750,285 @@ def same_mesh_k1_k2(dev, label, rays8, bounds8, soa, ids, stream):
     return k1_ms, k2_ms
 
 
+def phase_threefry(dev, card, tfk):
+    """dd, first part: threefry.cu against its plain version on the card,
+    bit for bit (bits and uniforms), on TF_DRAWS with no device iteration
+    and with four, and with 0, 3 and 4 folds after it; then the kernel, the
+    plain version and torch.rand timed at the pool's 196,608 lanes as the
+    graph launches a draw (a device iteration, no fold after it) ->
+    (max abs err, (ms, plain ms, torch.rand ms), bound, operations)."""
+    import torch
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    words = (0, SEED + 42)
+    err, n_draws = 0.0, 0
+    tfk.launches = 0
+    for n, offset in TF_DRAWS:
+        for it in (None, 0, 7, 123_456, -3):
+            it_t = (None if it is None
+                    else torch.tensor(it, dtype=torch.int32, device=dev))
+            for path in ((), (6, 0, 1), (5, 3, 2, 1)):
+                for floats in (True, False):
+                    k = tf.threefry_draw(words, it_t, path, n, offset,
+                                         floats, dev)
+                    p = tf.threefry_plain(words, it_t, path, n, offset,
+                                          floats, dev)
+                    torch.cuda.synchronize()
+                    check(bool(torch.equal(k, p)),
+                          f"threefry, {n} elements from {offset}, it {it}, "
+                          f"path {path}, floats {floats}: "
+                          f"{int((k != p).sum())} elements differ")
+                    if floats:
+                        err = max(err, (k - p).abs().max().item())
+                    n_draws += 1
+    check(tfk.launches == n_draws,
+          f"threefry launched {tfk.launches} times for {n_draws} draws")
+    print(f"  threefry vs plain: {n_draws} draws (1 to {POOL} elements, "
+          f"offsets up to {3 * POOL}, device iterations, 0-4 folds after "
+          f"them, bits and uniforms) bitwise equal")
+    it_t = torch.tensor(5, dtype=torch.int32, device=dev)
+    fns = (lambda: tf.threefry_draw(words, it_t, (), POOL, 0, True, dev),
+           lambda: tf.threefry_plain(words, it_t, (), POOL, 0, True, dev),
+           lambda: torch.rand((POOL,), device=dev))
+    times = tuple(profiled_ms(fn) for fn in fns)
+    events = tuple(cuda_ms(fn, reps=20, warmup=3) for fn in fns)
+    ops = POOL * (2 * TF_OPS + TF_ELEMENT_OPS)
+    bnd = bound(4 * POOL + 4, ops)
+    print(f"[threefry] {POOL} uniforms with a device iteration, device ms "
+          f"a call (profiler): kernel {times[0]:.5f}, plain {times[1]:.4f}, "
+          f"torch.rand {times[2]:.5f} (other bits); CUDA events around one "
+          f"call (the host's enqueue included): {events[0]:.4f} / "
+          f"{events[1]:.4f} / {events[2]:.4f}; bound {bnd[0]:.5f} ms by "
+          f"{bnd[1]} on {card}")
+    return err, times, bnd, ops
+
+
+def profiled_ms(fn, n=100):
+    """The device time of one fn() call: the summed kernel time of n calls
+    under torch.profiler, over n. (CUDA events around one call of a
+    few-microsecond kernel time the host's enqueue.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof)[0] / n
+
+
+# each kernel's name in the profiler's records, and the libraries whose
+# launch counters count it (K1 and K2 are one template, traverse_kernel)
+GRAPH_KERNELS = {"traverse_kernel": ("mesh_traverse", "mesh_traverse_stream"),
+                 "coherence_keys_kernel": ("coherence_keys",),
+                 "sphere_traverse_kernel": ("sphere_traverse",),
+                 "threefry_kernel": ("threefry",)}
+
+
+def kernel_counts(prof):
+    """{name: launches} of each GRAPH_KERNELS kernel that the card ran in
+    a torch.profiler window (kernels replayed from a CUDA graph included),
+    by the kernel's own name in its record."""
+    counts = dict.fromkeys(GRAPH_KERNELS, 0)
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        m = re.search(r"(?<![A-Za-z0-9_])(" + "|".join(GRAPH_KERNELS)
+                      + r")\b", evt.key)
+        if m:
+            counts[m.group(1)] += evt.count
+    return counts
+
+
+def device_busy_ms(prof):
+    """The summed device time of the kernels a torch.profiler window saw,
+    and their count."""
+    busy, n = 0.0, 0
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        dt = getattr(evt, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(evt, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            busy += dt / 1e3
+            n += evt.count
+    return busy, n
+
+
+def phase_graph(dev, card, libs, scenes):
+    """dd, second part: each scene {label: (scene, camera, sphere kernel
+    on, HRT_KEY_MODE)} rendered at 640x640 @ 16 spp eagerly and through the
+    graph under deterministic algorithms: framebuffer, `it`, retired and
+    every kernel's launches equal, one graph captured by the graph render
+    and none by the eager one. Over the graph render's replayed blocks
+    (from the third on), each kernel's launches as torch.profiler saw the
+    card run them (GRAPH_KERNELS) must equal its counters' increase. Then
+    the teapot in turns (eager, graph, eager, graph) as the CLI renders
+    it, and under torch.profiler once each way. -> numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.integrator import wavefront
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+
+    captured, capture_ms = [0], []
+    block_graph = wavefront._BlockGraph
+
+    class Counted(block_graph):
+        def _capture(self, state, block):
+            captured[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._capture(state, block)
+            torch.cuda.synchronize()
+            capture_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def run(scene, camera, eager):
+        """-> the state, the launch counters, the graphs captured, and
+        {kernel: (launches the profiler saw, the counters' increase)} over
+        the blocks after the second (replays only, on the graph route)."""
+        for lib in libs:
+            lib.launches = 0
+        captured[0] = 0
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        blocks, before = [0], {}
+
+        def start(state):
+            blocks[0] += 1
+            if blocks[0] == 2:
+                torch.cuda.synchronize()
+                before.update({lib.name: lib.launches for lib in libs})
+                prof.start()
+
+        st = wavefront.render_state(scene, camera, WIDTH, HEIGHT, SPP,
+                                    Sampler(SEED, dev), max_depth=50,
+                                    pool=POOL, pool_sort=0, eager=eager,
+                                    checkpoint_cb=start)
+        torch.cuda.synchronize()
+        prof.stop()
+        launches = {lib.name: lib.launches for lib in libs}
+        ran = kernel_counts(prof)
+        window = {kernel: (ran[kernel], sum(launches[name] - before[name]
+                                            for name in names))
+                  for kernel, names in GRAPH_KERNELS.items()}
+        return st, launches, captured[0], window
+
+    out = {"renders": {}, "threefry_launches": {}}
+    wavefront._BlockGraph = Counted
+    deterministic(True)
+    try:
+        for label, (scene, camera, sphere_kernel, key_mode) in (
+                scenes.items()):
+            isect.SPHERE_KERNEL = sphere_kernel
+            isect.KEY_MODE = key_mode
+            check(wavefront.graph_route(scene, dev, pool_sort=0),
+                  f"{label}: not on the graph route")
+            ea, ea_l, ea_c, _ = run(scene, camera, True)
+            gr, gr_l, gr_c, ran = run(scene, camera, False)
+            check((ea_c, gr_c) == (0, 1),
+                  f"{label}: graphs captured eager {ea_c}, graph {gr_c}")
+            check(bool(torch.equal(ea.fb, gr.fb)),
+                  f"{label}: the graph's fb differs from the eager one's on "
+                  f"{int((ea.fb != gr.fb).sum())} values")
+            check(ea.it == gr.it and int(ea.retired) == int(gr.retired)
+                  == WIDTH * HEIGHT * SPP,
+                  f"{label}: it {ea.it} / {gr.it}, retired "
+                  f"{int(ea.retired)} / {int(gr.retired)}")
+            check(ea_l == gr_l, f"{label}: launches eager {ea_l}, graph "
+                  f"{gr_l}")
+            check(sum(gr_l.values()) > gr_l["threefry"] > 0,
+                  f"{label}: launches {gr_l}")
+            check((gr_l["coherence_keys"] > 0) == (key_mode == "pallas"),
+                  f"{label}: K3 launched {gr_l['coherence_keys']} times "
+                  f"with HRT_KEY_MODE {key_mode}")
+            check(all(a == b for a, b in ran.values())
+                  and ran["threefry_kernel"][0] > 0,
+                  f"{label}: over the replayed blocks, (launches the "
+                  f"profiler saw, the counters' increase): {ran}")
+            print(f"  graph vs eager, {label} {WIDTH}x{HEIGHT} @ {SPP} spp "
+                  f"(deterministic): fb bitwise equal, it {gr.it}, launches "
+                  f"equal {gr_l}; over the replayed blocks the profiler saw "
+                  f"the counted launches, {ran}")
+            out["renders"][label] = {"it": gr.it, "launches": gr_l,
+                                     "profiled_launches": ran}
+            out["threefry_launches"][f"{label} (graph)"] = gr_l["threefry"]
+    finally:
+        deterministic(False)
+        isect.SPHERE_KERNEL = False
+        isect.KEY_MODE = "auto"
+
+    scene, camera, _, _ = scenes["teapot"]
+    iterations, restore = counted_iterations(wavefront)
+    turns, prof_out = [], {}
+
+    def render_teapot(eager, checkpoint_cb=None):
+        iterations[0] = 0
+        t0 = time.perf_counter()
+        wavefront.render_state(scene, camera, WIDTH, HEIGHT, SPP,
+                               Sampler(SEED, dev), max_depth=50, pool=POOL,
+                               eager=eager, checkpoint_cb=checkpoint_cb)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, iterations[0]
+
+    try:
+        for _ in range(2):
+            for eager in (True, False):
+                capture_ms.clear()
+                ms, segs = render_teapot(eager)
+                turns.append({"route": "eager" if eager else "graph",
+                              "ms": ms, "segments": segs,
+                              "rays_per_s": WIDTH * HEIGHT * SPP / ms * 1e3,
+                              "segment_ms": ms / segs,
+                              "capture_ms": sum(capture_ms)})
+                print(f"[graph] teapot {WIDTH}x{HEIGHT} @ {SPP} spp, "
+                      f"{turns[-1]['route']}: {ms:.1f} ms (the capture "
+                      f"{sum(capture_ms):.1f}), "
+                      f"{turns[-1]['rays_per_s']:,.0f} primary rays/s, "
+                      f"{segs} segments, {ms / segs:.3f} ms a segment on "
+                      f"{card}")
+        # the steady state: the profiler from the third block on (the
+        # warm-up block and the first replay with its capture done)
+        for eager in (True, False):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            blocks, mark = [0], {}
+
+            def start(state):
+                blocks[0] += 1
+                if blocks[0] == 2:
+                    torch.cuda.synchronize()
+                    prof.start()
+                    mark["segments"] = iterations[0]
+                    mark["t0"] = time.perf_counter()
+
+            _, segs = render_teapot(eager, start)
+            ms = (time.perf_counter() - mark["t0"]) * 1e3
+            prof.stop()
+            segs -= mark["segments"]
+            busy, n_kernels = device_busy_ms(prof)
+            route = "eager" if eager else "graph"
+            prof_out[route] = {
+                "window_ms": ms, "device_busy_ms": busy,
+                "kernels": n_kernels, "segments": segs,
+                "idle_share": 1.0 - busy / ms, "segment_ms": ms / segs,
+                "busy_segment_ms": busy / segs}
+            print(f"[graph] teapot, {route}, profiled from the third block "
+                  f"on: {segs} segments in {ms:.1f} ms, device busy "
+                  f"{busy:.1f} ms in {n_kernels} kernels, idle share "
+                  f"{1.0 - busy / ms:.1%}, {ms / segs:.3f} ms a segment "
+                  f"({busy / segs:.3f} ms busy) on {card}")
+            check(n_kernels > 0 and busy > 0,
+                  f"the profiler saw no device time in the {route} render")
+    finally:
+        restore()
+        wavefront._BlockGraph = block_graph
+    out["teapot_turns"] = turns
+    out["teapot_profile"] = prof_out
+    return out
+
+
 def main():
     import torch
     # 1. the card
@@ -1713,6 +2042,7 @@ def main():
     from hobbyraytracer_tpu_torch.core.types import Rays
     from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
     from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
+    from hobbyraytracer_tpu_torch.kernels import threefry
     from hobbyraytracer_tpu_torch.ops import intersect as isect
     from hobbyraytracer_tpu_torch.scene import objloader
     from hobbyraytracer_tpu_torch.scene.bvh import build_clusters
@@ -1740,23 +2070,24 @@ def main():
           "test drives the default route first and switches it in-process")
     k1, k2, k3 = kmod.KERNEL, kmod.KERNEL_STREAM, kmod.KEY_KERNEL
     k4 = skmod.SPHERE_KERNEL
-    libs = (k1, k2, k3, k4)
+    libs = (k1, k2, k3, k4)        # the traversal kernels
+    tfk = threefry.THREEFRY        # the draws
 
     # 2 and a. build the kernels from the checkout's sources, all at once
     # (one thread, so one nvcc, each; a library left by an earlier run is
     # built again, so that ptxas reports on these sources), and load them
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        for fut in [pool.submit(lib.build) for lib in libs]:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        for fut in [pool.submit(lib.build) for lib in (*libs, tfk)]:
             fut.result()
-    for lib in libs:
+    for lib in (*libs, tfk):
         lib.load()
-    for lib in libs:
+    for lib in (*libs, tfk):
         print(f"[build] {lib.source} -> {lib.path} in "
               f"{lib.build_seconds:.2f} s")
         for line in lib.ptxas_info:
             print(f"  {line}")
-    print(f"[build] all four in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] all five in {time.perf_counter() - t0:.2f} s")
     for lib in (k3, k4):
         spills = [ln for ln in lib.ptxas_info if "spill" in ln]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -1825,16 +2156,19 @@ def main():
           f"({visits / POOL:.3f} leaf visits a ray)")
 
     # 4. the main path: a 640x640, 16 spp teapot render
+    draws = []
     launches, seconds, mean, rays_per_s, (retired, total), _ = render(
-        scene, camera, libs, "teapot", JAX_CPU_MEAN)
+        scene, camera, libs, "teapot", JAX_CPU_MEAN, draws=draws)
     check(launches[k1.name] > 0, "the render never launched K1")
     check(launches[k2.name] == 0, "the teapot render launched K2")
+    check(draws[0] > 0, "the render never launched the threefry kernel")
     k1_launches = launches[k1.name]
+    tf_launches = draws[0]
     rays_teapot = rays_per_s
     print(f"[render] teapot {WIDTH}x{HEIGHT} @ {SPP} spp, pool {POOL}: "
           f"{seconds:.3f} s, {rays_per_s:,.0f} primary rays/s, launches "
-          f"{launches}, retired {retired}/{total}, mean {mean:.5f} "
-          f"(JAX CPU {JAX_CPU_MEAN}) on {card}")
+          f"{launches}, threefry {tf_launches}, retired {retired}/{total}, "
+          f"mean {mean:.5f} (JAX CPU {JAX_CPU_MEAN}) on {card}")
 
     # 5. the whole render through the kernel vs through the plain version
     imgs = [wavefront.render_image(scene, camera, 64, 64, 8,
@@ -2204,10 +2538,11 @@ def main():
     n_meshes = sum(i.kind == "mesh" for i in tscene.instances)
     check(n_meshes == 2, f"two_teapots has {n_meshes} meshes")
     k1_by_path = {"teapot": k1_launches}
+    two_imgs = []
     for pool_sort in (0, 2):
         launches, seconds, mean, rays_per_s, (retired, total), segs = render(
             tscene, tcamera, libs, "two_teapots", JAX_CPU_MEAN_TWO,
-            pool_sort=pool_sort)
+            pool_sort=pool_sort, keep=two_imgs)
         route = (f"pool_sort={pool_sort} (cohsort=False)" if pool_sort
                  else "default route (per-mesh sort)")
         check(launches[k1.name] == n_meshes * segs,
@@ -2222,6 +2557,23 @@ def main():
               f"({launches[k1.name] / segs:g} K1 a segment), retired "
               f"{retired}/{total}, mean {mean:.5f} (JAX CPU "
               f"{JAX_CPU_MEAN_TWO}) on {card}")
+    moved = (two_imgs[0] - two_imgs[1]).abs().amax(dim=2)
+    print(f"  two_teapots, pool_sort=2 against the per-mesh sort: "
+          f"{(moved > 0).float().mean().item():.2%} of pixels differ (a "
+          f"permuted lane draws other numbers), max diff "
+          f"{moved.max().item():.3g}")
+
+    # dd. the graph route: threefry.cu vs plain, graph vs eager renders, the
+    # teapot's rays/s, segment ms and idle share both ways
+    err_tf, times_tf, bound_tf, ops_tf = phase_threefry(dev, card, tfk)
+    graph = phase_graph(dev, card, (*libs, tfk), {
+        "teapot": (scene, camera, False, "auto"),
+        "teapot_hires": (hscene, hcamera, False, "auto"),
+        "teapot_hires (K3)": (hscene, hcamera, False, "pallas"),
+        "scattered_balls (K4)": (bscene, bcamera, True, "auto"),
+        "two_teapots": (tscene, tcamera, False, "auto")})
+    print("[graph numbers] " + json.dumps({
+        "card": card, "threefry_ms": times_tf, **graph}))
 
     # n. K1 with cohsort=False on a pool the pool sort permuted
     _, n_chunks, _ = wavefront._chunk_geometry(SPP, wavefront.SAMPLE_CHUNK)
@@ -2429,13 +2781,13 @@ def main():
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
 
     def row(lib, source, replaces, launches, err, ms, plain_ms, bnd, ops,
-            **more):
+            library_ms=None, **more):
         return {"name": lib.name, "route": "cuda",
                 "source": f"{csrc}/{source}", "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "issue_bound_ms": issue_bound(ops, sm_count, sm_clock_mhz),
-                "library_ms": None, **more}
+                "library_ms": library_ms, **more}
 
     # K1's `launches` is its count in the two_teapots render by the default
     # route; its counts in each render that drives it are listed beside it
@@ -2454,7 +2806,13 @@ def main():
             *times_k3, bound_k3, ops_k3),
         row(k4, "sphere_traverse.cu",
             "hobbyraytracer_tpu/kernels/sphere_traverse.py:51", k4_launches,
-            err_k4, *times_k4[:2], bound_k4, ops_k4)]}))
+            err_k4, *times_k4[:2], bound_k4, ops_k4),
+        row(tfk, "threefry.cu",
+            "hobbyraytracer_tpu/core/rng.py:43 (jax.random's threefry, "
+            "XLA: no Pallas kernel)", tf_launches, err_tf, *times_tf[:2],
+            bound_tf, ops_tf, library_ms=times_tf[2],
+            launches_by_path={"teapot": tf_launches,
+                              **graph["threefry_launches"]})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

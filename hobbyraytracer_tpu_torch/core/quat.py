@@ -22,8 +22,7 @@ def from_euler(euler_rad: torch.Tensor) -> torch.Tensor:
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,26 +1,50 @@
-"""Sampling discipline: one explicit `torch.Generator` per (purpose,
-iteration).
+"""Sampling discipline: jax.random's threefry keys, folded by (purpose,
+iteration), drawn bit for bit as the JAX package draws them.
 
-Counterpart of hobbyraytracer_tpu/core/rng.py. The reference folds a
-threefry key by (purpose, bounce) so every call site draws from its own
-stream; here a `Sampler(seed, device)` seeds a fresh generator for each
-stream from (seed, purpose, iteration) through a fixed 64-bit mixing
-function (splitmix64). The draws are not the reference's bits: parity tests
-inject identical noise into both packages instead (a subclass overriding
-`uniform` / `unit_sphere` / `in_ball` / `in_disk` / `randint` /
-`fold_in`).
+Counterpart of hobbyraytracer_tpu/core/rng.py. A `Sampler(seed, device)`
+holds the two uint32 words of jax.random.PRNGKey(seed), (0, seed mod
+2**32). Key operations are host work on those two words
+(kernels/threefry.py: threefry2x32 on Python ints): `fold_in(i)` is
+jax.random.fold_in, `split(n)` jax.random.split, and `stream(purpose,
+iteration)` the reference's rng.stream, fold_in(fold_in(key, purpose),
+iteration). Every draw is one threefry draw per uniform (the CUDA kernel
+csrc/threefry.cu on the card, its plain version on the CPU), so the port
+draws what the JAX package draws:
 
-span=(offset, total) on a draw (reference core/rng.py:33-55): the full
-(total, ...) batch is drawn from the stream and rows offset:offset+n are
-returned, n the leading size of `shape`. A worker that renders a slice of
-the rays then sees the same numbers as the same rows of an unsliced
-render, bit for bit (parallel/shard.py).
+- `uniform(purpose, iteration, shape)` = rng.uniform(rng.stream(key,
+  purpose, iteration), shape), and likewise `unit_sphere`, `in_ball` and
+  `in_disk`, which split their key as the reference does (two uniforms;
+  in_ball calls unit_sphere on the first half of its split);
+- `randint(purpose, iteration, shape, high)` = jax.random.randint(stream,
+  shape, 0, high) for int32, returned as int64;
+- `key_uniform(shape)` / `key_randint(shape, high)` draw from the
+  sampler's key itself (jax.random.uniform(key), randint(key)), for the
+  call sites that draw from a folded or split key rather than a stream.
+
+The iteration may be a host int or a 0-d int32 tensor on the sampler's
+device. With a tensor, the fold by the iteration and every fold after it
+run on the device inside the draw (a `Key` carries them), so a replayed
+CUDA graph draws new numbers each iteration without a host round trip.
+
+span=(offset, total) on a draw (reference core/rng.py:33-55): the rows
+offset:offset+n of the full (total, ...) draw, n the leading size of
+`shape`, bit for bit. Element i of a draw takes counter i, so the slice is
+a counter offset: only its own rows are drawn.
+
+The sphere, ball and disk maps are the reference's elementwise formulas on
+those uniforms; cos, sin, sqrt and cbrt (here a pow) are the library's, so
+their last bits may differ from XLA's.
 """
 from __future__ import annotations
 
+import copy
 import math
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
+
+from ..kernels import threefry as tf
 
 # Stable purpose tags, the same numbers as the reference's.
 PIXEL_JITTER_U = 0
@@ -36,107 +60,175 @@ EDGE_PICK = 201
 EDGE_S = 202
 EDGE_PICK_SH = 203
 EDGE_S_SH = 204
-_FOLD = 1 << 32      # Sampler.fold_in's purpose, apart from every tag above
 
-_MASK64 = (1 << 64) - 1
-
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+_M32 = 0xFFFFFFFF
 
 
-def _full_shape(shape, span):
-    """The shape of the whole batch a span-sliced draw takes rows of."""
-    shape = tuple(shape)
-    return shape if span is None else (int(span[1]),) + shape[1:]
+@dataclass(frozen=True)
+class Key:
+    """A threefry key. With `it` None it is `words`; with `it` a 0-d int32
+    tensor it is fold_in(words, it) followed by fold_in of each value of
+    `path`, derived on the tensor's device by each draw from it."""
+    words: tuple
+    it: Optional[torch.Tensor] = None
+    path: tuple = ()
+
+    def fold_in(self, data) -> "Key":
+        """jax.random.fold_in(key, data): data a host int (taken mod
+        2**32) or, once, a 0-d int32 tensor."""
+        if isinstance(data, torch.Tensor):
+            if self.it is not None:
+                raise ValueError("a key takes one fold by a device value")
+            if data.dim() != 0:
+                raise ValueError(f"a device fold takes a 0-d tensor, got "
+                                 f"shape {tuple(data.shape)}")
+            return Key(self.words, data)
+        if self.it is None:
+            return Key(tf.fold(self.words, int(data) & _M32))
+        return Key(self.words, self.it, self.path + (int(data) & _M32,))
+
+    def split(self, n: int) -> list:
+        """jax.random.split(key, n): key i is fold_in(key, i)."""
+        return [self.fold_in(i) for i in range(n)]
 
 
-def _rows(full: torch.Tensor, shape, span, axis: int = 0) -> torch.Tensor:
-    """This worker's rows of a full-batch draw along `axis`."""
+def _draw_geometry(shape, span):
+    """(elements, counter offset) of a draw of `shape`, or of its rows
+    offset:offset+n of a (total,) + shape[1:] draw."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
     if span is None:
-        return full
-    return full.narrow(axis, int(span[0]), int(tuple(shape)[0]))
-
-
-def stream_seed(seed: int, purpose: int, iteration: int) -> int:
-    """63-bit generator seed for one (seed, purpose, iteration) stream."""
-    h = _splitmix64(seed & _MASK64)
-    h = _splitmix64(h ^ (purpose & _MASK64))
-    h = _splitmix64(h ^ (iteration & _MASK64))
-    return h >> 1
+        return n, 0
+    off, total = int(span[0]), int(span[1])
+    if not shape or off < 0 or off + shape[0] > total:
+        raise ValueError(f"span {tuple(span)} does not hold {shape[:1]} "
+                         f"rows")
+    return n, off * math.prod(shape[1:])
 
 
 class Sampler:
-    """Random draws for one render: `uniform` / `unit_sphere` / `in_ball` /
-    `in_disk` return float32 tensors on `device`, `randint` int64 ones,
-    each from the stream of (purpose, iteration); each takes
-    span=(offset, total) for a slice of a larger batch's draw."""
+    """Random draws for one render, jax.random's bit for bit (see the
+    module docstring): `uniform` / `unit_sphere` / `in_ball` / `in_disk`
+    return float32 tensors on `device`, `randint` int64 ones, each from the
+    stream of (purpose, iteration); each takes span=(offset, total) for a
+    slice of a larger batch's draw."""
 
     def __init__(self, seed: int, device):
-        self.seed = int(seed)
         self.device = torch.device(device)
+        # jax.random.PRNGKey(seed): the high word 0, the low word the seed
+        # mod 2**32
+        self.key = Key((0, int(seed) & _M32))
 
-    def fold_in(self, index: int) -> "Sampler":
-        """An independent Sampler for sub-render `index` (one sample of the
-        batch integrator, one chunk of its samples): the counterpart of
-        jax.random.fold_in on the reference's key."""
-        return Sampler(stream_seed(self.seed, _FOLD, index), self.device)
+    def _with_key(self, key: Key) -> "Sampler":
+        out = copy.copy(self)
+        out.key = key
+        return out
 
-    def generator(self, purpose: int, iteration: int) -> torch.Generator:
-        g = torch.Generator(device=self.device)
-        g.manual_seed(stream_seed(self.seed, purpose, int(iteration)))
-        return g
+    # ---------------------------------------------------------------- keys
 
-    def _rand(self, purpose: int, iteration: int, shape) -> torch.Tensor:
-        return torch.rand(tuple(shape), generator=self.generator(
-            purpose, iteration), dtype=torch.float32, device=self.device)
+    def fold_in(self, index) -> "Sampler":
+        """The Sampler of jax.random.fold_in(key, index): one sample of the
+        batch integrator, one chunk of its samples, one worker."""
+        return self._with_key(self.key.fold_in(index))
 
-    def uniform(self, purpose: int, iteration: int, shape,
+    def split(self, n: int) -> list:
+        """The Samplers of jax.random.split(key, n)."""
+        return [self._with_key(k) for k in self.key.split(n)]
+
+    def stream(self, purpose: int, iteration) -> "Sampler":
+        """The Sampler of rng.stream(key, purpose, iteration)."""
+        return self._with_key(self.key.fold_in(purpose).fold_in(iteration))
+
+    # --------------------------------------------------------- key draws
+
+    def _draw(self, key: Key, shape, span, floats: bool) -> torch.Tensor:
+        """One threefry draw of `shape` (float32 uniforms, or int64 bits)."""
+        n, offset = _draw_geometry(shape, span)
+        out = tf.threefry_draw(key.words, key.it, key.path, n, offset,
+                               floats, self.device)
+        return out.reshape(tuple(shape))
+
+    def _uniform(self, key: Key, shape, span=None) -> torch.Tensor:
+        return self._draw(key, shape, span, True)
+
+    def _unit_sphere(self, key: Key, shape, span=None) -> torch.Tensor:
+        k1, k2 = key.split(2)
+        return _on_sphere(self._uniform(k1, shape, span),
+                          self._uniform(k2, shape, span))
+
+    def _in_ball(self, key: Key, shape, span=None) -> torch.Tensor:
+        k1, k2 = key.split(2)
+        d = self._unit_sphere(k1, shape, span)
+        u = self._uniform(k2, shape, span)
+        return d * torch.pow(u, 1.0 / 3.0)[..., None]
+
+    def _in_disk(self, key: Key, shape, span=None) -> torch.Tensor:
+        k1, k2 = key.split(2)
+        r = torch.sqrt(self._uniform(k1, shape, span))
+        phi = self._uniform(k2, shape, span) * (2.0 * math.pi)
+        return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+    def _randint(self, key: Key, shape, high: int, span=None) -> torch.Tensor:
+        """jax.random.randint(key, shape, 0, high) for int32: two draws of
+        bits (split(key) halves), combined in uint32 arithmetic."""
+        high = int(high)
+        if high >= 2 ** 31:
+            raise ValueError(f"randint high {high} exceeds int32")
+        k1, k2 = key.split(2)
+        hi = self._draw(k1, shape, span, False)
+        lo = self._draw(k2, shape, span, False)
+        rng = max(high, 1)   # maxval <= minval draws minval
+        mult = (2 ** 16) % rng                   # every product wraps at 2**32
+        mult = ((mult * mult) & _M32) % rng
+        off = (((hi % rng) * mult) & _M32) + (lo % rng)
+        return (off & _M32) % rng
+
+    def key_uniform(self, shape, span=None) -> torch.Tensor:
+        """U[0, 1) float32 from the key itself (jax.random.uniform(key))."""
+        return self._uniform(self.key, shape, span)
+
+    def key_randint(self, shape, high: int, span=None) -> torch.Tensor:
+        """Integers uniform in [0, high) from the key itself
+        (jax.random.randint(key, shape, 0, high)), int64."""
+        return self._randint(self.key, shape, high, span)
+
+    # ------------------------------------------------------ stream draws
+
+    def _stream_key(self, purpose: int, iteration) -> Key:
+        return self.key.fold_in(purpose).fold_in(iteration)
+
+    def uniform(self, purpose: int, iteration, shape,
                 span=None) -> torch.Tensor:
         """U[0, 1) float32 (glm::linearRand(0, 1))."""
-        return _rows(self._rand(purpose, iteration, _full_shape(shape, span)),
-                     shape, span)
+        return self._uniform(self._stream_key(purpose, iteration), shape,
+                             span)
 
-    def randint(self, purpose: int, iteration: int, shape, high: int,
+    def randint(self, purpose: int, iteration, shape, high: int,
                 span=None) -> torch.Tensor:
         """Integers uniform in [0, high), int64 (jax.random.randint)."""
-        full = torch.randint(0, int(high), _full_shape(shape, span),
-                             generator=self.generator(purpose, iteration),
-                             dtype=torch.int64, device=self.device)
-        return _rows(full, shape, span)
+        return self._randint(self._stream_key(purpose, iteration), shape,
+                             high, span)
 
-    def unit_sphere(self, purpose: int, iteration: int, shape,
+    def unit_sphere(self, purpose: int, iteration, shape,
                     span=None) -> torch.Tensor:
         """Uniform on the unit sphere (glm::sphericalRand(1)): shape + (3,),
-        from z = 2*U1 - 1 and phi = 2*pi*U2 as in the reference. The two
-        uniforms are one (2,) + shape draw, so a span slices its axis 1."""
-        u = self._rand(purpose, iteration, (2,) + _full_shape(shape, span))
-        return _on_sphere(*_rows(u, shape, span, axis=1))
+        from z = 2*U1 - 1 and phi = 2*pi*U2 as in the reference."""
+        return self._unit_sphere(self._stream_key(purpose, iteration), shape,
+                                 span)
 
-    def in_ball(self, purpose: int, iteration: int, shape,
+    def in_ball(self, purpose: int, iteration, shape,
                 span=None) -> torch.Tensor:
         """Uniform inside the unit ball (glm::ballRand(1)): shape + (3,), a
-        unit-sphere direction times cbrt(U3), as in the reference (one
-        (3,) + shape draw; a span slices its axis 1)."""
-        u = _rows(self._rand(purpose, iteration,
-                             (3,) + _full_shape(shape, span)),
-                  shape, span, axis=1)
-        return _on_sphere(u[0], u[1]) * torch.pow(u[2], 1.0 / 3.0)[..., None]
+        unit-sphere direction times cbrt(U3), as in the reference."""
+        return self._in_ball(self._stream_key(purpose, iteration), shape,
+                             span)
 
-    def in_disk(self, purpose: int, iteration: int, shape,
+    def in_disk(self, purpose: int, iteration, shape,
                 span=None) -> torch.Tensor:
         """Uniform inside the unit disk (the thin lens): shape + (2,),
-        r = sqrt(U1) and phi = 2*pi*U2 as in the reference (one (2,) +
-        shape draw; a span slices its axis 1)."""
-        u = _rows(self._rand(purpose, iteration,
-                             (2,) + _full_shape(shape, span)),
-                  shape, span, axis=1)
-        r = torch.sqrt(u[0])
-        phi = u[1] * (2.0 * math.pi)
-        return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+        r = sqrt(U1) and phi = 2*pi*U2 as in the reference."""
+        return self._in_disk(self._stream_key(purpose, iteration), shape,
+                             span)
 
 
 def _on_sphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

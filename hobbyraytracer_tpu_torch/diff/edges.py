@@ -171,8 +171,9 @@ def boundary_grad(verts: torch.Tensor, edges, efaces, indices, cam: Camera,
     image convention is integrator/path.py's: pixel (row r, col c) samples
     s = (c + U) / (W - 1), t = (H - r + U) / (H - 1)."""
     n_edges = edges.shape[0]
-    e_sel = sampler.randint(rng_mod.EDGE_PICK, 0, (n_samples,), n_edges)
-    s_par = sampler.uniform(rng_mod.EDGE_S, 0, (n_samples,))
+    e_sel = sampler.fold_in(rng_mod.EDGE_PICK).key_randint((n_samples,),
+                                                           n_edges)
+    s_par = sampler.fold_in(rng_mod.EDGE_S).key_uniform((n_samples,))
     with torch.no_grad():
         sil = silhouette_mask(verts, indices, edges, efaces,
                               cam.origin)[e_sel]
@@ -209,8 +210,9 @@ def shadow_boundary_grad(verts: torch.Tensor, edges, efaces, indices,
     the projected shadow edge supplies f_in - f_out."""
     light = light_pos.to(torch.float32)
     n_edges = edges.shape[0]
-    e_sel = sampler.randint(rng_mod.EDGE_PICK_SH, 0, (n_samples,), n_edges)
-    s_par = sampler.uniform(rng_mod.EDGE_S_SH, 0, (n_samples,))
+    e_sel = sampler.fold_in(rng_mod.EDGE_PICK_SH).key_randint((n_samples,),
+                                                              n_edges)
+    s_par = sampler.fold_in(rng_mod.EDGE_S_SH).key_uniform((n_samples,))
     va_idx = edges[e_sel, 0].long()
     vb_idx = edges[e_sel, 1].long()
 

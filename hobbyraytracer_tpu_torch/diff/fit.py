@@ -29,7 +29,6 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core import rng as rng_mod
 from ..core.rng import Sampler
 from ..integrator import path as path_mod
 from ..ops import film
@@ -115,12 +114,12 @@ def render_linear_slice(scene: scene_ir.SceneIR, camera, width: int,
     span = None if n_pix == wh else (pix0, wh)
 
     def one_sample(s):
-        sub = sampler.fold_in(s)
-        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape, span)
-        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape, span)
+        ku, kv, kt = sampler.fold_in(s).split(3)
+        ju = ku.key_uniform(x.shape, span)
+        jv = kv.key_uniform(y.shape, span)
         rays = get_rays(camera, (x + ju) / (width - 1),
-                        (y + jv) / (height - 1), sub, 0, span)
-        return path_mod.trace_diff(scene, rays, sub, max_depth,
+                        (y + jv) / (height - 1), kt, 0, span)
+        return path_mod.trace_diff(scene, rays, kt, max_depth,
                                    mesh_backend=mesh_backend, rng_span=span)
 
     acc = torch.zeros((n_pix, 3), dtype=torch.float32,

@@ -29,7 +29,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import mathx
-from ..core import rng as rng_mod
 from ..core.types import Rays
 from ..ops import film as film_ops
 from ..ops import shade as shade_ops
@@ -156,21 +155,23 @@ def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
     """Sum of radiance (n_pix, 3) over n_samples jittered samples a pixel
     for the pixels pix0 .. pix0 + n_pix - 1 (default the whole W*H image):
     u = (x + U) / (W - 1), v = (y + U) / (H - 1) (main.cpp:120-121).
-    Sample s draws from sampler.fold_in(s), every draw the image's draw
-    sliced to these pixels, so a slice equals the same rows of the whole
-    image bit for bit (the batch render of parallel/shard.py)."""
+    Sample s splits sampler.fold_in(s) into three keys, as the reference:
+    the two jitters draw from the first two, the lens and the bounces
+    stream the third. Every draw is the image's draw sliced to these
+    pixels, so a slice equals the same rows of the whole image bit for bit
+    (the batch render of parallel/shard.py)."""
     wh = width * height
     x, y = pixel_grid(width, height, sampler.device, pix0, n_pix)
     span = None if x.shape[0] == wh else (pix0, wh)
     acc = torch.zeros((x.shape[0], 3), dtype=torch.float32,
                       device=sampler.device)
     for s in range(n_samples):
-        sub = sampler.fold_in(s)
-        ju = sub.uniform(rng_mod.PIXEL_JITTER_U, 0, x.shape, span)
-        jv = sub.uniform(rng_mod.PIXEL_JITTER_V, 0, y.shape, span)
+        ku, kv, kt = sampler.fold_in(s).split(3)
+        ju = ku.key_uniform(x.shape, span)
+        jv = kv.key_uniform(y.shape, span)
         rays = get_rays(camera, (x + ju) / (width - 1),
-                        (y + jv) / (height - 1), sub, 0, span)
-        acc = acc + trace(scene, rays, sub, max_depth,
+                        (y + jv) / (height - 1), kt, 0, span)
+        acc = acc + trace(scene, rays, kt, max_depth,
                           mesh_backend=mesh_backend, rng_span=span)
     return acc
 

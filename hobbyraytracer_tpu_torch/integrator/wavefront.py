@@ -17,10 +17,22 @@ roulette from depth RR_START.
 
 Differences from the JAX version: `_regenerate` and `_segment` update the
 pool state in place (and return it) where the reference rebuilt it; the
-render loop is a Python loop that checks completion on the host every
-`steps_per_call` iterations. Iterations after completion are no-ops (no
-lane active, nothing issued); `render_state` returns with `it` set to the
-iteration at which the pool ran dry, where the reference's loop stops.
+render loop checks completion on the host every `steps_per_call`
+iterations (the reference's while_loop stops on the device). Iterations
+after completion are no-ops (no lane active, nothing issued);
+`render_state` returns with `it` set to the iteration at which the pool ran
+dry, where the reference's loop stops.
+
+The block as a CUDA graph (`_pool_run`, the counterpart of the reference's
+_pool_run: one device program a block). On a CUDA device the first block
+of a render runs eagerly (the warm-up: kernels built and loaded, the
+allocator and the sorts' scratch settled); the next is captured into a
+torch.cuda.CUDAGraph and replayed for every later block. The state's
+tensors are the graph's static buffers and `it` a 0-d int32 device tensor
+that the captured draws read (core/rng.py), so each replay draws new
+numbers. A configuration whose segment reads the host runs every block
+eagerly, by rule (`graph_route`): the CPU, plain=True, a pool sort, and a
+scene whose finds read the host. A failed capture or replay raises.
 
 Pool sort (pool_sort=N, default POOL_SORT from HRT_POOL_SORT, 0 = off):
 every N segments the whole pool is permuted by
@@ -41,6 +53,7 @@ otherwise adds in the order its atomics land). A multi-worker render
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -49,6 +62,7 @@ import torch
 
 from ..core import rng as rng_mod
 from ..core.types import Rays
+from ..kernels import build as kbuild
 from ..ops import film as film_ops
 from ..ops import shade as shade_ops
 from ..ops.camera import Camera, get_rays
@@ -87,7 +101,8 @@ class PoolState:
     int32 samples of the chunk complete; defer (P,) bool chunk finished
     but retirement deferred by the cap; counter () int32 next unissued
     item; retired () int32 completed samples; it: host int, the iteration
-    index (the sampler's stream index)."""
+    index (the sampler's stream index; inside a block captured into a CUDA
+    graph, a 0-d int32 tensor on the device, advanced in place)."""
     fb: torch.Tensor
     o: torch.Tensor
     d: torch.Tensor
@@ -161,8 +176,10 @@ def _regenerate(state: PoolState, camera: Camera, width: int, height: int,
     y = (height - _floordiv(pix, width)).to(torch.float32)  # y-flip
     ju = sampler.uniform(rng_mod.PIXEL_JITTER_U, state.it, (pool,))
     jv = sampler.uniform(rng_mod.PIXEL_JITTER_V, state.it, (pool,))
+    # the lens streams the (LENS, it) key again by LENS, as the reference's
+    # get_rays(key=stream(key, LENS, it)) does
     cam = get_rays(camera, (x + ju) / (width - 1), (y + jv) / (height - 1),
-                   sampler, state.it)
+                   sampler.stream(rng_mod.LENS, state.it))
 
     f3 = fresh[:, None]
     i3 = issue[:, None]
@@ -301,8 +318,9 @@ def _issue_block(state: PoolState, scene, camera, width: int, height: int,
                  max_depth: int, sample_chunk: int, rr: bool, plain: bool,
                  pool_sort: Optional[int]) -> list:
     """Advance one worker's pool by `steps` iterations over its work items
-    `items` (in place, no host read) -> each iteration's retired count, a
-    () tensor each (keeping them costs the device nothing)."""
+    `items` (in place; no host read on a configuration of `graph_route`)
+    -> each iteration's retired count, a () tensor each (keeping them
+    costs the device nothing)."""
     counts = []
     for _ in range(steps):
         _regenerate(state, camera, width, height, len(items), sampler,
@@ -325,6 +343,119 @@ def _close_block(state: PoolState, counts: list, need: int) -> int:
     return retired
 
 
+def graph_route(scene: scene_ir.SceneIR, device, plain: bool = False,
+                pool_sort: Optional[int] = None) -> bool:
+    """Does render_state replay its blocks from a CUDA graph? Yes on a
+    CUDA device, unless the configuration's segment reads the host:
+    plain=True (the kernels' plain versions read a count a visit round), a
+    pool sort (a period > 0, from pool_sort or POOL_SORT, on a scene with a
+    kernel mesh: _segment picks the permuting iterations by the host `it`)
+    or a scene whose finds read the host (scene/ir.py:finds_read_host).
+    Those run eagerly. The route follows from the configuration alone,
+    never from a failure."""
+    period = int(POOL_SORT if pool_sort is None else pool_sort)
+    return (torch.device(device).type == "cuda" and not plain
+            and not (period > 0 and scene_ir.has_wavefront_sort_key(scene))
+            and not scene_ir.finds_read_host(scene))
+
+
+def _static_block(state: PoolState, it: torch.Tensor,
+                  run: Callable[[PoolState], list]) -> list:
+    """One block on the state's tensors as static buffers: `run` advances a
+    copy of the state whose `it` is the 0-d device tensor `it` (in place),
+    then its results are copied into the state's own tensors (fb is summed
+    into in place) -> each iteration's retired count. What _BlockGraph
+    captures."""
+    work = dataclasses.replace(state, it=it)
+    counts = run(work)
+    for f in _LANE_FIELDS + ("counter", "retired"):
+        out, static = getattr(work, f), getattr(state, f)
+        if out is not static:
+            static.copy_(out)
+    return counts
+
+
+class _BlockGraph:
+    """One render's block as a CUDA graph: run eagerly the first time (the
+    warm-up), captured the second, replayed from then on.
+
+    The state's tensors are the static buffers (_static_block). `it` is
+    the 0-d int32 device tensor of the iteration, set from the state's
+    host int before each block and advanced by the block itself. The
+    warm-up runs the very function the capture records, so every kernel
+    is built and loaded and the allocator holds the block's sizes before
+    the capture starts. A kernel wrapper counts its launch when the capture
+    records it, where nothing runs: the capture's counts are taken back and
+    added again at every replay, so a render counts what the eager render
+    counts.
+
+    Every block runs with the state's device current, and the capture is
+    made on a stream of that device, whichever card is current when the
+    render starts. The capture is thread-local: another thread may use the
+    card meanwhile (the CLI's checkpoint writer fetching a snapshot)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.it = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.warm = False
+        self.graph = None
+        self.counts = []
+        self.launches = {}
+
+    def _capture(self, state: PoolState, block) -> None:
+        before = {lib: lib.launches for lib in kbuild.LIBRARIES}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            self.counts = _static_block(state, self.it, block)
+        for lib, n in before.items():
+            if lib.launches != n:
+                self.launches[lib] = lib.launches - n
+                lib.launches = n
+
+    def run(self, state: PoolState, block) -> list:
+        """Advance the state by one block -> each iteration's retired count
+        (after a replay, the graph's own tensors, valid until the next)."""
+        if state.fb.device != self.device:
+            raise ValueError(f"the block graph of {self.device} was given a "
+                             f"state on {state.fb.device}")
+        with torch.cuda.device(self.device):
+            if self.warm and self.graph is None:
+                self._capture(state, block)
+            self.it.fill_(state.it)
+            if self.graph is None:
+                counts = _static_block(state, self.it, block)
+                self.warm = True
+            else:
+                self.graph.replay()
+                for lib, n in self.launches.items():
+                    lib.launches += n
+                counts = self.counts
+        state.it += len(counts)
+        return counts
+
+
+def _pool_run(state: PoolState, scene, camera, width: int, height: int,
+              samples: int, sampler, steps: int, max_depth: int,
+              sample_chunk: int, rr: bool, plain: bool,
+              pool_sort: Optional[int],
+              graph: Optional[_BlockGraph]) -> list:
+    """Advance the pool by one block of `steps` iterations (in place) ->
+    each iteration's retired count, a () tensor each. graph: None runs the
+    block eagerly (the eager route); else the render's _BlockGraph runs
+    it."""
+    _, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
+
+    def block(st: PoolState) -> list:
+        return _issue_block(st, scene, camera, width, height, samples,
+                            sampler, range(width * height * n_chunks),
+                            steps, max_depth, sample_chunk, rr, plain,
+                            pool_sort)
+
+    return block(state) if graph is None else graph.run(state, block)
+
+
 def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
@@ -334,9 +465,18 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  checkpoint_cb: Optional[Callable[[PoolState], None]] = None,
                  sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
                  plain: bool = False,
-                 pool_sort: Optional[int] = None) -> PoolState:
+                 pool_sort: Optional[int] = None,
+                 eager: bool = False) -> PoolState:
     """Run the pool to completion on `sampler.device` (scene and camera
     must already be there); fb holds the radiance SUM over `samples`.
+
+    Each block of `steps_per_call` iterations goes through _pool_run: on
+    the graph route (graph_route: a CUDA device and a segment that reads
+    no host value) the first block runs eagerly and every later one is
+    replayed from a CUDA graph captured for this call; otherwise, or with
+    eager=True (a comparison switch), every block runs eagerly. Both
+    routes give the same state bit for bit where the device's sums are
+    deterministic.
 
     Completion (retired == W*H*samples) is read on the host after every
     block of `steps_per_call` iterations, where progress_cb(retired, total)
@@ -365,11 +505,13 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
         raise ValueError(
             f"checkpoint holds {state.retired.shape[0]} stacked worker "
             "states; resume it on a mesh of that size, not single-device")
+    graph = (_BlockGraph(state.fb.device) if not eager and graph_route(
+        scene, state.fb.device, plain, pool_sort) else None)
     retired = int(state.retired)
     while retired < total_samples:
-        counts = _issue_block(state, scene, camera, width, height, samples,
-                              sampler, range(total_items), steps_per_call,
-                              max_depth, sample_chunk, rr, plain, pool_sort)
+        counts = _pool_run(state, scene, camera, width, height, samples,
+                           sampler, steps_per_call, max_depth, sample_chunk,
+                           rr, plain, pool_sort, graph)
         retired = _close_block(state, counts, total_samples)
         if progress_cb is not None:
             progress_cb(retired, total_samples)
@@ -384,16 +526,17 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  progress_cb=None, state: Optional[PoolState] = None,
                  checkpoint_cb=None, sample_chunk: int = SAMPLE_CHUNK,
                  rr: bool = True, plain: bool = False,
-                 pool_sort: Optional[int] = None) -> torch.Tensor:
+                 pool_sort: Optional[int] = None,
+                 eager: bool = False) -> torch.Tensor:
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
-    -> ACES -> gamma, as the reference); state / checkpoint_cb as in
-    render_state."""
+    -> ACES -> gamma, as the reference); state / checkpoint_cb / eager as
+    in render_state."""
     state = render_state(scene, camera, width, height, samples, sampler,
                          max_depth=max_depth, pool=pool,
                          progress_cb=progress_cb, state=state,
                          checkpoint_cb=checkpoint_cb,
                          sample_chunk=sample_chunk, rr=rr, plain=plain,
-                         pool_sort=pool_sort)
+                         pool_sort=pool_sort, eager=eager)
     return film_image(state.fb, width, height, samples)
 
 

@@ -18,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -30,6 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-fmad=false",
               # registers, spills and shared memory of each kernel
               "-Xptxas", "-v"]
+
+# every KernelLibrary alive, so that a replayed CUDA graph can add the
+# launches it captured to each (integrator/wavefront.py:_BlockGraph)
+LIBRARIES = weakref.WeakSet()
 
 
 def find_nvcc() -> str:
@@ -59,6 +64,7 @@ class KernelLibrary:
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+        LIBRARIES.add(self)
 
     @property
     def csrc(self) -> str:

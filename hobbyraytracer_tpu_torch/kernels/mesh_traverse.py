@@ -329,10 +329,11 @@ def _traverse_cuda(rays8, bounds8, tri_soa, tri_id, t_max, need_uv):
     out_id = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         ids = (tri_id.data_ptr(),) if resident else ()
-        err = fn(rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
-                 tri_soa.data_ptr(), *ids, leaf, float(t_max),
-                 int(bool(need_uv)), out.data_ptr(), out_id.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):   # the launch goes to its card
+            err = fn(rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
+                     tri_soa.data_ptr(), *ids, leaf, float(t_max),
+                     int(bool(need_uv)), out.data_ptr(), out_id.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{library.name} kernel launch failed: CUDA "
                                f"error {err}")
@@ -395,10 +396,11 @@ def _keys_cuda(rays8, bounds8, t_max):
     e_min = torch.empty((n,), dtype=torch.float32, device=dev)
     first = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        err = fn(
-            rays.data_ptr(), n, bounds8.data_ptr(), k_clusters, float(t_max),
-            e_min.data_ptr(), first.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):   # the launch goes to its card
+            err = fn(
+                rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
+                float(t_max), e_min.data_ptr(), first.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"coherence_keys kernel launch failed: CUDA "
                                f"error {err}")

@@ -139,10 +139,11 @@ def _spheres_cuda(rays8, bounds8, table, ids, t_min, t_max):
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_id = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        err = fn(rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
-                 table.data_ptr(), ids.data_ptr(), leaf, float(t_min),
-                 float(t_max), out_t.data_ptr(), out_id.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):   # the launch goes to its card
+            err = fn(rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
+                     table.data_ptr(), ids.data_ptr(), leaf, float(t_min),
+                     float(t_max), out_t.data_ptr(), out_id.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"sphere_traverse kernel launch failed: CUDA "
                                f"error {err}")

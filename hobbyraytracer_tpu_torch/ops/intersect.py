@@ -261,8 +261,11 @@ def intersect_rects(rays: Rays, axis, a0, a1, b0, b1, k, mat_id,
     safe = torch.clamp(i_best, 0, n - 1)
     ax = axis[safe].long()
     p = ray_at(rays.o, rays.d, torch.where(hit, t_best, 1.0))
-    ia = torch.tensor(_AXIS_A, device=dev)[ax]
-    ib = torch.tensor(_AXIS_B, device=dev)[ax]
+    # the in-plane axes _AXIS_A / _AXIS_B of each rect's normal axis, by
+    # arithmetic on the device (a table copied from the host could not be
+    # captured into a CUDA graph)
+    ia = torch.where(ax == 0, 1, 0)
+    ib = torch.where(ax == 2, 1, 2)
     pa = p.gather(1, ia[:, None])[:, 0]
     pb = p.gather(1, ib[:, None])[:, 0]
     u = (pa - a0[safe]) / (a1[safe] - a0[safe])

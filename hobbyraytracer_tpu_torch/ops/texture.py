@@ -129,7 +129,10 @@ def colour_value(tab: TextureTable, tex_id: torch.Tensor, u: torch.Tensor,
                 + (1 - fx) * fy * fetch(i0, j0 + 1)
                 + fx * fy * fetch(i0 + 1, j0 + 1))
 
-    cyan = torch.tensor(DEBUG_CYAN, dtype=torch.float32, device=u.device)
+    # made on the device by fills (a copy from the host could not be
+    # captured into a CUDA graph)
+    cyan = torch.stack([torch.full((), c, dtype=torch.float32,
+                                   device=u.device) for c in DEBUG_CYAN])
     has_data = (w > 0)[..., None]
 
     if TEX_IMAGE in types:

@@ -322,6 +322,17 @@ def has_wavefront_sort_key(scene: SceneIR) -> bool:
     return bool(_kernel_meshes(scene))
 
 
+def finds_read_host(scene: SceneIR) -> bool:
+    """Does intersect_scene read a value on the host on the default route?
+    True when a medium is bounded by a clustered mesh: its span comes from
+    the lockstep find (ops/intersect.py:intersect_mesh_clustered), which
+    reads a count a visit round. No other find reads one (a kernel find is
+    one launch), so such a scene's wavefront segment can be captured into a
+    CUDA graph (integrator/wavefront.py:graph_route)."""
+    return any(med.btype == "mesh" and med.mesh.use_bvh
+               for med in scene.media)
+
+
 def wavefront_sort_key(scene: SceneIR, rays: Rays, ray_valid=None):
     """Coherence sort key (N,) int32 for a whole wavefront, or None for a
     scene without a kernel mesh: cheap_key_from_box against the world-space
@@ -480,7 +491,9 @@ def _intersect_medium(med: Medium, rays: Rays, sampler, bounce,
     return Hits(
         hit=valid, t=torch.where(valid, t, BIG),
         p=ray_at(rays.o, rays.d, torch.where(valid, t, 1.0)),
-        normal=torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3),
+        normal=torch.nn.functional.one_hot(
+            torch.zeros((n,), dtype=torch.int64, device=dev), 3).to(
+                torch.float32),
         uv=torch.zeros((n, 2), dtype=torch.float32, device=dev),
         front_face=torch.ones((n,), dtype=torch.bool, device=dev),
         mat_id=torch.where(valid, med.mat_id, -1).to(torch.int32))

@@ -191,40 +191,72 @@ def _full(shape, span):
 
 
 class NoiseSampler(Sampler):
-    """The port's Sampler drawing from a `Noise` instead of generators; a
-    span draws the full batch's noise and takes its rows."""
+    """The port's Sampler drawing from a `Noise` instead of threefry; a
+    span draws the full batch's noise and takes its rows.
 
-    def __init__(self, noise: Noise, device="cpu"):
+    The key operations keep the noise's (purpose, iteration) streams where
+    the port draws from a folded, split or streamed key: fold_in(tag)'s
+    own draws (key_uniform, key_randint) are the parent's (tag, 0) stream;
+    split(n)'s keys i < n - 1 draw the (i, 0) stream from their own key
+    (the batch integrator's jitter keys: PIXEL_JITTER_U is 0 and
+    PIXEL_JITTER_V 1) and key n - 1 is the sampler itself; stream(purpose,
+    it)'s draws at iteration 0 read iteration `it` (the wavefront lens
+    streams (LENS, it) and draws (LENS, 0) from it)."""
+
+    def __init__(self, noise: Noise, device="cpu", tag=None, iteration=0):
         super().__init__(0, device)
         self.noise = noise
+        self.tag = tag                  # (noise, purpose) of the own draws
+        self.iteration = iteration      # read where a draw asks for 0
+
+    def _it(self, iteration):
+        return self.iteration if int(iteration) == 0 else iteration
+
+    def split(self, n):
+        return [NoiseSampler(self.noise, self.device, (self.noise, i))
+                for i in range(n - 1)] + [self]
+
+    def stream(self, purpose, iteration):
+        return NoiseSampler(self.noise, self.device, iteration=iteration)
+
+    def key_uniform(self, shape, span=None):
+        noise, tag = self.tag
+        return self._out(noise.uniform(tag, 0, _full(shape, span)), shape,
+                         span)
+
+    def key_randint(self, shape, high, span=None):
+        noise, tag = self.tag
+        return self._out(noise.randint(tag, 0, _full(shape, span), high),
+                         shape, span)
 
     def _out(self, full, shape, span):
         return torch.from_numpy(np.ascontiguousarray(
             _span_rows(full, shape, span))).to(self.device)
 
     def uniform(self, purpose, iteration, shape, span=None):
-        return self._out(self.noise.uniform(purpose, iteration,
+        return self._out(self.noise.uniform(purpose, self._it(iteration),
                                             _full(shape, span)), shape, span)
 
     def fold_in(self, index):
-        return NoiseSampler(self.noise.fold_in(index), self.device)
+        return NoiseSampler(self.noise.fold_in(index), self.device,
+                            (self.noise, index))
 
     def randint(self, purpose, iteration, shape, high, span=None):
-        return self._out(self.noise.randint(purpose, iteration,
+        return self._out(self.noise.randint(purpose, self._it(iteration),
                                             _full(shape, span), high),
                          shape, span)
 
     def unit_sphere(self, purpose, iteration, shape, span=None):
-        return self._out(self.noise.unit_sphere(purpose, iteration,
+        return self._out(self.noise.unit_sphere(purpose, self._it(iteration),
                                                 _full(shape, span)),
                          shape, span)
 
     def in_ball(self, purpose, iteration, shape, span=None):
-        return self._out(self.noise.in_ball(purpose, iteration,
+        return self._out(self.noise.in_ball(purpose, self._it(iteration),
                                             _full(shape, span)), shape, span)
 
     def in_disk(self, purpose, iteration, shape, span=None):
-        return self._out(self.noise.in_disk(purpose, iteration,
+        return self._out(self.noise.in_disk(purpose, self._it(iteration),
                                             _full(shape, span)), shape, span)
 
 

@@ -1,6 +1,8 @@
 """The CUDA kernels of the port on the card: K1 (resident table), K2
-(streaming table), K3 (coherence keys) and K4 (clustered sphere find), each
-against its plain PyTorch version, and K2 against K1. All are built with -fmad=false and round op
+(streaming table), K3 (coherence keys), K4 (clustered sphere find) and
+threefry (the draws), each against its plain PyTorch version, and K2
+against K1; and the wavefront render replayed from a CUDA graph against
+the eager render. All are built with -fmad=false and round op
 for op as PyTorch does, so kernel and plain version are equal (tolerance
 0), not only within the parity tolerances. Every test here needs a CUDA
 card and skips without one; the file imports neither JAX nor the JAX
@@ -41,6 +43,22 @@ WINDOW = 4
 SPHERE_SMEM_BYTES = 48 * 1024
 
 pytestmark = pytest.mark.cuda
+
+
+def _count_iterations(monkeypatch):
+    """Count the iterations (segments) that render_state issues, the ones
+    replayed from its CUDA graph included: _pool_run returns one retired
+    count an iteration."""
+    n = [0]
+    pool_run = wavefront._pool_run
+
+    def counted(*args, **kwargs):
+        counts = pool_run(*args, **kwargs)
+        n[0] += len(counts)
+        return counts
+
+    monkeypatch.setattr(wavefront, "_pool_run", counted)
+    return n
 
 
 @pytest.fixture
@@ -583,20 +601,14 @@ def test_smoke_segment_on_card_matches_cpu(dev):
 def test_two_teapots_render_launches_k1_twice_a_segment(dev, monkeypatch):
     """A small two_teapots render by the default route and with the pool
     sorted every second segment: K1 launches twice a segment in both (the
-    segments counted as they run: render_state's `it` stops where the pool
-    ran dry, before the no-op segments of its last block), every sample
-    retires, and the two images agree statistically (a permuted lane draws
-    other numbers from the same streams): means within 10%."""
+    segments counted as they are issued, eager or replayed from the graph:
+    render_state's `it` stops where the pool ran dry, before the no-op
+    segments of its last block), every sample retires, and the two images
+    agree statistically (a permuted lane draws other numbers from the same
+    streams): means within 10%."""
     job = build_scene(load_scene_desc(TWO_TEAPOTS))
     scene, camera = job.scene.to(dev), job.camera.to(dev)
-    segments = [0]
-    segment = wavefront._segment
-
-    def counted(*args, **kwargs):
-        segments[0] += 1
-        return segment(*args, **kwargs)
-
-    monkeypatch.setattr(wavefront, "_segment", counted)
+    segments = _count_iterations(monkeypatch)
     imgs = []
     for pool_sort in (0, 2):
         pk.KERNEL.launches = segments[0] = 0
@@ -777,14 +789,7 @@ def test_long_tail_render_on_card(dev, monkeypatch, tmp_path):
                                 v.to(dev), p.to(dev)).cpu()
     assert torch.equal(on_card, host)
     assert not (on_card == torch.tensor(ptex.DEBUG_CYAN)).all(dim=1).any()
-    segments = [0]
-    segment = wavefront._segment
-
-    def counted(*args, **kwargs):
-        segments[0] += 1
-        return segment(*args, **kwargs)
-
-    monkeypatch.setattr(wavefront, "_segment", counted)
+    segments = _count_iterations(monkeypatch)
     imgs = []
     for lens in (True, False):
         camera.use_lens = lens
@@ -806,3 +811,209 @@ def test_long_tail_render_on_card(dev, monkeypatch, tmp_path):
         out = str(tmp_path / f"long_tail.{ext}")
         assert film.output_film(u8, out)
         assert np.array_equal(images.read_image(out), u8)
+
+
+# --- threefry and the graph route -------------------------------------------
+
+@pytest.mark.parametrize("floats", [True, False], ids=["uniform", "bits"])
+@pytest.mark.parametrize("it", [None, 0, 9, -7])
+@pytest.mark.parametrize("path", [(), (6, 0, 1), (1, 2, 3, 4)])
+def test_threefry_kernel_matches_plain(dev, floats, it, path):
+    """threefry.cu against its plain version on the card, bit for bit, at
+    1, 33 and 196,608 elements and a counter offset past 2**32 / 3, with
+    and without a device iteration and 0, 3 or 4 folds after it; one
+    launch a draw."""
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    it_t = None if it is None else torch.tensor(it, dtype=torch.int32,
+                                                device=dev)
+    for n, offset in ((1, 0), (33, 5), (196_608, 0), (4097, 1_500_000_000)):
+        before = tf.THREEFRY.launches
+        k = tf.threefry_draw((123, 456), it_t, path, n, offset, floats, dev)
+        assert tf.THREEFRY.launches == before + 1
+        p = tf.threefry_plain((123, 456), it_t, path, n, offset, floats, dev)
+        torch.cuda.synchronize()
+        assert k.dtype == p.dtype and torch.equal(k, p)
+        assert torch.equal(p.cpu(), tf.threefry_plain(
+            (123, 456), None if it_t is None else it_t.cpu(), path, n,
+            offset, floats, "cpu"))
+
+
+def test_sampler_draws_on_card_equal_cpu(dev):
+    """Every draw of the Sampler on the card against the CPU's, with the
+    iteration a host int and a 0-d tensor on the card: uniforms and
+    randint bit for bit, the maps within 1e-6 (the card's cos, sin, sqrt
+    and pow round otherwise)."""
+    for it in (3, torch.tensor(3, dtype=torch.int32, device=dev)):
+        it_cpu = it if isinstance(it, int) else it.cpu()
+        gpu, cpu = Sampler(5, dev), Sampler(5, "cpu")
+        for kind in ("uniform", "unit_sphere", "in_ball", "in_disk"):
+            a = getattr(gpu, kind)(2, it, (5000,), span=(100, 9000)).cpu()
+            b = getattr(cpu, kind)(2, it_cpu, (5000,), span=(100, 9000))
+            if kind == "uniform":
+                assert torch.equal(a, b)
+            else:
+                assert (a - b).abs().max() <= 1e-6, kind
+        assert torch.equal(gpu.randint(201, it, (999,), 777).cpu(),
+                           cpu.randint(201, it_cpu, (999,), 777))
+
+
+@pytest.mark.parametrize("scene_path,sphere_kernel,key_mode", [
+    (TEAPOT, False, "auto"), (TWO_TEAPOTS, False, "auto"),
+    (BALLS, True, "auto"), (HIRES, False, "auto"), (HIRES, False, "pallas")],
+    ids=["teapot", "two_teapots", "balls-k4", "hires", "hires-k3"])
+def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
+                                   sphere_kernel, key_mode):
+    """A 64x64 @ 4 spp render (pool 2048, 3 iterations a block, so that
+    blocks replay several times) through the CUDA graph against eager=True
+    under deterministic algorithms: framebuffer, `it` and retired equal,
+    every kernel's launches equal (the replays add the captured launches),
+    one graph captured. key_mode "pallas" takes the coherence keys from K3,
+    which then launches in both renders."""
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+    monkeypatch.setattr(isect, "SPHERE_KERNEL", sphere_kernel)
+    monkeypatch.setattr(isect, "KEY_MODE", key_mode)
+    job = build_scene(load_scene_desc(scene_path))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    assert wavefront.graph_route(scene, dev, pool_sort=0)
+    captured = []
+
+    class Counted(wavefront._BlockGraph):
+        def _capture(self, *args):
+            captured.append(1)
+            return super()._capture(*args)
+
+    monkeypatch.setattr(wavefront, "_BlockGraph", Counted)
+    libs = (pk.KERNEL, pk.KERNEL_STREAM, pk.KEY_KERNEL, sk.SPHERE_KERNEL,
+            tf.THREEFRY)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for eager in (True, False):
+            for lib in libs:
+                lib.launches = 0
+            captured.clear()
+            st = wavefront.render_state(scene, camera, 64, 64, 4,
+                                        Sampler(1, dev), pool=2048,
+                                        steps_per_call=3, pool_sort=0,
+                                        eager=eager)
+            out[eager] = (st, [lib.launches for lib in libs], len(captured))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, la, ca), (b, lb, cb) = out[True], out[False]
+    assert (ca, cb) == (0, 1)
+    assert torch.equal(a.fb, b.fb) and a.it == b.it
+    assert int(a.retired) == int(b.retired) == 64 * 64 * 4
+    assert la == lb and la[-1] > 0 and sum(la[:-1]) > 0
+    assert (la[2] > 0) == (key_mode == "pallas")
+
+
+def test_graph_render_on_a_card_that_is_not_current(dev):
+    """A render on cuda:1 while cuda:0 is the current device: the graph
+    route captures on cuda:1's own stream and equals the eager render bit
+    for bit (deterministic algorithms), every kernel launching there; the
+    current device stays cuda:0. A state on another card than its block
+    graph's is refused."""
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    card = torch.device("cuda", 1)
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(card), job.camera.to(card)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.cuda.device(0):
+            for eager in (True, False):
+                for lib in (pk.KERNEL, tf.THREEFRY):
+                    lib.launches = 0
+                st = wavefront.render_state(scene, camera, 48, 48, 4,
+                                            Sampler(5, card), pool=1024,
+                                            steps_per_call=3, eager=eager)
+                assert torch.cuda.current_device() == 0
+                out[eager] = (st, pk.KERNEL.launches, tf.THREEFRY.launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, a1, at), (b, b1, bt) = out[True], out[False]
+    assert a.fb.device == b.fb.device == card
+    assert torch.equal(a.fb, b.fb) and a.it == b.it
+    assert int(b.retired) == 48 * 48 * 4
+    assert (a1, at) == (b1, bt) and a1 > 0 and at > 0
+    graph = wavefront._BlockGraph(torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="block graph"):
+        graph.run(b, lambda st: [])
+
+
+def test_cli_checkpoints_every_block_on_the_graph_route(dev, monkeypatch,
+                                                        tmp_path):
+    """The CLI's render on the graph route with --checkpoint-every 0: the
+    writer thread fetches a snapshot from the card while the render
+    captures and replays its blocks (each write first reads the snapshot
+    for 0.3 s, so the first one overlaps the capture). The render and every
+    write succeed, and the last checkpoint holds samples of this render."""
+    import threading
+    import time
+
+    from hobbyraytracer_tpu_torch.cli import main as cli
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    from _torch_parity import ROOT
+    monkeypatch.chdir(ROOT)
+    save_state = ckpt.save_state
+    writes, captured = [], []
+
+    def slow_save(path, snap, meta=None):
+        assert threading.current_thread() is not threading.main_thread()
+        end = time.perf_counter() + 0.3
+        while time.perf_counter() < end:
+            snap.fb.cpu()
+        save_state(path, snap, meta=meta)
+        writes.append(1)
+
+    class Counted(wavefront._BlockGraph):
+        def _capture(self, *args):
+            captured.append(1)
+            return super()._capture(*args)
+
+    monkeypatch.setattr(ckpt, "save_state", slow_save)
+    monkeypatch.setattr(wavefront, "_BlockGraph", Counted)
+    path = str(tmp_path / "ck.npz")
+    assert cli.main(["render", TEAPOT, "-o", str(tmp_path / "out.png"),
+                     "--spp", "8", "--width", "96", "--height", "96",
+                     "--device", "cuda", "--checkpoint", path,
+                     "--checkpoint-every", "0"]) == 0
+    assert captured == [1] and len(writes) >= 1
+    state = ckpt.load_state(path, device="cpu")
+    assert 0 < int(state.retired) <= 96 * 96 * 8
+
+
+def test_graph_route_resume_and_checkpoints(dev, tmp_path):
+    """On the graph route, checkpoint_cb sees the live state after every
+    block (replayed ones too) and a render resumed from a mid-render
+    checkpoint equals the uninterrupted one bit for bit (deterministic
+    algorithms)."""
+    from hobbyraytracer_tpu_torch.io import checkpoint as ckpt
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    path = str(tmp_path / "ck.npz")
+    seen = []
+
+    def keep(state):
+        seen.append(int(state.retired))
+        if len(seen) == 3:
+            ckpt.save_state(path, state)
+
+    def render(**kw):
+        return wavefront.render_state(scene, camera, 48, 48, 4,
+                                      Sampler(2, dev), pool=1024,
+                                      steps_per_call=2, **kw)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = render(checkpoint_cb=keep)
+        assert len(seen) > 3 and seen == sorted(seen)
+        state = ckpt.load_state(path, device=dev)
+        assert 0 < int(state.retired) < 48 * 48 * 4
+        out = render(state=state)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(out.fb, ref.fb) and out.it == ref.it

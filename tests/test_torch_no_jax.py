@@ -367,8 +367,9 @@ def test_sharded_paths_raise_instead_of_falling_back(monkeypatch, tmp_path):
         """Draws of the right shapes on the meta device (no generator
         runs there)."""
 
-        def _rand(self, purpose, iteration, shape):
-            return torch.empty(tuple(shape), device=self.device)
+        def _draw(self, key, shape, span, floats):
+            return torch.empty(tuple(shape), device=self.device,
+                               dtype=torch.float32 if floats else torch.int64)
 
         def fold_in(self, index):
             return MetaSampler(index, self.device)

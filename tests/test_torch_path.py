@@ -171,8 +171,8 @@ def test_sample_chunks_and_progress(teapot):
 def test_sampler_fold_in():
     s = Sampler(9, "cpu")
     a, b = s.fold_in(0), s.fold_in(1)
-    assert a.seed != b.seed != s.seed and a.device == s.device
-    assert a.seed == Sampler(9, "cpu").fold_in(0).seed
+    assert a.key != b.key != s.key and a.device == s.device
+    assert a.key == Sampler(9, "cpu").fold_in(0).key
     assert not torch.equal(a.uniform(0, 0, (8,)), b.uniform(0, 0, (8,)))
     assert not torch.equal(a.uniform(0, 0, (8,)), s.uniform(0, 0, (8,)))
 
