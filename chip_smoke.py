@@ -109,9 +109,9 @@ s. the fit's gradients on scenes/shiny_teapot.yaml at the CLI's size (the
    a vertex fit (bilinear lookups, the mesh moved) through the refreshed
    tables against "lockstep" within VERTEX_RTOL; a teapot_hires vertex-fit
    step through K2, its launches held to the same count;
-t. the CLI's fit (cli/main.py:fit_demo) at its defaults, 30 Adam steps: the
-   final loss below the first; the median ms a step, K1's launches and the
-   peak memory;
+t. the CLI's fit (cli/main.py:fit_demo) at its defaults, 30 Adam steps,
+   by its default route (through the CUDA graph): the final loss below the
+   first; the median ms a step, K1's launches and the peak memory;
 u. one loss and backward at the film's full 1920x1080 @ 1 spp, depth 6:
    finite gradients; the peak memory beside the checkpoints' prediction;
 v. one boundary=True vertex-fit step at 64x36: a finite, non-zero vertex
@@ -165,17 +165,35 @@ dd. (run after m) the graph route: threefry.cu against its plain version
    through K4 and two_teapots rendered at 640x640 @ 16 spp eagerly
    (eager=True) and through the CUDA graph under
    torch.use_deterministic_algorithms: framebuffers, `it` and every
-   kernel's launch count equal, and over the replayed blocks each kernel's
-   launches as torch.profiler saw them run equal to its counters'
-   increase; then the teapot eager and through the
+   kernel's launch count equal, and over five replayed blocks, a
+   profiler each, each kernel's launches as torch.profiler saw them run
+   never above its counters' increase and equal to it in two blocks at
+   least (CUPTI loses records now and then: ProfiledWindows); then the teapot eager and through the
    graph in turns (eager, graph, eager, graph): rays/s and wall ms a
    segment, and under torch.profiler the device's busy time and idle
    share of one render each way.
+ee. (run after v) the fit through its CUDA graph (diff/fit.py:
+   fit_materials on a card: step 0 eager, step 1 captured and replayed,
+   every later step replayed) against eager=True under
+   torch.use_deterministic_algorithms: the CLI's fit at its defaults (30
+   steps; losses, fitted materials and every kernel's launches equal, and
+   over the replayed steps 2-11, a profiler each, each kernel's launches
+   as torch.profiler saw them never above its counters' increase and
+   equal to it in two steps at least), the teapot_hires vertex fit
+   through K2 (3 steps) and two steps of the full 1920x1080 film @ 1 spp
+   (the second replayed; the peak memory of each route), all bitwise
+   equal; then the CLI's fit by each route in turns (eager, graph, eager,
+   graph; 12 steps): median ms a step from step 4 on, the capture's ms,
+   device busy ms and idle share under torch.profiler over steps 2-3, and
+   the material gathers' backward a step by ops/shade.py:rows
+   (index_select) against the table[mid] it replaced.
 Beside phase c, K1 and K2 are timed on one mesh packed both ways (the
 teapot, and teapot_hires's 32-row table with its first 24 rows as K1's):
 bitwise equal, timed in turns.
 
-A line `[fit numbers] {...}` holds phases s-u's numbers, a line
+A line `[time] phase X starts at N s` gives the command's clock as each
+phase starts. A line `[fit numbers] {...}` holds phases s-u's numbers, a
+line `[fit graph numbers] {...}` phase ee's, a line
 `[checkpoint and workers numbers] {...}` those of phases w-z, a line
 `[long tail numbers] {...}` those of phases aa-cc, a line `[graph
 numbers] {...}` those of phase dd. A render's segments are the iterations
@@ -376,6 +394,16 @@ REFRESHED = ("tri_soa", "bounds8", "cluster_bmin", "cluster_bmax")
 VERTEX_RTOL = 1e-4
 VERTEX_ATOL = 1e-6
 HIRES_FIT = (64, 64, 1, 3)
+# phase ee: the steps of each fit in turns, and the runs of each gather
+# backward form under the profiler
+TURN_STEPS = 12
+# phase ee: the replayed steps of the CLI's deterministic graph fit, each
+# under a profiler of its own (steps FIT_WINDOWS[0] .. FIT_WINDOWS[1] - 1)
+FIT_WINDOWS = (2, 12)
+GATHER_REPS = 10
+# phase dd: the replayed blocks of each graph render under a profiler of
+# their own (from the third block on)
+PROFILED_BLOCKS = 5
 BOUNDARY_SIZE = (64, 36)
 # sha256 of each scene's cluster tables (table_digest) as the native SAH
 # builds them on the host, byte-identical to the JAX package's build
@@ -1029,35 +1057,55 @@ def phase_fit_grads(dev, card, scene, camera, width, height, k1, hires,
     return ms, k1_step, k2_step
 
 
+class timed_steps:
+    """Inside, every step of diff/fit.py:fit_materials, eager or replayed,
+    is timed on the host clock from its start to its loss's host read
+    (fit_mod._run_step wrapped; the fit's loop reads the loss right after
+    it): `ms` holds each step's ms. hooks: {step index: fn()} run just
+    before that step (a profiler window's start and end)."""
+
+    def __init__(self, hooks=None):
+        self.ms, self.hooks = [], hooks or {}
+
+    def __enter__(self):
+        from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+        self.real = fit_mod._run_step
+
+        def timed(step, graph):
+            hook = self.hooks.get(len(self.ms))
+            if hook is not None:
+                hook()
+            t0 = time.perf_counter()
+            loss = self.real(step, graph)
+            float(loss)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+        fit_mod._run_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+        fit_mod._run_step = self.real
+
+
 def phase_fit(dev, card, k1, steps=None, width=None, height=None):
-    """t. The CLI's fit (cli/main.py:fit_demo) on FIT_SCENE at its defaults:
-    the final loss below the first; the median ms a step (host clock
-    between the steps' render_loss calls, each step ending in its loss's
-    host read), K1's launches a step, and the peak memory. -> dict."""
+    """t. The CLI's fit (cli/main.py:fit_demo) on FIT_SCENE at its defaults,
+    by its default route (through the CUDA graph on the card): the final
+    loss below the first; the median ms a step (timed_steps), K1's
+    launches a step, and the peak memory. -> dict."""
     import numpy as np
     import torch
     from hobbyraytracer_tpu_torch.cli.main import fit_demo
-    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
-    marks = []
-    real = fit_mod.render_loss
-
-    def timed(*args, **kwargs):
-        marks.append(time.perf_counter())
-        return real(*args, **kwargs)
-
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     k1.launches = 0
-    fit_mod.render_loss = timed
-    try:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    with timed_steps() as timer:
         res = fit_demo(FIT_SCENE, dev, width, height, steps=steps or FIT_STEPS)
-        sync(dev)
-        marks.append(time.perf_counter())
-    finally:
-        fit_mod.render_loss = real
+    sync(dev)
     n = len(res.losses)
-    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    step_ms = timer.ms
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
     want = FIT_SPP * FIT_DEPTH + n * fit_launches(FIT_SPP, FIT_DEPTH)
@@ -1182,6 +1230,260 @@ def phase_boundary(dev, card):
           f"{int((g != 0).any(dim=1).sum())} of {g.shape[0]} vertices moved "
           f"by it, max |g| {g.abs().max().item():.4g} "
           f"({time.perf_counter() - t0:.2f} s) on {card}")
+
+
+def gather_backward_ms(scene, camera, width, height, sampler, spp, depth,
+                       target):
+    """The device ms a fit step spends in the backward of its material-row
+    gathers, by ops/shade.py:rows (index_select: an index_add_) and by the
+    form it replaced, table[mid] (a sorted index_put_ with accumulate),
+    written out here: the gathers of one render_loss forward from the
+    perturbed materials (each backpropagated once a step) are recorded,
+    then every backward is run by each form, summed device time under
+    torch.profiler over GATHER_REPS runs. -> (new ms, old ms, gathers,
+    lanes a gather)."""
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import perturb_materials
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.ops import shade
+    recorded = []
+    rows = shade.rows
+
+    def recording(table, mid):
+        if table.requires_grad:
+            recorded.append((table.detach().clone(), mid.clone()))
+        return rows(table, mid)
+
+    params, rebuild = fit_mod.select_params(perturb_materials(scene))
+    shade.rows = recording
+    try:
+        with torch.no_grad():
+            fit_mod.render_loss(params, rebuild, camera, width, height,
+                                sampler, spp, target, depth)
+    finally:
+        shade.rows = rows
+    check(len(recorded) > 0, "no material gather carried a gradient")
+
+    def backward(gather):
+        tables = [t.clone().requires_grad_(True) for t, _ in recorded]
+        outs = [gather(t, m) for t, (_, m) in zip(tables, recorded)]
+        grads = [torch.full_like(o, 0.5) for o in outs]
+        return lambda: torch.autograd.grad(outs, tables, grads,
+                                           retain_graph=True)
+
+    new, old = backward(shade.rows), backward(lambda t, m: t[m])
+    for a, b in zip(new(), old()):
+        check(bool(torch.allclose(a, b, rtol=1e-5)),
+              "the gathers' gradients differ between the two forms")
+    return (profiled_ms(new, GATHER_REPS), profiled_ms(old, GATHER_REPS),
+            len(recorded), recorded[0][1].numel())
+
+
+def phase_fit_graph(dev, card, libs, scene, camera, width, height, hires,
+                    full):
+    """ee. The fit through its CUDA graph against the eager fit. Under
+    deterministic algorithms: the CLI's fit at its defaults (FIT_STEPS
+    steps), eager and graph: losses, fitted materials and every kernel's
+    launches equal, and over the replayed FIT_WINDOWS steps each kernel's
+    launches as torch.profiler saw them held to its counters' increase
+    (ProfiledWindows.agree); the
+    teapot_hires vertex fit through K2 (HIRES_FIT, to half the scene's
+    radiance, 3 steps) each way, bitwise equal; two steps of the full film @ 1 spp each way
+    (the second replayed), bitwise equal, with the peak memory of each.
+    Then, without them, the CLI's fit by each route in turns (eager,
+    graph, eager, graph; TURN_STEPS steps): the median ms a step over
+    steps 4 on (replays on the graph route), the capture's ms, and under
+    torch.profiler over steps 2-3 the device's busy ms and idle share
+    (ProfiledWindows); and the material
+    gathers' backward a step, the new form against the old. hires =
+    (scene, camera), full = (width, height). -> numbers."""
+    import numpy as np
+    import torch
+    from hobbyraytracer_tpu_torch.cli.main import fit_demo, perturb_materials
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.kernels import build as kbuild
+
+    capture_ms = []
+    graph_cls = kbuild.GraphReplay
+
+    class Timed(graph_cls):
+        def _capture(self, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._capture(fn)
+            torch.cuda.synchronize()
+            capture_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def run(fit, window=None):
+        """fit() with every counter at 0 and the peak memory reset -> (its
+        result, {library: launches}, graphs captured, each step's ms, the
+        peak memory, and the ProfiledWindows of the steps window[0] ..
+        window[1] - 1, one window a step (None without `window`))."""
+        for lib in libs:
+            lib.launches = 0
+        capture_ms.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hooks, windows = {}, None
+        if window is not None:
+            windows = ProfiledWindows(libs, cpu=True)
+            hooks = {i: windows.next for i in range(*window)}
+            hooks[window[1]] = windows.stop
+        with timed_steps(hooks) as timer:
+            res = fit()
+        torch.cuda.synchronize()
+        launches = {lib.name: lib.launches for lib in libs}
+        return (res, launches, len(capture_ms), timer.ms,
+                torch.cuda.max_memory_allocated(dev), windows)
+
+    def same(label, a, b):
+        """Two fits' losses and parameters bit for bit."""
+        check(np.array_equal(a.losses, b.losses),
+              f"{label}: losses eager {a.losses} graph {b.losses}")
+        for name in fit_mod.MAT_FIELDS:
+            check(bool(torch.equal(a.params["materials"][name],
+                                   b.params["materials"][name])),
+                  f"{label}: fitted {name} differs")
+        for va, vb in zip(a.params.get("verts", []),
+                          b.params.get("verts", [])):
+            check(bool(torch.equal(va, vb)), f"{label}: vertices differ")
+
+    def cli_fit(eager, steps=FIT_STEPS):
+        return lambda: fit_demo(FIT_SCENE, dev, steps=steps, verbose=False,
+                                eager=eager)
+
+    out = {"card": card}
+    kbuild.GraphReplay = Timed
+    deterministic(True)
+    try:
+        ea = run(cli_fit(True))
+        gr = run(cli_fit(False), FIT_WINDOWS)
+        check(fit_mod.fit_route(scene, dev), "the CLI's fit is not on the "
+              "graph route")
+        check((ea[2], gr[2]) == (0, 1),
+              f"graphs captured: eager {ea[2]}, graph {gr[2]}")
+        same("the CLI's fit", ea[0], gr[0])
+        want = FIT_SPP * FIT_DEPTH + FIT_STEPS * fit_launches(FIT_SPP,
+                                                              FIT_DEPTH)
+        check(ea[1] == gr[1] and gr[1]["mesh_traverse"] == want,
+              f"launches eager {ea[1]}, graph {gr[1]} (K1 predicted {want})")
+        ran = gr[5]
+        check(ran.agree() and ran.profiled["traverse_kernel"] > 0
+              and ran.profiled["threefry_kernel"] > 0,
+              f"over the replayed steps {FIT_WINDOWS[0]}-"
+              f"{FIT_WINDOWS[1] - 1}, {ran.describe()}")
+        print(f"[fit graph] the CLI's fit ({FIT_STEPS} steps, {width}x"
+              f"{height} @ {FIT_SPP} spp, depth {FIT_DEPTH}; deterministic): "
+              f"eager and graph losses and fitted materials bitwise equal "
+              f"(final loss {gr[0].losses[-1]:.8f}), launches equal "
+              f"{gr[1]}; over the replayed steps {FIT_WINDOWS[0]}-"
+              f"{FIT_WINDOWS[1] - 1}, {ran.describe()}, each kernel seen "
+              f"in full in two steps at least; capture "
+              f"{sum(capture_ms):.1f} ms")
+        out["cli_fit"] = {"launches": gr[1], "profiled_launches":
+                          ran.profiled, "counted_launches": ran.counted,
+                          "steps_short_of_records": ran.short,
+                          "final_loss":
+                          float(gr[0].losses[-1]),
+                          "peak_bytes": {"eager": ea[4], "graph": gr[4]}}
+
+        hscene, hcamera = hires
+        hw, hh, hspp, hdepth = HIRES_FIT
+        sampler = Sampler(SEED, dev)
+        with torch.no_grad():
+            htarget = fit_mod.render_linear(hscene, hcamera, hw, hh, sampler,
+                                            hspp, hdepth) * 0.5
+        hruns = [run(lambda: fit_mod.fit_materials(
+            hscene, hcamera, htarget, hw, hh, steps=3, n_samples=hspp,
+            max_depth=hdepth, sampler=sampler, fit_vertices=True,
+            verbose=False, eager=eager)) for eager in (True, False)]
+        same("teapot_hires vertex fit", hruns[0][0], hruns[1][0])
+        check(hruns[0][1] == hruns[1][1]
+              and hruns[1][1]["mesh_traverse_stream"] == (
+                  3 * fit_launches(hspp, hdepth))
+              and hruns[1][1]["mesh_traverse"] == 0
+              and (hruns[0][2], hruns[1][2]) == (0, 1),
+              f"teapot_hires vertex fit: launches {hruns[0][1]} / "
+              f"{hruns[1][1]}, graphs {hruns[0][2]} / {hruns[1][2]}")
+        print(f"  teapot_hires vertex fit ({hw}x{hh} @ {hspp} spp, depth "
+              f"{hdepth}, 3 steps, 32-row tables refreshed in every step): "
+              f"eager and graph losses, materials and vertices bitwise "
+              f"equal, K2 launches {hruns[1][1]['mesh_traverse_stream']} "
+              f"each way")
+        out["hires_vertex_fit"] = {"launches": hruns[1][1],
+                                   "losses": hruns[1][0].losses.tolist()}
+
+        fw, fh = full
+        with torch.no_grad():
+            ftarget = fit_mod.render_linear(scene, camera, fw, fh, sampler,
+                                            1, FIT_DEPTH)
+        start = perturb_materials(scene)
+        fruns = [run(lambda: fit_mod.fit_materials(
+            start, camera, ftarget, fw, fh, steps=2, n_samples=1,
+            max_depth=FIT_DEPTH, sampler=sampler, verbose=False,
+            eager=eager)) for eager in (True, False)]
+        same("full film", fruns[0][0], fruns[1][0])
+        check(fruns[0][1] == fruns[1][1] and fruns[1][2] == 1,
+              f"full film: launches {fruns[0][1]} / {fruns[1][1]}")
+        peaks = {"eager": fruns[0][4], "graph": fruns[1][4]}
+        print(f"  full film {fw}x{fh} @ 1 spp, depth {FIT_DEPTH}, 2 steps "
+              f"(the second replayed): eager and graph bitwise equal; peak "
+              f"memory eager {peaks['eager'] / 2**30:.3f} GiB, graph "
+              f"{peaks['graph'] / 2**30:.3f} GiB; step ms eager "
+              f"{[round(x, 1) for x in fruns[0][3]]}, graph "
+              f"{[round(x, 1) for x in fruns[1][3]]} (the capture "
+              f"{sum(capture_ms):.1f} ms)")
+        out["full_film"] = {"peak_bytes": peaks,
+                            "step_ms": {"eager": fruns[0][3],
+                                        "graph": fruns[1][3]},
+                            "capture_ms": sum(capture_ms)}
+    finally:
+        deterministic(False)
+
+    try:
+        turns = []
+        for eager in (True, False, True, False):
+            r = run(cli_fit(eager, TURN_STEPS), (2, 4))
+            prof = r[5]
+            route = "eager" if eager else "graph"
+            turns.append({
+                "route": route, "step_ms": r[3],
+                "median_step_ms": statistics.median(r[3][4:]),
+                "capture_ms": sum(capture_ms),
+                "window_ms": prof.window_ms, "busy_ms": prof.busy_ms,
+                "kernels": prof.kernels, "steps_short_of_records": prof.lossy,
+                "idle_share": 1.0 - prof.busy_ms / (prof.window_ms
+                                                    or float("nan")),
+                "peak_bytes": r[4]})
+            t = turns[-1]
+            print(f"[fit graph] the CLI's fit, {route}: median "
+                  f"{t['median_step_ms']:.2f} ms a step over steps 4-"
+                  f"{TURN_STEPS - 1} (step 0 {r[3][0]:.1f}, step 1 "
+                  f"{r[3][1]:.1f}; the capture {t['capture_ms']:.1f} ms); "
+                  f"steps 2-3, each under a torch.profiler "
+                  f"({prof.lossy} short of records, left out): "
+                  f"{t['window_ms']:.1f} ms, device busy "
+                  f"{t['busy_ms']:.1f} ms in {t['kernels']} kernels, idle "
+                  f"share {t['idle_share']:.1%}; peak memory "
+                  f"{t['peak_bytes'] / 2**30:.3f} GiB on {card}")
+        out["turns"] = turns
+    finally:
+        kbuild.GraphReplay = graph_cls
+
+    sampler = Sampler(SEED, dev)
+    with torch.no_grad():
+        target = fit_mod.render_linear(scene, camera, width, height, sampler,
+                                       FIT_SPP, FIT_DEPTH)
+    new_ms, old_ms, n_gathers, lanes = gather_backward_ms(
+        scene, camera, width, height, sampler, FIT_SPP, FIT_DEPTH, target)
+    print(f"[fit graph] the material gathers' backward a step ({n_gathers} "
+          f"gathers of {lanes} lanes): index_select (index_add_) "
+          f"{new_ms:.3f} ms, table[mid] (sorted index_put_) {old_ms:.3f} ms "
+          f"of device time on {card}")
+    out["gather_backward_ms"] = {"index_select": new_ms, "indexing": old_ms,
+                                 "gathers": n_gathers, "lanes": lanes}
+    return out
 
 
 class _Stop(Exception):
@@ -1856,14 +2158,124 @@ def device_busy_ms(prof):
     return busy, n
 
 
+class ProfiledWindows:
+    """torch.profiler over a few windows that replay one CUDA graph each (a
+    block of a render, a step of a fit), one profiler a window. CUPTI loses
+    activity records now and then, as a rule a few of a window's ~40,000
+    (scripts/profiler_record_loss.py counts them on a card), at times a
+    whole buffer (1,342 of a block's 5,237 kernels). A loss can only make
+    the profiler see fewer launches than ran, so the launch check
+    (`agree`) holds each GRAPH_KERNELS kernel to its counters' increase
+    window by window: the profiler never saw more than was counted, and it
+    saw exactly the counted launches in two windows at least. A fault of
+    the counters repeats in every window, which replay the same graph; a
+    loss does not. `profiled` {kernel: launches the card ran} and `counted`
+    {kernel: its counters' increase} sum all windows; `short` counts the
+    windows that saw fewer launches of some kernel than were counted. The
+    device numbers, `window_ms` (host clock, synchronized), `busy_ms` and
+    `kernels`, sum the windows whose kernel total is the run's largest (the
+    others, `lossy` of them, are left out). A window in which nothing ran
+    counts as none. A profiler costs seconds to start and stop, so a phase
+    opens a few windows, not one a block."""
+
+    def __init__(self, libs, cpu=False):
+        self.libs, self.cpu = libs, cpu
+        self.windows = []
+        self.prof = None
+
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.before = {lib.name: lib.launches for lib in self.libs}
+        acts = [ProfilerActivity.CUDA]
+        if self.cpu:
+            acts.append(ProfilerActivity.CPU)
+        self.prof = profile(activities=acts)
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        import torch
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - self.t0) * 1e3
+        prof, self.prof = self.prof, None
+        prof.stop()
+        counted = {kernel: sum(lib.launches - self.before[lib.name]
+                               for lib in self.libs
+                               if lib.name in GRAPH_KERNELS[kernel])
+                   for kernel in GRAPH_KERNELS}
+        busy, n = device_busy_ms(prof)
+        if n or any(counted.values()):
+            self.windows.append((kernel_counts(prof), counted, ms, busy, n))
+
+    def next(self):
+        """Close the open window, if any, and open the next."""
+        if self.prof is not None:
+            self.stop()
+        self.start()
+
+    def _complete(self):
+        most = max((w[4] for w in self.windows), default=0)
+        return [w for w in self.windows if w[4] == most]
+
+    def _sum(self, i, windows):
+        return {k: sum(w[i][k] for w in windows) for k in GRAPH_KERNELS}
+
+    @property
+    def profiled(self):
+        return self._sum(0, self.windows)
+
+    @property
+    def counted(self):
+        return self._sum(1, self.windows)
+
+    @property
+    def short(self):
+        return sum(any(w[0][k] < w[1][k] for k in GRAPH_KERNELS)
+                   for w in self.windows)
+
+    @property
+    def window_ms(self):
+        return sum(w[2] for w in self._complete())
+
+    @property
+    def busy_ms(self):
+        return sum(w[3] for w in self._complete())
+
+    @property
+    def kernels(self):
+        return sum(w[4] for w in self._complete())
+
+    @property
+    def lossy(self):
+        return len(self.windows) - len(self._complete())
+
+    def agree(self) -> bool:
+        """No window saw more launches of a kernel than were counted, and
+        two windows at least saw exactly the counted launches of each."""
+        return all(
+            all(w[0][k] <= w[1][k] for w in self.windows)
+            and sum(w[0][k] == w[1][k] for w in self.windows) >= 2
+            for k in GRAPH_KERNELS)
+
+    def describe(self) -> str:
+        """The launch check's evidence, for a log line."""
+        return (f"the profiler saw {self.profiled}, the counters grew by "
+                f"{self.counted} ({self.short} of {len(self.windows)} "
+                f"windows short of some kernel's records)")
+
+
 def phase_graph(dev, card, libs, scenes):
     """dd, second part: each scene {label: (scene, camera, sphere kernel
     on, HRT_KEY_MODE)} rendered at 640x640 @ 16 spp eagerly and through the
     graph under deterministic algorithms: framebuffer, `it`, retired and
     every kernel's launches equal, one graph captured by the graph render
-    and none by the eager one. Over the graph render's replayed blocks
-    (from the third on), each kernel's launches as torch.profiler saw the
-    card run them (GRAPH_KERNELS) must equal its counters' increase. Then
+    and none by the eager one. Over PROFILED_BLOCKS replayed blocks of the
+    graph render (from the third on, a profiler each: ProfiledWindows),
+    each kernel's launches as torch.profiler saw the card run them
+    (GRAPH_KERNELS) are held to its counters' increase
+    (ProfiledWindows.agree). Then
     the teapot in turns (eager, graph, eager, graph) as the CLI renders
     it, and under torch.profiler once each way. -> numbers."""
     import torch
@@ -1877,43 +2289,39 @@ def phase_graph(dev, card, libs, scenes):
     block_graph = wavefront._BlockGraph
 
     class Counted(block_graph):
-        def _capture(self, state, block):
+        def _capture(self, fn):
             captured[0] += 1
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            super()._capture(state, block)
+            super()._capture(fn)
             torch.cuda.synchronize()
             capture_ms.append((time.perf_counter() - t0) * 1e3)
 
     def run(scene, camera, eager):
-        """-> the state, the launch counters, the graphs captured, and
-        {kernel: (launches the profiler saw, the counters' increase)} over
-        the blocks after the second (replays only, on the graph route)."""
+        """-> the state, the launch counters, the graphs captured, and the
+        ProfiledWindows of PROFILED_BLOCKS blocks after the second
+        (replays; none on the eager route)."""
         for lib in libs:
             lib.launches = 0
         captured[0] = 0
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        blocks, before = [0], {}
+        windows = ProfiledWindows(libs)
+        blocks = [0]
 
-        def start(state):
+        def block_done(state):
             blocks[0] += 1
-            if blocks[0] == 2:
-                torch.cuda.synchronize()
-                before.update({lib.name: lib.launches for lib in libs})
-                prof.start()
+            if not eager and 2 <= blocks[0] < 2 + PROFILED_BLOCKS:
+                windows.next()
+            elif not eager and blocks[0] == 2 + PROFILED_BLOCKS:
+                windows.stop()
 
         st = wavefront.render_state(scene, camera, WIDTH, HEIGHT, SPP,
                                     Sampler(SEED, dev), max_depth=50,
                                     pool=POOL, pool_sort=0, eager=eager,
-                                    checkpoint_cb=start)
-        torch.cuda.synchronize()
-        prof.stop()
+                                    checkpoint_cb=block_done)
+        if windows.prof is not None:
+            windows.stop()
         launches = {lib.name: lib.launches for lib in libs}
-        ran = kernel_counts(prof)
-        window = {kernel: (ran[kernel], sum(launches[name] - before[name]
-                                            for name in names))
-                  for kernel, names in GRAPH_KERNELS.items()}
-        return st, launches, captured[0], window
+        return st, launches, captured[0], windows
 
     out = {"renders": {}, "threefry_launches": {}}
     wavefront._BlockGraph = Counted
@@ -1943,16 +2351,17 @@ def phase_graph(dev, card, libs, scenes):
             check((gr_l["coherence_keys"] > 0) == (key_mode == "pallas"),
                   f"{label}: K3 launched {gr_l['coherence_keys']} times "
                   f"with HRT_KEY_MODE {key_mode}")
-            check(all(a == b for a, b in ran.values())
-                  and ran["threefry_kernel"][0] > 0,
-                  f"{label}: over the replayed blocks, (launches the "
-                  f"profiler saw, the counters' increase): {ran}")
+            check(ran.agree() and ran.profiled["threefry_kernel"] > 0,
+                  f"{label}: over the replayed blocks, {ran.describe()}")
             print(f"  graph vs eager, {label} {WIDTH}x{HEIGHT} @ {SPP} spp "
                   f"(deterministic): fb bitwise equal, it {gr.it}, launches "
-                  f"equal {gr_l}; over the replayed blocks the profiler saw "
-                  f"the counted launches, {ran}")
+                  f"equal {gr_l}; over the replayed blocks, "
+                  f"{ran.describe()}, each kernel seen in full in two "
+                  f"blocks at least")
             out["renders"][label] = {"it": gr.it, "launches": gr_l,
-                                     "profiled_launches": ran}
+                                     "profiled_launches": ran.profiled,
+                                     "counted_launches": ran.counted,
+                                     "blocks_short_of_records": ran.short}
             out["threefry_launches"][f"{label} (graph)"] = gr_l["threefry"]
     finally:
         deterministic(False)
@@ -2031,6 +2440,14 @@ def phase_graph(dev, card, libs, scenes):
 
 def main():
     import torch
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        """The command's clock at the start of a phase (the smoke has 1,200
+        s in all)."""
+        print(f"[time] phase {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     # 1. the card
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs a GPU")
@@ -2073,6 +2490,7 @@ def main():
     libs = (k1, k2, k3, k4)        # the traversal kernels
     tfk = threefry.THREEFRY        # the draws
 
+    stamp("2 and a")
     # 2 and a. build the kernels from the checkout's sources, all at once
     # (one thread, so one nvcc, each; a library left by an earlier run is
     # built again, so that ptxas reports on these sources), and load them
@@ -2097,6 +2515,7 @@ def main():
           "build: the scenes' tables would not be the reference's")
     print(f"[native] cluster builder {native.library_path()}")
 
+    stamp("3")
     # 3. K1 vs plain at the main path's shape
     job = load_scene(SCENE)
     scene = job.scene.to(dev)
@@ -2155,6 +2574,7 @@ def main():
     print(f"[K1] bound {bound_k1[0]:.4f} ms by {bound_k1[1]} "
           f"({visits / POOL:.3f} leaf visits a ray)")
 
+    stamp("4")
     # 4. the main path: a 640x640, 16 spp teapot render
     draws = []
     launches, seconds, mean, rays_per_s, (retired, total), _ = render(
@@ -2170,6 +2590,7 @@ def main():
           f"{launches}, threefry {tf_launches}, retired {retired}/{total}, "
           f"mean {mean:.5f} (JAX CPU {JAX_CPU_MEAN}) on {card}")
 
+    stamp("5")
     # 5. the whole render through the kernel vs through the plain version
     imgs = [wavefront.render_image(scene, camera, 64, 64, 8,
                                    Sampler(SEED + 1, dev), pool=POOL,
@@ -2182,6 +2603,7 @@ def main():
           f"{diff.max().item():.3g}")
     check(agree >= 0.99, f"only {agree:.4%} of pixels agree")
 
+    stamp("b")
     # b. K2 vs plain on teapot_hires's own tables
     hjob = load_scene(HIRES)
     hscene = hjob.scene.to(dev)
@@ -2242,6 +2664,7 @@ def main():
     print(f"[K2] bound {bound_k2[0]:.4f} ms by {bound_k2[1]} "
           f"({visits / POOL:.3f} leaf visits a ray)")
 
+    stamp("c")
     # c. K2 vs K1 bitwise past K1's old cap, both vs plain
     m = objloader.parse_obj("assets/teapot_hires.obj")
     idx = m["indices"][:HIRES_PREFIX]
@@ -2284,6 +2707,7 @@ def main():
             hmesh.tri_soa[:, :kmod.SOA_ROWS].contiguous(), hmesh.cluster_id,
             hmesh.tri_soa)}
 
+    stamp("d")
     # d. K3 vs plain on phase b's rays
     err_k3 = 0.0
     for label, rays8 in hsets.items():
@@ -2310,6 +2734,7 @@ def main():
     bound_k3 = bound(nbytes(rays8, hmesh.bounds8, e_k, f_k), ops_k3)
     print(f"[K3] bound {bound_k3[0]:.4f} ms by {bound_k3[1]}")
 
+    stamp("e")
     # e. the large-mesh path: a 640x640, 16 spp teapot_hires render
     launches, seconds, mean, rays_per_s, (retired, total), _ = render(
         hscene, hcamera, libs, "teapot_hires", JAX_CPU_MEAN_HIRES)
@@ -2321,6 +2746,7 @@ def main():
           f"launches {launches}, retired {retired}/{total}, mean "
           f"{mean:.5f} (JAX CPU {JAX_CPU_MEAN_HIRES}) on {card}")
 
+    stamp("f")
     # f. HRT_KEY_MODE auto vs pallas (K3) on the same render
     imgs = {}
     for mode in ("auto", "pallas"):
@@ -2343,6 +2769,7 @@ def main():
           f"max pixel diff {diff:.3g} (tolerance {F_ATOL})")
     check(diff <= F_ATOL, f"auto and pallas keys give images {diff} apart")
 
+    stamp("g")
     # g. K4 vs plain on the balls scene's own sphere tables
     bjob = load_scene(BALLS)
     bscene = bjob.scene.to(dev)
@@ -2398,6 +2825,7 @@ def main():
     print(f"[K4] bound {bound_k4[0]:.4f} ms by {bound_k4[1]} "
           f"({visits / POOL:.3f} cluster visits a ray)")
 
+    stamp("h")
     # h. K4's route vs the dense route on the same rays
     for label, rays8 in bsets.items():
         r = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
@@ -2427,6 +2855,7 @@ def main():
               f"points at most {dp.max().item():.3g} apart ({near:.4%} "
               f"within {ROUTE_P_ATOL99}), max normal err {n_err:.3g}")
 
+    stamp("i")
     # i. the sphere path: 640x640, 16 spp balls renders by both routes
     k4_launches = 0
     for on in (False, True):
@@ -2444,6 +2873,7 @@ def main():
               f"rays/s, launches {launches}, retired {retired}/{total}, "
               f"mean {mean:.5f} (JAX CPU {JAX_CPU_MEAN_BALLS}) on {card}")
 
+    stamp("j")
     # j. the whole render through K4 vs through its plain version
     imgs = [wavefront.render_image(bscene, bcamera, 64, 64, 8,
                                    Sampler(SEED + 3, dev), pool=POOL,
@@ -2457,6 +2887,7 @@ def main():
           f"{diff.max().item():.3g}")
     check(agree >= 0.99, f"only {agree:.4%} of pixels agree")
 
+    stamp("k")
     # k. K1 and K2 vs plain on rays that outrun the window and scan again
     r_b8, r_soa, r_ids, r_stream = (
         torch.from_numpy(x).to(dev) for x in random_leaf_tables(
@@ -2484,6 +2915,7 @@ def main():
           f"{WINDOW} clusters before their final hit and scan again")
     check(n_refill >= REFILL_MIN, f"only {n_refill} rays refill their window")
 
+    stamp("l")
     # l. K4 on pools whose K exceeds the window, K3 at K % 4 != 0 and with
     # the boxes in global memory, refilling and tied rays counted
     srays = random_rays8(SEED + 7, REFILL_RAYS, SPHERE_RAY_SPREAD).to(dev)
@@ -2530,6 +2962,7 @@ def main():
               f"between clusters")
         check(n_tied >= REFILL_MIN, f"K3, {label}: only {n_tied} tied rays")
 
+    stamp("m")
     # m. the two-mesh path: 640x640, 16 spp two_teapots renders by the
     # default route and with the pool sorted every second segment
     tjob = load_scene(TWO)
@@ -2563,6 +2996,7 @@ def main():
           f"permuted lane draws other numbers), max diff "
           f"{moved.max().item():.3g}")
 
+    stamp("dd")
     # dd. the graph route: threefry.cu vs plain, graph vs eager renders, the
     # teapot's rays/s, segment ms and idle share both ways
     err_tf, times_tf, bound_tf, ops_tf = phase_threefry(dev, card, tfk)
@@ -2575,6 +3009,7 @@ def main():
     print("[graph numbers] " + json.dumps({
         "card": card, "threefry_ms": times_tf, **graph}))
 
+    stamp("n")
     # n. K1 with cohsort=False on a pool the pool sort permuted
     _, n_chunks, _ = wavefront._chunk_geometry(SPP, wavefront.SAMPLE_CHUNK)
     total_items = WIDTH * HEIGHT * n_chunks
@@ -2619,6 +3054,7 @@ def main():
               f"{n_hit} hits, bitwise equal, and lane for lane equal to the "
               f"per-mesh-sorted call")
 
+    stamp("o")
     # o. the lockstep find on the card against K1
     from hobbyraytracer_tpu_torch.scene import ir as scene_ir
     rays8 = sets["after one bounce"]
@@ -2648,6 +3084,7 @@ def main():
           f"find {ms_lock:.3f} ms (one host read a round) beside K1 "
           f"{times_k1[False][0]:.4f} ms on {card}")
 
+    stamp("p")
     # p. media: cornell_smoke at its own size, then a mesh-boundary fog
     from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
     sjob = build_scene(load_scene_desc(SMOKE))
@@ -2701,6 +3138,7 @@ def main():
           f"{POOL}: finite, {fog_hits} rays scattered in the medium (its "
           f"boundary found by the lockstep find, no kernel)")
 
+    stamp("q")
     # q. the batch integrator against the wavefront integrator
     from hobbyraytracer_tpu_torch.integrator import path as path_mod
     for lib in libs:
@@ -2727,6 +3165,7 @@ def main():
           f"{mw:.5f} "
           f"on {card}")
 
+    stamp("r")
     # r. the tables a vertex fit refreshes, on the card, and the kernels'
     # finds over them
     host = {path: next(i.mesh for i in load_scene(path).scene.instances
@@ -2735,15 +3174,19 @@ def main():
         "teapot": (host[SCENE], mesh, sets["after one bounce"], k1),
         "teapot_hires": (host[HIRES], hmesh, hsets["after one bounce"], k2)})
 
+    stamp("s-v")
     # s-v. the differentiable fit on shiny_teapot
     fjob = build_scene(load_scene_desc(FIT_SCENE))
     fscene, fcamera = fjob.scene.to(dev), fjob.camera.to(dev)
     fw, fh = max(16, fjob.width // 8), max(16, fjob.height // 8)
     fit_ms, k1_step, k2_step = phase_fit_grads(
         dev, card, fscene, fcamera, fw, fh, k1, (hscene, hcamera), k2)
+    stamp("t")
     fit = phase_fit(dev, card, k1)
+    stamp("u")
     full = phase_full_film(dev, card, fscene, fcamera, fjob.width,
                            fjob.height)
+    stamp("v")
     phase_boundary(dev, card)
     print("[fit numbers] " + json.dumps({
         "card": card, "scene": FIT_SCENE, "size": [fw, fh], "spp": FIT_SPP,
@@ -2754,11 +3197,23 @@ def main():
     k1_by_path[f"fit ({fit['steps']} steps and the target)"] = (
         fit["k1_launches"])
 
+    stamp("ee")
+    # ee. the fit through its CUDA graph against the eager fit
+    fgraph = phase_fit_graph(dev, card, (*libs, tfk), fscene, fcamera, fw, fh,
+                             (hscene, hcamera), (fjob.width, fjob.height))
+    print("[fit graph numbers] " + json.dumps(fgraph))
+    k1_by_path[f"fit through the graph ({FIT_STEPS} steps and the target; "
+               "eager the same)"] = fgraph["cli_fit"]["launches"][k1.name]
+
+    stamp("w-z")
     # w-z. checkpoint/resume, the CLI's resume, two workers, the sharded fit
     resume = phase_resume(dev, card, scene, camera, k1)
+    stamp("x")
     cli = phase_cli_resume(card)
+    stamp("y")
     two = phase_sharded_render(dev, card, scene, camera, libs,
                                (k1_launches, rays_teapot))
+    stamp("z")
     sfit = phase_sharded_fit(dev, card, fscene, fcamera, fw, fh, k1)
     print("[checkpoint and workers numbers] " + json.dumps({
         "card": card, "resume": resume, "cli_resume": cli,
@@ -2769,14 +3224,18 @@ def main():
     k1_by_path[f"sharded loss + backward, two workers ({fw}x{fh} @ "
                f"{FIT_SPP} spp, depth {FIT_DEPTH})"] = sfit["k1"]
 
+    stamp("aa-cc")
     # aa-cc. the long tail: the PLY + image texture + lens render, bench on
     # the card, the generated assets
     tail = phase_long_tail(dev, card, libs, k1)
+    stamp("bb")
     tail["bench"] = phase_bench(card)
+    stamp("cc")
     tail["assets_seconds"] = phase_assets(card)
     print("[long tail numbers] " + json.dumps({"card": card, **tail}))
     k1_by_path["long tail (PLY teapot, image texture, lens)"] = tail["k1"]
 
+    stamp("the kernels' line")
     csrc = "hobbyraytracer_tpu_torch/kernels/csrc"
     ref = "hobbyraytracer_tpu/kernels/mesh_traverse.py"
 
@@ -2801,7 +3260,9 @@ def main():
             launches_by_path={
                 "teapot_hires": k2_launches,
                 "vertex fit step (teapot_hires {}x{} @ {} spp, depth {})"
-                .format(*HIRES_FIT): k2_step}),
+                .format(*HIRES_FIT): k2_step,
+                "vertex fit, 3 steps through the graph (eager the same)":
+                fgraph["hires_vertex_fit"]["launches"][k2.name]}),
         row(k3, "coherence_keys.cu", f"{ref}:583", k3_launches, err_k3,
             *times_k3, bound_k3, ops_k3),
         row(k4, "sphere_traverse.cu",

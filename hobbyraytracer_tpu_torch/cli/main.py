@@ -33,9 +33,13 @@ the scene as authored at an eighth of its film (at least 16x16; 4 spp, max
 depth 6) as the target, perturbs the material table (albedo * 0.3 + 0.3,
 roughness + 0.4, both clipped to [0, 1]) and recovers it with --steps Adam
 steps (30) from the same sampler; --fit-vertices also fits the mesh
-vertices, --boundary adds their edge-sampled silhouette gradients. It
-prints the loss every tenth of the steps and the final loss, and returns
-0 when the final loss is below the first.
+vertices, --boundary adds their edge-sampled silhouette gradients. On a
+card each step replays one CUDA graph of the forward, the backward and
+Adam's update (diff/fit.py:fit_route says when it runs eagerly). It
+prints its route, the loss every tenth of the steps and the final loss,
+and returns 0 when the final loss is below the first. A command across
+processes leaves its process group when it ends, by a return or an
+error.
 
 `bench` runs the benchmark of hobbyraytracer_tpu_torch/bench.py (the
 counterpart of the repository's bench.py, configured by the same BENCH_*
@@ -84,11 +88,17 @@ def _mesh(args):
     return mesh
 
 
-def _join_processes(args) -> None:
-    """Join the process group of --num-processes (gloo), if more than
-    one."""
-    from ..parallel.shard import init_multihost
+@contextlib.contextmanager
+def _joined_processes(args):
+    """Inside, this process is in the process group of --num-processes
+    (gloo), if more than one; the group is left on the way out, whether
+    the command returns or raises."""
+    from ..parallel.shard import init_multihost, shutdown_multihost
     init_multihost(args.coordinator, args.num_processes, args.process_id)
+    try:
+        yield
+    finally:
+        shutdown_multihost()
 
 
 def _snapshot(state):
@@ -161,6 +171,19 @@ def check_finite(state) -> None:
 
 def cmd_render(args) -> int:
     t_start = time.time()
+    mesh = _mesh(args)
+    if mesh is None:
+        return 1
+    if args.checkpoint and (args.num_processes or 1) > 1:
+        print("--checkpoint is not supported across processes: a process "
+              "holds only its own workers' states; render on one process "
+              "to checkpoint")
+        return 1
+    with _joined_processes(args):
+        return _render(args, mesh, t_start)
+
+
+def _render(args, mesh, t_start: float) -> int:
     import torch
 
     from ..core.rng import Sampler
@@ -171,16 +194,7 @@ def cmd_render(args) -> int:
     from ..scene import build_scene, load_scene_desc
     from ..scene.schema import SceneError
 
-    mesh = _mesh(args)
-    if mesh is None:
-        return 1
     n_proc = args.num_processes or 1
-    if args.checkpoint and n_proc > 1:
-        print("--checkpoint is not supported across processes: a process "
-              "holds only its own workers' states; render on one process "
-              "to checkpoint")
-        return 1
-    _join_processes(args)
     rank = shard._process()[0]
     n_workers = len(mesh) * n_proc
     device = mesh[0]
@@ -313,19 +327,21 @@ def perturb_materials(scene):
 def fit_demo(scene_path: str, device, width=None, height=None, spp: int = 4,
              max_depth: int = 6, seed: int = 0, steps: int = 30,
              fit_vertices: bool = False, boundary: bool = False,
-             verbose: bool = True, mesh=None):
+             verbose: bool = True, mesh=None, eager: bool = False):
     """The fit of `fit` as a function: build the scene on `device`, render
     the target at width x height (default the film / 8, at least 16 each
     way), perturb the materials and fit them back. With a mesh of more
     than one worker (counting every process's) and a material fit whose
     pixels divide over the workers, each step is the sharded step of
-    parallel/shard.py. -> diff/fit.py's FitResult."""
+    parallel/shard.py, run eagerly; otherwise fit_materials's, through a
+    CUDA graph on a card (diff/fit.py:fit_route) unless eager=True (a
+    comparison switch). -> diff/fit.py's FitResult."""
     import numpy as np
     import torch
 
     from ..core.rng import Sampler
-    from ..diff.fit import (FitResult, fit_materials, render_linear,
-                            select_params)
+    from ..diff.fit import (FitResult, fit_materials, fit_route,
+                            render_linear, select_params)
     from ..parallel import shard
     from ..scene import build_scene, load_scene_desc
 
@@ -341,11 +357,17 @@ def fit_demo(scene_path: str, device, width=None, height=None, spp: int = 4,
         target = render_linear(scene, camera, w, h, sampler, spp, max_depth)
     start = perturb_materials(scene)
     n = len(mesh or [device]) * shard._process()[1]
-    if n == 1 or fit_vertices or boundary or (w * h) % n:
+    sharded = not (n == 1 or fit_vertices or boundary or (w * h) % n)
+    if verbose:
+        graph = not eager and fit_route(start, device, boundary,
+                                        workers=n if sharded else 1)
+        print(f"fit: {steps} steps on {n if sharded else 1} worker(s), "
+              f"{'through a CUDA graph' if graph else 'eagerly'}")
+    if not sharded:
         return fit_materials(start, camera, target, w, h, steps=steps,
                              n_samples=spp, max_depth=max_depth,
                              sampler=sampler, fit_vertices=fit_vertices,
-                             boundary=boundary, verbose=verbose)
+                             boundary=boundary, verbose=verbose, eager=eager)
     params, rebuild = select_params(start)
     opt = torch.optim.Adam(shard._leaves(params), lr=2e-2,
                            betas=(0.9, 0.999), eps=1e-8)
@@ -367,11 +389,11 @@ def cmd_fit(args) -> int:
     mesh = _mesh(args)
     if mesh is None:
         return 1
-    _join_processes(args)
     try:
-        res = fit_demo(args.scene, mesh[0], args.width, args.height,
-                       args.spp, args.max_depth, args.seed, args.steps,
-                       args.fit_vertices, args.boundary, mesh=mesh)
+        with _joined_processes(args):
+            res = fit_demo(args.scene, mesh[0], args.width, args.height,
+                           args.spp, args.max_depth, args.seed, args.steps,
+                           args.fit_vertices, args.boundary, mesh=mesh)
     except SceneError as e:
         print(e)
         return -1

@@ -11,6 +11,12 @@ with the differentiable integrator (integrator/path.py:trace_diff) and
 betas 0.9 / 0.999, eps 1e-8). The gradients flow through each path's
 shading chain; the discrete decisions are replayed without gradients.
 
+On a CUDA device `fit_materials` runs its steps as the JAX package runs
+its jitted step: the forward, the backward, Adam's update and
+`project_materials` of a step are one CUDA graph (kernels/build.py:
+GraphReplay), replayed every step; `fit_route` says when a step runs
+eagerly instead.
+
 Mesh finds take "kernel_replay": the fused kernel (K1 / K2 on the card)
 finds the winning triangle without gradients and the winner is replayed
 from the live vertices. A vertex fit's `rebuild` refreshes the kernel's
@@ -31,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.rng import Sampler
 from ..integrator import path as path_mod
+from ..kernels import build as kbuild
+from ..kernels import mesh_traverse as kmod
 from ..ops import film
 from ..ops.camera import get_rays
 from ..scene import ir as scene_ir
@@ -125,7 +133,9 @@ def render_linear_slice(scene: scene_ir.SceneIR, camera, width: int,
     acc = torch.zeros((n_pix, 3), dtype=torch.float32,
                       device=sampler.device)
     for s in range(n_samples):
-        acc = acc + checkpoint(one_sample, s, use_reentrant=False)
+        # no generator state to stash: see integrator/path.py:trace_diff
+        acc = acc + checkpoint(one_sample, s, use_reentrant=False,
+                               preserve_rng_state=False)
     return acc / float(n_samples)
 
 
@@ -154,13 +164,42 @@ class FitResult(NamedTuple):
     params: dict
 
 
+def fit_route(scene: scene_ir.SceneIR, device, boundary: bool = False,
+              correlated: bool = True, workers: int = 1) -> bool:
+    """Does a fit replay its steps from a CUDA graph? Yes on a CUDA device,
+    unless a step reads the host or draws from other keys than the last:
+    boundary=True (the edge-sampled terms run the batch integrator and the
+    lockstep find, which read the host), correlated=False (step i draws
+    from sampler.fold_in(i): a replay would draw step 1's numbers again),
+    the mesh find forced to K1 / K2's plain version (kernels/
+    mesh_traverse.traverse_clusters swapped for traverse_clusters_plain,
+    as a comparison does: it reads a count a visit round), a scene whose
+    finds read the host (scene/ir.py:finds_read_host) and more than one
+    worker (parallel/shard.py's sharded step). Those run eagerly. The
+    route follows from the configuration alone, never from a failure."""
+    return (torch.device(device).type == "cuda" and not boundary
+            and correlated and workers == 1
+            and kmod.traverse_clusters is not kmod.traverse_clusters_plain
+            and not scene_ir.finds_read_host(scene))
+
+
+def _run_step(step, graph):
+    """One fit step: step() eagerly (graph None) or by the fit's graph ->
+    the loss, a 0-d tensor (after a replay the graph's own, valid until the
+    next step)."""
+    if graph is None:
+        return step()
+    with torch.cuda.device(graph.device):
+        return graph(step)
+
+
 def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
                   steps: int = 50, lr: float = 2e-2, n_samples: int = 4,
                   max_depth: int = 6, sampler=None,
                   fit_vertices: bool = False, verbose: bool = True,
                   correlated: bool = True, boundary: bool = False,
                   boundary_samples: int = 4096,
-                  shadow_light=None) -> FitResult:
+                  shadow_light=None, eager: bool = False) -> FitResult:
     """Adam fit of the material parameters (and the mesh vertices with
     fit_vertices) to a target image, target (W*H, 3) linear radiance on the
     scene's device. losses[i] is the loss at the parameters step i started
@@ -176,13 +215,34 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
     term (diff/edges.py:boundary_grad) to each mesh's vertex gradient;
     shadow_light, a (3,) emitter position, adds the shadow-silhouette term
     as well (shadow_boundary_grad). Without them the vertices feel only the
-    smooth shading-chain gradient."""
+    smooth shading-chain gradient.
+
+    On fit_route's CUDA route step 0 runs eagerly (the warm-up: it builds
+    the kernels and creates Adam's state), step 1 is captured into a CUDA
+    graph and replayed at once, and every later step is a replay: the
+    forward, the backward, Adam's update and project_materials. The
+    parameters, their gradients and the loss are the graph's static
+    buffers, and the loss is read once a step, as the JAX package's loop
+    reads it. Otherwise, or with eager=True (a comparison switch), every
+    step runs eagerly. Both routes give the same losses and parameters bit
+    for bit where the device's sums are deterministic."""
     if sampler is None:
         sampler = Sampler(0, target.device)
     params, rebuild = select_params(scene, fit_vertices)
     leaves = list(params["materials"].values()) + list(
         params.get("verts", []))
-    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    # every gradient is a buffer of its own, zeroed and summed into by each
+    # step. A parameter outside the render keeps a zero gradient: optax
+    # updates it as such (its step count advances), torch's Adam would
+    # skip a parameter without one
+    for p in leaves:
+        p.grad = torch.zeros_like(p)
+    # optax.adam's defaults. On a card capturable (the step count and the
+    # bias corrections on the device) on both routes, so that an eager
+    # step does a replayed one's arithmetic
+    device = leaves[0].device
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=device.type == "cuda")
     edge_tables = None
     if boundary and fit_vertices:
         from . import edges as edge_mod
@@ -231,24 +291,25 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
             out.append(g)
         return out
 
-    losses = []
-    for i in range(steps):
-        k = sampler if correlated else sampler.fold_in(i)
-        opt.zero_grad(set_to_none=True)
+    def step(k) -> torch.Tensor:
+        for p in leaves:
+            p.grad.zero_()
         loss = render_loss(params, rebuild, camera, width, height, k,
                            n_samples, target, max_depth)
         loss.backward()
         if edge_tables is not None:
             for v, b in zip(params["verts"], boundary_terms(k)):
-                v.grad = b if v.grad is None else v.grad + b
-        for p in leaves:
-            # optax updates a parameter with no gradient as one with a zero
-            # gradient (its step count advances); torch's Adam would skip it
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+                v.grad.add_(b)
         opt.step()
         project_materials(params)
-        losses.append(float(loss.detach()))
+        return loss.detach()
+
+    graph = (kbuild.GraphReplay(device) if not eager and fit_route(
+        scene, device, boundary, correlated) else None)
+    losses = []
+    for i in range(steps):
+        k = sampler if correlated else sampler.fold_in(i)
+        losses.append(float(_run_step(lambda: step(k), graph)))
         if verbose and (i % max(1, steps // 10) == 0 or i == steps - 1):
             print(f"fit step {i}: loss {losses[-1]:.6f}")
     with torch.no_grad():

@@ -124,11 +124,15 @@ def trace_diff(scene: scene_ir.SceneIR, rays: Rays, sampler,
     replayed from the winning triangle (mesh_backend "kernel_replay", the
     default: K1 / K2 over the mesh's tables; "lockstep": the lockstep
     find over the live vertices), and scatter's choices are detached.
-    rng_span: as in `trace`."""
+    Every draw is threefry's (core/rng.py), none torch's generator's, so
+    the checkpoints stash no generator state (preserve_rng_state=False):
+    that changes no number, and a fit step captured into a CUDA graph
+    (diff/fit.py) reads no generator's state. rng_span: as in `trace`."""
     carry = _start(rays)
     for bounce in range(max_depth):
         carry = checkpoint(_bounce, scene, sampler, mesh_backend, rng_span,
-                           bounce, *carry, use_reentrant=False)
+                           bounce, *carry, use_reentrant=False,
+                           preserve_rng_state=False)
     return carry[2]
 
 

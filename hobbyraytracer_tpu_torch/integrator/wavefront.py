@@ -375,19 +375,15 @@ def _static_block(state: PoolState, it: torch.Tensor,
     return counts
 
 
-class _BlockGraph:
-    """One render's block as a CUDA graph: run eagerly the first time (the
-    warm-up), captured the second, replayed from then on.
+class _BlockGraph(kbuild.GraphReplay):
+    """One render's block as a CUDA graph (kernels/build.py:GraphReplay):
+    run eagerly the first time (the warm-up), captured the second,
+    replayed from then on, the launch counts kept equal to an eager
+    render's.
 
     The state's tensors are the static buffers (_static_block). `it` is
     the 0-d int32 device tensor of the iteration, set from the state's
-    host int before each block and advanced by the block itself. The
-    warm-up runs the very function the capture records, so every kernel
-    is built and loaded and the allocator holds the block's sizes before
-    the capture starts. A kernel wrapper counts its launch when the capture
-    records it, where nothing runs: the capture's counts are taken back and
-    added again at every replay, so a render counts what the eager render
-    counts.
+    host int before each block and advanced by the block itself.
 
     Every block runs with the state's device current, and the capture is
     made on a stream of that device, whichever card is current when the
@@ -395,24 +391,8 @@ class _BlockGraph:
     card meanwhile (the CLI's checkpoint writer fetching a snapshot)."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        super().__init__(device)
         self.it = torch.zeros((), dtype=torch.int32, device=self.device)
-        self.stream = torch.cuda.Stream(self.device)
-        self.warm = False
-        self.graph = None
-        self.counts = []
-        self.launches = {}
-
-    def _capture(self, state: PoolState, block) -> None:
-        before = {lib: lib.launches for lib in kbuild.LIBRARIES}
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            self.counts = _static_block(state, self.it, block)
-        for lib, n in before.items():
-            if lib.launches != n:
-                self.launches[lib] = lib.launches - n
-                lib.launches = n
 
     def run(self, state: PoolState, block) -> list:
         """Advance the state by one block -> each iteration's retired count
@@ -421,17 +401,8 @@ class _BlockGraph:
             raise ValueError(f"the block graph of {self.device} was given a "
                              f"state on {state.fb.device}")
         with torch.cuda.device(self.device):
-            if self.warm and self.graph is None:
-                self._capture(state, block)
             self.it.fill_(state.it)
-            if self.graph is None:
-                counts = _static_block(state, self.it, block)
-                self.warm = True
-            else:
-                self.graph.replay()
-                for lib, n in self.launches.items():
-                    lib.launches += n
-                counts = self.counts
+            counts = self(lambda: _static_block(state, self.it, block))
         state.it += len(counts)
         return counts
 

@@ -7,6 +7,11 @@ at the repository root (listed in .gitignore) and loaded with ctypes; it is
 rebuilt when its source or a header is newer than the library. A failed
 build raises with nvcc's stderr: there is no fallback. ptxas reports each
 kernel's registers and spills on a build (`KernelLibrary.ptxas_info`).
+
+`GraphReplay` runs a function through a CUDA graph and keeps the launch
+counts of a replayed graph equal to an eager run's (the render's blocks,
+integrator/wavefront.py:_BlockGraph, and the fit's steps,
+diff/fit.py:fit_materials).
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import tempfile
 import threading
 import time
 import weakref
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -33,7 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 # every KernelLibrary alive, so that a replayed CUDA graph can add the
-# launches it captured to each (integrator/wavefront.py:_BlockGraph)
+# launches it captured to each (GraphReplay)
 LIBRARIES = weakref.WeakSet()
 
 
@@ -129,3 +136,53 @@ class KernelLibrary:
                 self._lib = ctypes.CDLL(self.path)
             return self._lib
 
+
+class GraphReplay:
+    """A function of no arguments run through one CUDA graph: eagerly the
+    first time (the warm-up), captured the second and replayed at once,
+    replayed from then on. The function must run the same work on the same
+    tensors every time, reading no host value and copying nothing from the
+    host: the graph replays what the capture recorded. The warm-up runs
+    that very function, so every kernel is built and loaded and the
+    allocator holds its sizes before the capture starts.
+
+    A kernel wrapper counts its launch when the capture records it, where
+    nothing runs: the capture's counts are taken back and added again at
+    every replay, so the counts are an eager run's. The capture is made on
+    a stream of `device` in thread-local mode: another thread may use the
+    card meanwhile. A failed capture or replay raises; nothing runs the
+    function eagerly in its place."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.warm = False
+        self.graph = None
+        self.out = None
+        self.launches = {}
+
+    def _capture(self, fn) -> None:
+        before = {lib: lib.launches for lib in LIBRARIES}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            self.out = fn()
+        for lib, n in before.items():
+            if lib.launches != n:
+                self.launches[lib] = lib.launches - n
+                lib.launches = n
+
+    def __call__(self, fn):
+        """fn() by this graph's turn -> its result (after a replay, the
+        graph's own tensors, valid until the next replay). The caller makes
+        `device` current."""
+        if self.warm and self.graph is None:
+            self._capture(fn)
+        if self.graph is None:
+            out = fn()
+            self.warm = True
+            return out
+        self.graph.replay()
+        for lib, n in self.launches.items():
+            lib.launches += n
+        return self.out

@@ -5,8 +5,8 @@ MatVec3/MatScalar (constant-or-texture) become (constant, tex_id) pairs
 with tex_id == -1 meaning "use the constant". All seven lobes of the
 reference are here: lambertian, metal, dielectric, diffuse_light,
 isotropic, PBR and UVTest. The reference gathers every per-lane material
-channel as one packed row (a TPU cost choice); plain indexing gives the
-same values here.
+channel as one packed row (a TPU cost choice); here each channel is its own
+`index_select` (`rows`), the same values.
 """
 from __future__ import annotations
 
@@ -96,6 +96,15 @@ def build_table(specs, tex_ttypes=None) -> MaterialTable:
         tex_types=tex_types)
 
 
+def rows(table: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+    """table[mid]: the material rows of each lane, bit for bit, as an
+    index_select. Its backward is an index_add_ into the table, where
+    indexing's is the sort-based index_put_(accumulate=True), which sums
+    the duplicates of an index one after another: a wavefront falls into a
+    handful of materials, so every index has thousands of them."""
+    return torch.index_select(table, 0, mid)
+
+
 def _vec3_value(constant, tex_id, tab, u, v, p, textured, types):
     """MatVec3::valueAt — the constant unless tex_id >= 0."""
     if not textured:
@@ -121,13 +130,14 @@ def emitted(mats: MaterialTable, tab: tex_ops.TextureTable,
                            device=hits.t.device)
     mid = torch.clamp(hits.mat_id, min=0).long()
     u, v = hits.uv[..., 0], hits.uv[..., 1]
-    alb = _vec3_value(mats.albedo[mid], mats.albedo_tex[mid], tab, u, v,
-                      hits.p, "albedo" in mats.textured, mats.tex_types)
-    s = _scalar_value(mats.strength[mid], mats.strength_tex[mid], tab, u,
-                      v, hits.p, "strength" in mats.textured,
+    alb = _vec3_value(rows(mats.albedo, mid), rows(mats.albedo_tex, mid),
+                      tab, u, v, hits.p, "albedo" in mats.textured,
+                      mats.tex_types)
+    s = _scalar_value(rows(mats.strength, mid), rows(mats.strength_tex, mid),
+                      tab, u, v, hits.p, "strength" in mats.textured,
                       mats.tex_types)
     e = alb * s[..., None]
-    is_light = (mats.mtype[mid] == MAT_DIFFUSE_LIGHT) & hits.hit
+    is_light = (rows(mats.mtype, mid) == MAT_DIFFUSE_LIGHT) & hits.hit
     return torch.where(is_light[..., None], e, torch.zeros_like(e))
 
 
@@ -146,7 +156,7 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
     n = hits.t.shape[0]
     dev = hits.t.device
     mid = torch.clamp(hits.mat_id, min=0).long()
-    mt = mats.mtype[mid]
+    mt = rows(mats.mtype, mid)
     u, v = hits.uv[..., 0], hits.uv[..., 1]
     p = hits.p
     nrm = hits.normal
@@ -157,12 +167,13 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
     has_pbr = MAT_PBR in present
     has_uvtest = MAT_UVTEST in present
 
-    albedo = _vec3_value(mats.albedo[mid], mats.albedo_tex[mid], tab, u, v,
-                         p, "albedo" in mats.textured, mats.tex_types)
+    albedo = _vec3_value(rows(mats.albedo, mid), rows(mats.albedo_tex, mid),
+                         tab, u, v, p, "albedo" in mats.textured,
+                         mats.tex_types)
     if has_metal or has_dielectric or has_pbr:
-        rough = _scalar_value(mats.roughness[mid], mats.roughness_tex[mid],
-                              tab, u, v, p, "roughness" in mats.textured,
-                              mats.tex_types)
+        rough = _scalar_value(rows(mats.roughness, mid),
+                              rows(mats.roughness_tex, mid), tab, u, v, p,
+                              "roughness" in mats.textured, mats.tex_types)
     else:
         rough = torch.zeros((n,), dtype=torch.float32, device=dev)
 
@@ -203,7 +214,7 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
         # the reference passes them
         u_choice = sampler.uniform(rng_mod.DIELECTRIC_CHOICE, bounce, (n,),
                                    span)
-        ior = mats.ior[mid]
+        ior = rows(mats.ior, mid)
         ratio = torch.where(hits.front_face, 1.0 / ior, ior)
         cos_t = torch.clamp(mathx.dot(-unit_d, nrm), max=1.0)
         sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
@@ -226,9 +237,9 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
     if has_pbr:
         # PBR (material.cpp:4-27): |metallness value| > 0.5 -> the metal
         # lobe, else lambertian; both share the albedo
-        metl = _scalar_value(mats.metallness[mid], mats.metallness_tex[mid],
-                             tab, u, v, p, "metallness" in mats.textured,
-                             mats.tex_types)
+        metl = _scalar_value(rows(mats.metallness, mid),
+                             rows(mats.metallness_tex, mid), tab, u, v, p,
+                             "metallness" in mats.textured, mats.tex_types)
         sel = (mt == MAT_PBR) & (metl.abs() > 0.5)
         new_d = torch.where(sel[..., None], met_dir, new_d)
         ok = torch.where(sel, met_ok, ok)

@@ -24,7 +24,8 @@ the reference splits it over its mesh:
 
 The workers of one process run one after another from one host thread, so
 several workers on one card do not run faster than one. Across processes
-(init_multihost: torch.distributed, one process group), global worker g =
+(init_multihost: torch.distributed, one process group, left again by
+shutdown_multihost), global worker g =
 rank * len(mesh) + i; the framebuffer, the batch image and the fit's
 gradients and loss are summed over the processes (all_reduce) once at the
 end of a render or a backward, as DDP does. The backend is the caller's:
@@ -63,6 +64,14 @@ def init_multihost(coordinator: Optional[str] = None,
         return
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group that init_multihost joined, if any: every
+    process of a group must, or one of them may abort at exit while the
+    group's threads are still up. A no-op without a group."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _process():

@@ -12,10 +12,15 @@ the name does not start with test_).
 - `Noise`: seeded numpy noise per (purpose, iteration), fed identically
   to the port (through a Sampler subclass) and to the JAX package
   (through a monkeypatch of hobbyraytracer_tpu.core.rng; for the fit's
-  per-sample keys, also of jax.random.uniform and jax.checkpoint).
+  per-sample keys, also of jax.random.uniform and jax.checkpoint);
+- `no_host_reads`: a guard that fails on any host read outside the
+  kernel wrappers (what a CUDA graph's capture must not meet), and
+  FOG_YAML, a scene whose medium is bounded by a mesh (its finds read the
+  host).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import zlib
 
@@ -23,6 +28,8 @@ import numpy as np
 import torch
 
 from hobbyraytracer_tpu_torch.core.rng import Sampler
+from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
 from hobbyraytracer_tpu_torch.kernels.mesh_traverse import (
     pack_bounds, pack_mesh_soa, pack_mesh_stream)
 from hobbyraytracer_tpu_torch.scene import objloader
@@ -33,6 +40,67 @@ SCENES = os.path.join(ROOT, "scenes")
 TEAPOT = os.path.join(SCENES, "teapot_scene.yaml")
 HIRES = os.path.join(SCENES, "teapot_hires.yaml")
 BALLS = os.path.join(SCENES, "scattered_balls.yaml")
+
+
+# a constant medium bounded by a mesh (format it with the mesh's path)
+FOG_YAML = """
+film: {width: 16, height: 16, samples: 1, output: fog.png}
+camera: {position: [0, 2.5, 8.5], look_at: [0, 2.5, 0], up: [0, 1, 0],
+         fov: 45, aperture: 0.0, focal_distance: 8.5,
+         background: [0.6, 0.7, 0.9]}
+materials:
+  - {name: white, type: lambertian, albedo: [0.73, 0.73, 0.73]}
+objects:
+  - {type: xz_rect, x: [-2.5, 2.5], z: [-2.5, 2.5], k: 0, material: white}
+  - type: constant_medium
+    density: 2.0
+    albedo: [0.9, 0.9, 0.9]
+    boundary: {type: mesh, path: %s}
+"""
+
+HOST_READS = ("item", "__bool__", "__int__", "__float__", "__index__",
+              "tolist", "nonzero")
+# the kernel wrappers: one launch on the card, so their plain versions,
+# which stand in for them on the CPU, may read the host
+KERNEL_WRAPPERS = ((kmod, "traverse_clusters"), (kmod, "coherence_keys"),
+                   (skmod, "intersect_spheres_kernel"))
+
+
+@contextlib.contextmanager
+def no_host_reads(monkeypatch, allowed=()):
+    """Inside the block, Tensor.item / __bool__ / __int__ / __float__ /
+    __index__ / tolist / nonzero and torch.nonzero raise, except inside a
+    kernel wrapper or one of `allowed`, (owner, attribute) pairs of other
+    functions that may."""
+    state = {"armed": False, "inside": 0}
+
+    def guard(name, orig):
+        def f(*args, **kwargs):
+            if state["armed"] and not state["inside"]:
+                raise AssertionError(f"the block read the host: {name}")
+            return orig(*args, **kwargs)
+        return f
+
+    def lifted(orig):
+        def f(*args, **kwargs):
+            state["inside"] += 1
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                state["inside"] -= 1
+        return f
+
+    for name in HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name,
+                            guard(name, getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch, "nonzero", guard("nonzero", torch.nonzero))
+    for owner, name in KERNEL_WRAPPERS + tuple(allowed):
+        monkeypatch.setattr(owner, name, lifted(getattr(owner, name)))
+    state["armed"] = True
+    try:
+        yield
+    finally:
+        state["armed"] = False
 
 
 def np_tree(x):

@@ -1,8 +1,8 @@
 """The CUDA kernels of the port on the card: K1 (resident table), K2
 (streaming table), K3 (coherence keys), K4 (clustered sphere find) and
 threefry (the draws), each against its plain PyTorch version, and K2
-against K1; and the wavefront render replayed from a CUDA graph against
-the eager render. All are built with -fmad=false and round op
+against K1; the wavefront render and the fit's steps replayed from a CUDA
+graph against the eager render and fit. All are built with -fmad=false and round op
 for op as PyTorch does, so kernel and plain version are equal (tolerance
 0), not only within the parity tolerances. Every test here needs a CUDA
 card and skips without one; the file imports neither JAX nor the JAX
@@ -23,7 +23,7 @@ from hobbyraytracer_tpu_torch.kernels import sphere_traverse as sk
 from hobbyraytracer_tpu_torch.scene.bvh import build_sphere_clusters
 from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
 
-from _torch_parity import (BALLS, HIRES, TEAPOT, aimed_rays,
+from _torch_parity import (BALLS, HIRES, SCENES, TEAPOT, aimed_rays,
                            assert_find_match, balls_pool, cluster_tables,
                            hires_tables, pack_rays8, random_mesh, random_rays,
                            refill_rays, sphere_pool, teapot_tables)
@@ -1017,3 +1017,117 @@ def test_graph_route_resume_and_checkpoints(dev, tmp_path):
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(out.fb, ref.fb) and out.it == ref.it
+
+
+# --- the fit step through a CUDA graph (diff/fit.py:fit_materials) ----------
+
+def _counted_graphs(monkeypatch):
+    """Count the graphs that kernels/build.py:GraphReplay captures."""
+    from hobbyraytracer_tpu_torch.kernels import build as kbuild
+    captured = []
+
+    class Counted(kbuild.GraphReplay):
+        def _capture(self, fn):
+            captured.append(1)
+            return super()._capture(fn)
+
+    monkeypatch.setattr(kbuild, "GraphReplay", Counted)
+    return captured
+
+
+def _fit_job(dev, path, size, spp, depth, fit_vertices):
+    """(start scene, camera, target) of a small fit on the card: the
+    materials perturbed as the CLI perturbs them and, for a vertex fit,
+    the target at half the scene's radiance (the vertices have somewhere
+    to go)."""
+    from hobbyraytracer_tpu_torch.cli.main import perturb_materials
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    job = build_scene(load_scene_desc(path))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    with torch.no_grad():
+        target = fit_mod.render_linear(scene, camera, *size, Sampler(0, dev),
+                                       spp, depth)
+    if fit_vertices:
+        return scene, camera, target * 0.5
+    return perturb_materials(scene), camera, target
+
+
+@pytest.mark.parametrize("path,size,spp,depth,steps,fit_vertices", [
+    (f"{SCENES}/shiny_teapot.yaml", (60, 34), 2, 4, 5, False),
+    (HIRES, (32, 32), 1, 3, 3, True)], ids=["shiny_teapot", "hires_vertices"])
+def test_graph_fit_equals_eager(dev, monkeypatch, path, size, spp, depth,
+                                steps, fit_vertices):
+    """fit_materials through its CUDA graph (step 0 eager, step 1 captured
+    and replayed, the rest replayed) against eager=True under
+    deterministic algorithms: the losses, the fitted parameters (the
+    vertices of teapot_hires's fit, whose 32-row tables are refreshed
+    inside every step, through K2) and every kernel's launches equal; one
+    graph captured by the graph fit, none by the eager one."""
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    captured = _counted_graphs(monkeypatch)
+    scene, camera, target = _fit_job(dev, path, size, spp, depth,
+                                     fit_vertices)
+    assert fit_mod.fit_route(scene, dev)
+    libs = (pk.KERNEL, pk.KERNEL_STREAM, tf.THREEFRY)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for eager in (True, False):
+            for lib in libs:
+                lib.launches = 0
+            captured.clear()
+            res = fit_mod.fit_materials(
+                scene, camera, target, *size, steps=steps, n_samples=spp,
+                max_depth=depth, sampler=Sampler(0, dev),
+                fit_vertices=fit_vertices, verbose=False, eager=eager)
+            out[eager] = (res, [lib.launches for lib in libs], len(captured))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, la, ca), (b, lb, cb) = out[True], out[False]
+    assert (ca, cb) == (0, 1)
+    assert np.array_equal(a.losses, b.losses) and np.isfinite(a.losses).all()
+    for name in fit_mod.MAT_FIELDS:
+        assert torch.equal(a.params["materials"][name],
+                           b.params["materials"][name]), name
+    for va, vb in zip(a.params.get("verts", []), b.params.get("verts", [])):
+        assert torch.equal(va, vb)
+    assert la == lb and la[2] > 0
+    assert (la[1] > 0) == fit_vertices and (la[0] > 0) != fit_vertices
+
+
+def test_cli_fit_takes_the_graph_route(dev, monkeypatch, capsys):
+    """`fit --device cuda` (cli/main.py:fit_demo) at a small size: one graph
+    captured, the route printed, the loss falls."""
+    from hobbyraytracer_tpu_torch.cli import main as cli
+    captured = _counted_graphs(monkeypatch)
+    assert cli.main(["fit", f"{SCENES}/shiny_teapot.yaml", "--device",
+                     "cuda", "--steps", "4", "--width", "48", "--height",
+                     "27"]) == 0
+    assert captured == [1]
+    assert "4 steps on 1 worker(s), through a CUDA graph" in (
+        capsys.readouterr().out)
+
+
+def test_fit_capture_that_reads_the_host_raises(dev, monkeypatch):
+    """A fit step that reads a value on the host cannot be captured: the
+    capture raises, and fit_materials raises with it instead of going on
+    eagerly (the warm-up step, which is eager, reads it freely)."""
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    render_loss = fit_mod.render_loss
+    calls = []
+
+    def reading(*args, **kwargs):
+        loss = render_loss(*args, **kwargs)
+        calls.append(float(loss))
+        return loss
+
+    monkeypatch.setattr(fit_mod, "render_loss", reading)
+    scene, camera, target = _fit_job(dev, f"{SCENES}/shiny_teapot.yaml",
+                                     (32, 18), 1, 2, False)
+    with pytest.raises(RuntimeError):
+        fit_mod.fit_materials(scene, camera, target, 32, 18, steps=3,
+                              n_samples=1, max_depth=2,
+                              sampler=Sampler(0, dev), verbose=False)
+    assert len(calls) == 1
+    torch.cuda.synchronize()

@@ -393,3 +393,50 @@ def test_cli_two_processes(tmp_path, capsys):
     assert main(common + ["-o", two, "--device", "cpu", "--num-processes",
                           "2", "--checkpoint", str(tmp_path / "ck.npz")]) == 1
     assert "not supported across processes" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("outcome", ["ok", "error"])
+@pytest.mark.parametrize("cmd", ["render", "fit"])
+def test_cli_leaves_its_process_group(monkeypatch, tmp_path, cmd, outcome):
+    """`render` and `fit` with --num-processes 2 leave the process group
+    they joined, when they return (rc 0) and when they raise. The group is
+    a real one-process gloo group standing in for rank 0 of two (each
+    process of a real pair must leave, or one may abort at exit): the test
+    records init_process_group and destroy_process_group and checks that
+    no group is left."""
+    import torch.distributed as dist
+
+    from hobbyraytracer_tpu_torch.cli.main import main
+    calls = []
+    init, destroy = dist.init_process_group, dist.destroy_process_group
+
+    def recorded_init(backend, init_method, world_size, rank):
+        calls.append(("init", backend, world_size, rank))
+        init(backend, init_method=f"tcp://localhost:{_free_port()}",
+             world_size=1, rank=0)
+
+    def recorded_destroy(*args, **kwargs):
+        calls.append(("destroy",))
+        destroy(*args, **kwargs)
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("the command failed")
+
+    monkeypatch.setattr(dist, "init_process_group", recorded_init)
+    monkeypatch.setattr(dist, "destroy_process_group", recorded_destroy)
+    if outcome == "error":
+        monkeypatch.setattr(shard, "render_wavefront_sharded", boom)
+        monkeypatch.setattr(pfit, "fit_materials", boom)
+    scene = CORNELL if cmd == "render" else f"{SCENES}/shiny_teapot.yaml"
+    argv = [cmd, scene, "--spp", "2", "--width", "16", "--height", "16",
+            "--max-depth", "3", "--device", "cpu", "--num-processes", "2",
+            "--coordinator", "localhost:1", "--process-id", "0"]
+    argv += (["-o", str(tmp_path / "out.png"), "--pool", "64"]
+             if cmd == "render" else ["--steps", "2"])
+    if outcome == "ok":
+        assert main(argv) == 0
+    else:
+        with pytest.raises(RuntimeError, match="the command failed"):
+            main(argv)
+    assert calls == [("init", "gloo", 2, 0), ("destroy",)]
+    assert not dist.is_initialized()

@@ -14,7 +14,6 @@ across from the JAX build (scene/convert.py):
     block bit for bit; the state's tensors serve as static buffers across
     blocks; the route is chosen by rule.
 """
-import contextlib
 import dataclasses
 
 import jax
@@ -31,14 +30,13 @@ from hobbyraytracer_tpu.scene import load_scene_desc as jax_load_scene_desc
 from hobbyraytracer_tpu_torch.core.rng import Sampler
 from hobbyraytracer_tpu_torch.core.types import Rays
 from hobbyraytracer_tpu_torch.integrator import wavefront as pwf
-from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
-from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
 from hobbyraytracer_tpu_torch.ops import intersect as pisect
 from hobbyraytracer_tpu_torch.scene import convert
 from hobbyraytracer_tpu_torch.scene import ir as pir
 
-from _torch_parity import (BALLS, TEAPOT, Noise, NoiseSampler, jax_camera_arrays,
-                           jax_scene_arrays, patch_jax_rng)
+from _torch_parity import (BALLS, FOG_YAML, TEAPOT, Noise, NoiseSampler,
+                           jax_camera_arrays, jax_scene_arrays, no_host_reads,
+                           patch_jax_rng)
 
 torch.set_num_threads(2)
 
@@ -707,50 +705,6 @@ def test_new_scenes_render_match_jax_statistically(two_teapots, smoke,
 
 # --- the graph route (integrator/wavefront.py:_pool_run) --------------------
 
-_HOST_READS = ("item", "__bool__", "__int__", "__float__", "__index__",
-               "tolist", "nonzero")
-# the kernel wrappers: one launch on the card, so their plain versions,
-# which stand in for them on the CPU, may read the host
-_KERNEL_WRAPPERS = ((kmod, "traverse_clusters"), (kmod, "coherence_keys"),
-                    (skmod, "intersect_spheres_kernel"))
-
-
-@contextlib.contextmanager
-def _no_host_reads(monkeypatch):
-    """Inside the block, Tensor.item / __bool__ / __int__ / __float__ /
-    __index__ / tolist / nonzero and torch.nonzero raise, except inside a
-    kernel wrapper."""
-    state = {"armed": False, "inside": 0}
-
-    def guard(name, orig):
-        def f(*args, **kwargs):
-            if state["armed"] and not state["inside"]:
-                raise AssertionError(f"the block read the host: {name}")
-            return orig(*args, **kwargs)
-        return f
-
-    def lifted(orig):
-        def f(*args, **kwargs):
-            state["inside"] += 1
-            try:
-                return orig(*args, **kwargs)
-            finally:
-                state["inside"] -= 1
-        return f
-
-    for name in _HOST_READS:
-        monkeypatch.setattr(torch.Tensor, name,
-                            guard(name, getattr(torch.Tensor, name)))
-    monkeypatch.setattr(torch, "nonzero", guard("nonzero", torch.nonzero))
-    for mod, name in _KERNEL_WRAPPERS:
-        monkeypatch.setattr(mod, name, lifted(getattr(mod, name)))
-    state["armed"] = True
-    try:
-        yield
-    finally:
-        state["armed"] = False
-
-
 _STATE_FIELDS = ("fb", "o", "d", "thr", "rad", "item", "depth", "sub",
                  "defer", "counter", "retired")
 
@@ -782,7 +736,7 @@ def test_block_with_device_iteration_reads_no_host(monkeypatch, request,
         pwf._issue_block(ref, *_block_args(scene, camera, 2, 3))
     it = torch.tensor(ref.it, dtype=torch.int32)
     dev = _clone(ref, it)
-    with _no_host_reads(monkeypatch):
+    with no_host_reads(monkeypatch):
         counts_d = pwf._issue_block(dev, *_block_args(scene, camera, 2, 4))
     counts_h = pwf._issue_block(ref, *_block_args(scene, camera, 2, 4))
     assert dev.it is it and int(it) == ref.it
@@ -814,22 +768,6 @@ def test_static_block_keeps_the_state_s_buffers(teapot):
     for f in _STATE_FIELDS:
         assert getattr(static, f) is buffers[f], f
         assert torch.equal(getattr(static, f), getattr(eager, f)), f
-
-
-FOG_YAML = """
-film: {width: 16, height: 16, samples: 1, output: fog.png}
-camera: {position: [0, 2.5, 8.5], look_at: [0, 2.5, 0], up: [0, 1, 0],
-         fov: 45, aperture: 0.0, focal_distance: 8.5,
-         background: [0.6, 0.7, 0.9]}
-materials:
-  - {name: white, type: lambertian, albedo: [0.73, 0.73, 0.73]}
-objects:
-  - {type: xz_rect, x: [-2.5, 2.5], z: [-2.5, 2.5], k: 0, material: white}
-  - type: constant_medium
-    density: 2.0
-    albedo: [0.9, 0.9, 0.9]
-    boundary: {type: mesh, path: %s}
-"""
 
 
 def test_graph_route_is_chosen_by_rule(monkeypatch, tmp_path, teapot,
