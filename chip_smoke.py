@@ -92,8 +92,23 @@ p. render scenes/cornell_smoke.yaml (two box media, a glass sphere) at its
    the tonemapped mean against a JAX CPU render; then a scene built here
    with the teapot mesh as a medium's boundary, for a few segments at the
    full pool: finite, and the medium scatters a counted number of rays;
-q. integrator/path.py:render_image (the batch integrator) on the teapot at
-   128x128, 16 spp against the wavefront integrator: means within 10%;
+q. the batch integrator (integrator/path.py:radiance_sum, which
+   render_image, render_sharded, the CLI's `--integrator batch` and `bench`
+   call): the teapot at 640x640 @ 16 spp, depth 50, in the CLI's chunks of
+   4 samples, by both routes in turns (eager, graph, eager, graph; eager
+   runs BatchRun's steps without graphs) under deterministic algorithms:
+   the radiance sums bitwise equal, K1's and threefry's launches equal,
+   ceil(50 / B) + 2 graphs captured a graph render (B = BOUNCE_BLOCK), the
+   tonemapped mean against a JAX CPU batch render; rays/s, ms a bounce,
+   the captures' ms and the peak memory of each; then under one profiler
+   a sample (ProfiledWindows) the launches the card ran against the
+   counters, and the busy time and idle share by route; K1 against its
+   plain version on the 409,600 rays of a batch sample's second bounce, as
+   the find gives them; at 96x96 @ 3 spp graph = eager bitwise with launches
+   equal for cornell_smoke (draws of five folds after the key slot), the
+   balls through K4 and teapot_hires through K2, the teapot also against
+   `trace`'s per-bounce loop and render_sharded over two workers on the
+   card against one;
 r. refresh_kernel_tables (what a vertex fit runs every step) on the card:
    the teapot's 24-row and teapot_hires's 32-row tables, refreshed at the
    build's vertices, equal the CPU refresh byte for byte; with the vertices
@@ -159,8 +174,10 @@ cc. procgen's teapot_hires and fixtures.ensure_assets written into a
    temporary directory: byte for byte the repository's assets/;
 dd. (run after m) the graph route: threefry.cu against its plain version
    bit for bit (bits and uniforms; 1 to 196,608 elements at counter
-   offsets, with and without a device iteration, with 0 to 4 folds after
-   it), timed at the pool's 196,608 lanes beside torch.rand; teapot,
+   offsets, the key words as host values and in a key slot on the card,
+   with and without a device iteration, with 0 to 6 folds after it), timed
+   at the pool's 196,608 lanes beside torch.rand and at the batch route's
+   longest draw (slot words, 5 folds, 409,600 lanes); teapot,
    teapot_hires (and again with HRT_KEY_MODE "pallas": K3), scattered_balls
    through K4 and two_teapots rendered at 640x640 @ 16 spp eagerly
    (eager=True) and through the CUDA graph under
@@ -196,12 +213,14 @@ phase starts. A line `[fit numbers] {...}` holds phases s-u's numbers, a
 line `[fit graph numbers] {...}` phase ee's, a line
 `[checkpoint and workers numbers] {...}` those of phases w-z, a line
 `[long tail numbers] {...}` those of phases aa-cc, a line `[graph
-numbers] {...}` those of phase dd. A render's segments are the iterations
+numbers] {...}` those of phase dd, a line `[batch numbers] {...}` those
+of phase q. A render's segments are the iterations
 it issued (each block's, the replayed ones included). The
 second-to-last line is a JSON object with each kernel's numbers: its
 launches in its path's render (K1: the two_teapots render by the default
-route, K2: teapot_hires's, with their counts on the other paths, the fit's
-and the two workers' among them, under `launches_by_path`), its
+route, K2: teapot_hires's, with their counts on the other paths, the fit's,
+the two workers' and the batch integrator's among them, under
+`launches_by_path`), its
 time and its plain version's at 196,608 rays, and `bound_ms`, the least time the card could take for the same work
 (the larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
 of float32; the operations are those this run's rays need: one scan of the
@@ -214,10 +233,14 @@ four functions, so `library_ms` is null. The threefry row replaces no
 Pallas kernel (jax.random is XLA): its `launches` are the teapot render's
 (phase 4), its times are device time a call over 100 calls under
 torch.profiler (CUDA events around one call of a few-microsecond kernel
-time the host), its bound counts 79 integer operations a threefry2x32, two an
-element (the device iteration's fold and the element's) and 11 more, at
-the float32 rate of 67 TFLOP/s (no integer peak is taken), and its
-`library_ms` is torch.rand on the same shape, which draws other bits.
+time the host), its bound counts 79 integer operations a threefry2x32,
+one an element and 11 more, and one for the device iteration's fold (the
+key is the draw's, not the element's), at the float32 rate of 67 TFLOP/s
+(no integer peak is taken), and its `library_ms` is torch.rand on the
+same shape, which draws other bits; `batch_draw_ms` and
+`batch_draw_bound_ms` are the same for the batch route's longest draw
+(slot words and five folds, 409,600 uniforms: one threefry2x32 an element
+and five for the key).
 The last line is {"ok": true, "device": {...}}.
 """
 import hashlib
@@ -317,18 +340,38 @@ objects:
         translate: [0, 1, 0]
         scale: [0.45, 0.45, 0.45]
 """
-# phase q: the batch integrator's render and the band of its mean around
-# the wavefront integrator's (tests/test_wavefront.py's radiometry check)
-BATCH_SIZE = 128
-BATCH_BAND = 0.10
+# phase q, the batch integrator (integrator/path.py) at the main path's
+# size: max depth 50, no Russian roulette, the CLI's chunks of 2,000,000 //
+# (W * H) samples. Its tonemapped mean is held to the JAX package's batch
+# render on the CPU (scripts/jax_cpu_means.py scenes/teapot_scene.yaml
+# --integrator batch --spp 16 --runs 64:0 64:1 96:0 96:1 128:2 192:3
+# 256:4): 0.35405, 0.34774, 0.34782, 0.34953, 0.34630, 0.34772, 0.34797;
+# their mean is 0.3487.
+BATCH_CHUNK = 2_000_000 // (WIDTH * HEIGHT)
+JAX_CPU_MEAN_BATCH = 0.3487
+# the reduced-size batch renders, graph against eager: size, spp, chunk
+BATCH_SMALL = (96, 3, 2)
+# the samples of the teapot's profiled graph render under a profiler of
+# their own (samples BATCH_WINDOWS[0] .. BATCH_WINDOWS[1] - 1 of 16), and
+# of its profiled eager render (which stops after them: its samples each
+# take the eager route's ~0.6-1 s). Five eager windows: the profiler lost
+# threefry records in 2 of 3 (~40,000 kernels and ~1 s a window), leaving
+# one exact window where the rule needs two
+BATCH_WINDOWS = (6, 10)
+BATCH_EAGER_WINDOWS = (6, 11)
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores, for `bound_ms`
 # phase dd: threefry draws held against the plain version, (elements,
-# counter offset) each; the operations of one threefry2x32 (2 xor and 2
-# adds of the key schedule, 20 rounds of add, funnel-shift rotate and xor,
-# 5 key injections of 3 adds) and of the rest of an element (its counter,
-# bits and float)
-TF_DRAWS = ((POOL, 0), (1, 0), (4097, 12_345), (POOL, 3 * POOL))
+# counter offset) each, the last the batch route's 409,600 lanes; the
+# operations of one threefry2x32 (2 xor and 2 adds of the key schedule, 20
+# rounds of add, funnel-shift rotate and xor, 5 key injections of 3 adds)
+# and of the rest of an element (its counter, bits and float)
+TF_DRAWS = ((POOL, 0), (1, 0), (4097, 12_345), (POOL, 3 * POOL),
+            (WIDTH * HEIGHT, 0))
+# the folds after the iteration: none, the wavefront's scatter (3 and 4),
+# the batch route's isotropic scatter from a key slot (5: split, purpose,
+# bounce, in_ball's two splits) and the kernel's most (6)
+TF_PATHS = ((), (6, 0, 1), (5, 3, 2, 1), (2, 3, 11, 0, 0), (2, 3, 11, 0, 0, 1))
 TF_OPS = 79
 TF_ELEMENT_OPS = 11
 H100_BYTES_PER_S = 3.35e12
@@ -404,6 +447,8 @@ GATHER_REPS = 10
 # phase dd: the replayed blocks of each graph render under a profiler of
 # their own (from the third block on)
 PROFILED_BLOCKS = 5
+# the fills each profiler window launches before its own work
+WINDOW_PAD = 16
 BOUNDARY_SIZE = (64, 36)
 # sha256 of each scene's cluster tables (table_digest) as the native SAH
 # builds them on the host, byte-identical to the JAX package's build
@@ -1308,10 +1353,10 @@ def phase_fit_graph(dev, card, libs, scene, camera, width, height, hires,
     graph_cls = kbuild.GraphReplay
 
     class Timed(graph_cls):
-        def _capture(self, fn):
+        def capture(self, fn):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            super()._capture(fn)
+            super().capture(fn)
             torch.cuda.synchronize()
             capture_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -2054,46 +2099,76 @@ def same_mesh_k1_k2(dev, label, rays8, bounds8, soa, ids, stream):
 
 def phase_threefry(dev, card, tfk):
     """dd, first part: threefry.cu against its plain version on the card,
-    bit for bit (bits and uniforms), on TF_DRAWS with no device iteration
-    and with four, and with 0, 3 and 4 folds after it; then the kernel, the
-    plain version and torch.rand timed at the pool's 196,608 lanes as the
-    graph launches a draw (a device iteration, no fold after it) ->
-    (max abs err, (ms, plain ms, torch.rand ms), bound, operations)."""
+    bit for bit (bits and uniforms), on TF_DRAWS with the key words as host
+    values and in a KeySlot on the card (a word past 2**31), with no device
+    iteration and with four, and with 0, 3, 4, 5 and 6 folds after it;
+    then the kernel, the plain version and torch.rand timed at the pool's
+    196,608 lanes as the graph launches a draw (a device iteration, no fold
+    after it), and the kernel as the batch route launches its longest
+    draw (slot words, 5 folds, 409,600 lanes), held against the plain
+    version and timed -> (max abs err, (ms, plain ms, torch.rand ms),
+    bound, operations, (the batch draw's ms, its bound ms))."""
     import torch
+    from hobbyraytracer_tpu_torch.core.rng import Key, KeySlot
     from hobbyraytracer_tpu_torch.kernels import threefry as tf
-    words = (0, SEED + 42)
+    host = (3_000_000_000, SEED + 42)
+    slot = KeySlot(dev)
+    slot.fill(Key(host))
     err, n_draws = 0.0, 0
     tfk.launches = 0
     for n, offset in TF_DRAWS:
-        for it in (None, 0, 7, 123_456, -3):
-            it_t = (None if it is None
-                    else torch.tensor(it, dtype=torch.int32, device=dev))
-            for path in ((), (6, 0, 1), (5, 3, 2, 1)):
-                for floats in (True, False):
-                    k = tf.threefry_draw(words, it_t, path, n, offset,
-                                         floats, dev)
-                    p = tf.threefry_plain(words, it_t, path, n, offset,
-                                          floats, dev)
-                    torch.cuda.synchronize()
-                    check(bool(torch.equal(k, p)),
-                          f"threefry, {n} elements from {offset}, it {it}, "
-                          f"path {path}, floats {floats}: "
-                          f"{int((k != p).sum())} elements differ")
-                    if floats:
-                        err = max(err, (k - p).abs().max().item())
-                    n_draws += 1
+        for words, its in ((host, (None, 0, 7, 123_456, -3)),
+                           (slot.words, (None, -3))):
+            for it in its:
+                it_t = (None if it is None else
+                        torch.tensor(it, dtype=torch.int32, device=dev))
+                for path in TF_PATHS:
+                    for floats in (True, False):
+                        k = tf.threefry_draw(words, it_t, path, n, offset,
+                                             floats, dev)
+                        p = tf.threefry_plain(words, it_t, path, n, offset,
+                                              floats, dev)
+                        torch.cuda.synchronize()
+                        check(bool(torch.equal(k, p)),
+                              f"threefry, {n} elements from {offset}, "
+                              f"slot {words is not host}, it {it}, path "
+                              f"{path}, floats {floats}: "
+                              f"{int((k != p).sum())} elements differ")
+                        if floats:
+                            err = max(err, (k - p).abs().max().item())
+                        n_draws += 1
     check(tfk.launches == n_draws,
           f"threefry launched {tfk.launches} times for {n_draws} draws")
-    print(f"  threefry vs plain: {n_draws} draws (1 to {POOL} elements, "
-          f"offsets up to {3 * POOL}, device iterations, 0-4 folds after "
-          f"them, bits and uniforms) bitwise equal")
+    print(f"  threefry vs plain: {n_draws} draws (1 to "
+          f"{max(n for n, _ in TF_DRAWS)} elements, "
+          f"offsets up to {3 * POOL}, host and slot words, device "
+          f"iterations, 0-6 folds after them, bits and uniforms) bitwise "
+          f"equal")
+    lanes, folds = WIDTH * HEIGHT, len(TF_PATHS[3])
+
+    def batch_draw():
+        return tf.threefry_draw(slot.words, None, TF_PATHS[3], lanes, 0,
+                                True, dev)
+    k = batch_draw()
+    p = tf.threefry_plain(slot.words, None, TF_PATHS[3], lanes, 0, True, dev)
+    check(bool(torch.equal(k, p)),
+          f"threefry, the batch route's draw: {int((k != p).sum())} of "
+          f"{lanes} uniforms differ from the plain version")
+    batch_ms = profiled_ms(batch_draw)
+    # the key's folds are the draw's, once, not once an element
+    batch_bnd = bound(4 * lanes + 8,
+                      lanes * (TF_OPS + TF_ELEMENT_OPS) + folds * TF_OPS)
+    print(f"[threefry] the batch route's longest draw (slot words, {folds} "
+          f"folds, {lanes} uniforms): = plain bitwise, {batch_ms:.5f} ms "
+          f"device time a call, bound {batch_bnd[0]:.5f} ms by "
+          f"{batch_bnd[1]} on {card}")
     it_t = torch.tensor(5, dtype=torch.int32, device=dev)
     fns = (lambda: tf.threefry_draw(words, it_t, (), POOL, 0, True, dev),
            lambda: tf.threefry_plain(words, it_t, (), POOL, 0, True, dev),
            lambda: torch.rand((POOL,), device=dev))
     times = tuple(profiled_ms(fn) for fn in fns)
     events = tuple(cuda_ms(fn, reps=20, warmup=3) for fn in fns)
-    ops = POOL * (2 * TF_OPS + TF_ELEMENT_OPS)
+    ops = POOL * (TF_OPS + TF_ELEMENT_OPS) + TF_OPS
     bnd = bound(4 * POOL + 4, ops)
     print(f"[threefry] {POOL} uniforms with a device iteration, device ms "
           f"a call (profiler): kernel {times[0]:.5f}, plain {times[1]:.4f}, "
@@ -2101,7 +2176,7 @@ def phase_threefry(dev, card, tfk):
           f"call (the host's enqueue included): {events[0]:.4f} / "
           f"{events[1]:.4f} / {events[2]:.4f}; bound {bnd[0]:.5f} ms by "
           f"{bnd[1]} on {card}")
-    return err, times, bnd, ops
+    return err, times, bnd, ops, (batch_ms, batch_bnd[0])
 
 
 def profiled_ms(fn, n=100):
@@ -2175,8 +2250,10 @@ class ProfiledWindows:
     device numbers, `window_ms` (host clock, synchronized), `busy_ms` and
     `kernels`, sum the windows whose kernel total is the run's largest (the
     others, `lossy` of them, are left out). A window in which nothing ran
-    counts as none. A profiler costs seconds to start and stop, so a phase
-    opens a few windows, not one a block."""
+    counts as none. Each window opens with WINDOW_PAD fills (in its kernel
+    count and busy time, some microseconds) ahead of its own work. A
+    profiler costs seconds to start and stop, so a phase opens a few
+    windows, not one a block."""
 
     def __init__(self, libs, cpu=False):
         self.libs, self.cpu = libs, cpu
@@ -2193,6 +2270,13 @@ class ProfiledWindows:
             acts.append(ProfilerActivity.CPU)
         self.prof = profile(activities=acts)
         self.prof.start()
+        # a burst of fills, none of them a GRAPH_KERNELS kernel, ahead of
+        # the window's own work: records lost as tracing starts fall on
+        # them
+        pad = torch.zeros((WINDOW_PAD,), device=DEVICE)
+        for i in range(WINDOW_PAD):
+            pad[i].fill_(i)
+        torch.cuda.synchronize()
         self.t0 = time.perf_counter()
 
     def stop(self):
@@ -2261,9 +2345,13 @@ class ProfiledWindows:
 
     def describe(self) -> str:
         """The launch check's evidence, for a log line."""
+        missing = {k: [w[1][k] - w[0][k] for w in self.windows]
+                   for k in GRAPH_KERNELS
+                   if any(w[0][k] != w[1][k] for w in self.windows)}
         return (f"the profiler saw {self.profiled}, the counters grew by "
                 f"{self.counted} ({self.short} of {len(self.windows)} "
-                f"windows short of some kernel's records)")
+                f"windows short of some kernel's records; missing by "
+                f"window: {missing})")
 
 
 def phase_graph(dev, card, libs, scenes):
@@ -2289,11 +2377,11 @@ def phase_graph(dev, card, libs, scenes):
     block_graph = wavefront._BlockGraph
 
     class Counted(block_graph):
-        def _capture(self, fn):
+        def capture(self, fn):
             captured[0] += 1
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            super()._capture(fn)
+            super().capture(fn)
             torch.cuda.synchronize()
             capture_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -2435,6 +2523,274 @@ def phase_graph(dev, card, libs, scenes):
         wavefront._BlockGraph = block_graph
     out["teapot_turns"] = turns
     out["teapot_profile"] = prof_out
+    return out
+
+
+def phase_batch(dev, card, libs, scenes):
+    """q: the batch integrator by both routes (integrator/path.py:
+    radiance_sum, what render_image, render_sharded, the CLI's
+    `--integrator batch` and `bench` call; eager=True runs BatchRun's steps
+    without graphs). scenes {label: (scene, camera)}: the teapot, then
+    cornell_smoke, scattered_balls (through K4) and teapot_hires.
+
+    First K1 against its plain version on the 409,600 rays of a teapot
+    sample's second bounce, as the batch route's find passes them. Then
+    the teapot at 640x640 @ 16 spp, depth 50, in the CLI's chunks
+    (BATCH_CHUNK), four renders in turns (eager, graph, eager, graph)
+    under deterministic algorithms: the radiance sums bitwise equal, every
+    kernel's launches equal (those of the first graph render reported),
+    ceil(50 / B) + 2 graphs captured by each graph render and none by the
+    eager ones, the tonemapped mean against a JAX CPU batch render; rays/s,
+    ms a bounce, the captures' ms and the peak memory of each. Then a
+    graph render with one profiler a sample over samples BATCH_WINDOWS
+    (ProfiledWindows: K1's and threefry's launches as the card ran them
+    never above the counted, equal in two windows at least; busy and idle
+    share) and an eager render of BATCH_EAGER_WINDOWS[1] samples likewise
+    over BATCH_EAGER_WINDOWS. At BATCH_SMALL, graph against eager bitwise
+    with launches equal: cornell_smoke (its isotropic scatter draws with
+    five folds after the slot), the balls through K4, teapot_hires through
+    K2, the teapot also against `trace`'s per-bounce loop, and
+    render_sharded over two workers on the card against one. -> numbers."""
+    import torch
+
+    from hobbyraytracer_tpu_torch.core.rng import Sampler
+    from hobbyraytracer_tpu_torch.integrator import path as path_mod
+    from hobbyraytracer_tpu_torch.kernels import build as kbuild
+    from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    from hobbyraytracer_tpu_torch.ops import film as film_ops
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+    from hobbyraytracer_tpu_torch.parallel import shard
+
+    capture_ms, runs, hook = [], [], [None]
+    replay_cls, run_cls, route = (kbuild.GraphReplay, path_mod.BatchRun,
+                                  path_mod.batch_route)
+    slot_paths = set()
+    draw = tf.threefry_draw
+
+    class Timed(replay_cls):
+        def capture(self, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().capture(fn)
+            torch.cuda.synchronize()
+            capture_ms.append((time.perf_counter() - t0) * 1e3)
+
+    class Hooked(run_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runs.append(self)
+
+        def sample(self, key):
+            if hook[0] is not None:
+                hook[0](self.samples)
+            super().sample(key)
+
+    def spied(words, it, path, *args):
+        if isinstance(words, torch.Tensor):
+            slot_paths.add(len(path))
+        return draw(words, it, path, *args)
+
+    def batch(scene, camera, size, spp, chunk, eager, seed=SEED,
+              windows=None, loop=False):
+        """One radiance_sum with the counters, captures and peak memory
+        reset just before it -> (sum, launches {lib: n}, ms, bounces,
+        captures, capture ms, peak GiB: the most allocated during it above
+        what was allocated before it)."""
+        for lib in libs:
+            lib.launches = 0
+        capture_ms.clear()
+        runs.clear()
+        path_mod.batch_route = (lambda *a, **k: False) if loop else route
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        if windows is not None:
+            w0, w1 = windows[1]
+
+            def at(sample):
+                if w0 <= sample < w1:
+                    windows[0].next()
+                elif sample == w1:
+                    windows[0].stop()
+            hook[0] = at
+        t0 = time.perf_counter()
+        try:
+            total = path_mod.radiance_sum(scene, camera, size, size, spp,
+                                          Sampler(seed, dev), max_depth=50,
+                                          sample_chunk=chunk, eager=eager)
+            torch.cuda.synchronize()
+        finally:
+            hook[0] = None
+            path_mod.batch_route = route
+        ms = (time.perf_counter() - t0) * 1e3
+        if windows is not None and windows[0].prof is not None:
+            windows[0].stop()
+        check(bool(torch.isfinite(total).all()) and total.max() > 0,
+              "batch: non-finite or black radiance")
+        return (total, {lib.name: lib.launches for lib in libs}, ms,
+                sum(r.bounces for r in runs), len(capture_ms),
+                sum(capture_ms),
+                (torch.cuda.max_memory_allocated(dev) - held) / 2**30)
+
+    def k1_at_batch_bounce(scene, camera):
+        """K1 against its plain version on the rays of the teapot's second
+        batch bounce (one sample's 409,600 lanes as the find passes them:
+        in its coherence order, the lanes that ended traced along) -> the
+        max abs err."""
+        seen, find = [], kmod.traverse_clusters
+
+        def spy(*args, **kwargs):
+            seen.append((args, kwargs))
+            return find(*args, **kwargs)
+
+        kmod.traverse_clusters = spy
+        try:
+            run_cls(scene, camera, WIDTH, HEIGHT, Sampler(SEED, dev),
+                    2).sample_sum(Sampler(SEED, dev), 1)
+        finally:
+            kmod.traverse_clusters = find
+        check(len(seen) == 2, f"K1 ran {len(seen)} times in two bounces")
+        args, kwargs = seen[1]
+        check(args[0].shape[0] == WIDTH * HEIGHT and args[2].shape[1] == 24,
+              f"the batch bounce gave K1 {tuple(args[0].shape)} rays and "
+              f"a {args[2].shape[1]}-row table")
+        out_k, id_k = find(*args, **kwargs)
+        out_p, id_p = kmod.traverse_clusters_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        return compare_exact(out_k, id_k, out_p, id_p,
+                             "K1 vs plain, the teapot's second batch bounce")
+
+    kbuild.GraphReplay, path_mod.BatchRun = Timed, Hooked
+    tf.threefry_draw = spied
+    deterministic(True)
+    out = {"teapot_turns": []}
+    per_render = -(-50 // path_mod.BOUNCE_BLOCK) + 2
+    try:
+        scene, camera = scenes["teapot"]
+        out["k1_err"] = k1_at_batch_bounce(scene, camera)
+        check(all(route(sc, dev) for sc, _ in scenes.values()),
+              "a batch scene is not on the graph route")
+        first = None
+        for turn, eager in enumerate((True, False, True, False)):
+            total, launches, ms, bounces, n_graphs, cap, peak = batch(
+                scene, camera, WIDTH, SPP, BATCH_CHUNK, eager)
+            name = "eager" if eager else "graph"
+            check(n_graphs == (0 if eager else per_render),
+                  f"batch {name}: {n_graphs} graphs captured")
+            check(launches["mesh_traverse"] > 0 and launches["threefry"] > 0,
+                  f"batch {name}: launches {launches}")
+            if not eager and "launches" not in out:
+                out["launches"] = launches    # the first graph render's
+            if first is None:
+                first = (total, launches)
+                img = film_ops.tonemap(total / float(SPP))
+                mean = img.mean().item()
+                check(abs(mean - JAX_CPU_MEAN_BATCH)
+                      <= MEAN_BAND * JAX_CPU_MEAN_BATCH,
+                      f"batch mean {mean:.5f} outside {JAX_CPU_MEAN_BATCH} "
+                      f"+- {MEAN_BAND:.0%}")
+            check(bool(torch.equal(total, first[0])),
+                  f"batch turn {turn} ({name}): the sum differs on "
+                  f"{int((total != first[0]).sum())} values")
+            check(launches == first[1],
+                  f"batch turn {turn} ({name}): launches {launches}, first "
+                  f"{first[1]}")
+            rays = WIDTH * HEIGHT * SPP / ms * 1e3
+            out["teapot_turns"].append({
+                "route": name, "ms": ms, "rays_per_s": rays,
+                "bounces": bounces, "bounce_ms": ms / bounces,
+                "captures": n_graphs, "capture_ms": cap, "peak_gib": peak})
+            print(f"[batch] teapot {WIDTH}x{HEIGHT} @ {SPP} spp, depth 50, "
+                  f"chunks of {BATCH_CHUNK}, {name}: {ms:.1f} ms (captures "
+                  f"{cap:.1f}), {rays:,.0f} primary rays/s, {bounces} "
+                  f"bounces, {ms / bounces:.3f} ms a bounce, peak "
+                  f"{peak:.3f} GiB above the memory held before it on "
+                  f"{card}")
+        out["mean"] = mean
+        print(f"  batch teapot: four renders bitwise equal (deterministic), "
+              f"launches {first[1]} each, mean {mean:.5f} (JAX CPU batch "
+              f"{JAX_CPU_MEAN_BATCH})")
+        for eager, span in ((False, BATCH_WINDOWS),
+                            (True, BATCH_EAGER_WINDOWS)):
+            windows = ProfiledWindows(libs)
+            total, launches, ms, _, _, _, _ = batch(
+                scene, camera, WIDTH, span[1] if eager else SPP,
+                BATCH_CHUNK, eager, windows=(windows, span))
+            name = "eager" if eager else "graph"
+            check(eager or (bool(torch.equal(total, first[0]))
+                            and launches == first[1]),
+                  f"batch {name} under the profiler differs")
+            check(windows.agree(),
+                  f"batch {name}: over the profiled samples, "
+                  f"{windows.describe()}")
+            busy, wall = windows.busy_ms, windows.window_ms
+            check(busy > 0, f"batch {name}: the profiler saw no device time")
+            out[f"profile_{name}"] = {
+                "windows": len(windows.windows), "kept": len(
+                    windows.windows) - windows.lossy, "window_ms": wall,
+                "busy_ms": busy, "kernels": windows.kernels,
+                "idle_share": 1.0 - busy / wall,
+                "profiled_launches": windows.profiled,
+                "counted_launches": windows.counted,
+                "short": windows.short}
+            print(f"[batch] teapot, {name}, one profiler a sample over "
+                  f"samples {span[0]}-{span[1] - 1}: {windows.describe()}; "
+                  f"the fullest windows {wall:.1f} ms, device busy "
+                  f"{busy:.1f} ms in {windows.kernels} kernels, idle share "
+                  f"{1.0 - busy / wall:.1%} on {card}")
+
+        size, spp, chunk = BATCH_SMALL
+        out["small"] = {}
+        for label, (sc, cam) in scenes.items():
+            isect.SPHERE_KERNEL = "K4" in label
+            slot_paths.clear()
+            ea = batch(sc, cam, size, spp, chunk, True)
+            gr = batch(sc, cam, size, spp, chunk, False)
+            check(bool(torch.equal(ea[0], gr[0])) and ea[1] == gr[1]
+                  and gr[4] == per_render,
+                  f"batch {label} {size}x{size}: graph differs from eager "
+                  f"(launches {ea[1]} / {gr[1]}, graphs {gr[4]})")
+            row = {"launches": gr[1], "slot_paths": sorted(slot_paths),
+                   "eager_ms": ea[2], "graph_ms": gr[2]}
+            if label == "teapot":
+                lp = batch(sc, cam, size, spp, chunk, True, loop=True)
+                check(bool(torch.equal(lp[0], gr[0])),
+                      "batch teapot: the per-bounce loop differs from the "
+                      "graphs")
+                row["loop_ms"] = lp[2]
+                mesh = [torch.device(DEVICE)] * 2
+                imgs = []
+                for eager in (False, True):
+                    runs.clear()
+                    capture_ms.clear()
+                    imgs.append(shard.render_sharded(
+                        sc, cam, size, size, spp, Sampler(SEED, dev), mesh,
+                        max_depth=50, sample_chunk=chunk, eager=eager))
+                    check(len(runs) == 2 and len(capture_ms) == (
+                        0 if eager else 2 * per_render),
+                          f"render_sharded: {len(runs)} runs, "
+                          f"{len(capture_ms)} captures")
+                single = film_ops.tonemap(gr[0] / float(spp)).reshape(
+                    size, size, 3)
+                check(bool(torch.equal(imgs[0], single))
+                      and bool(torch.equal(imgs[1], single)),
+                      "render_sharded over two workers differs from one")
+            if label == "cornell_smoke":
+                check(5 in slot_paths, f"cornell_smoke drew no 5-fold path "
+                      f"from the slot: {sorted(slot_paths)}")
+            out["small"][label] = row
+            print(f"  batch {label} {size}x{size} @ {spp} spp (chunks of "
+                  f"{chunk}): graph = eager bitwise, launches {gr[1]}, slot "
+                  f"paths {sorted(slot_paths)}"
+                  + (", = the per-bounce loop, and two workers on the card "
+                     "= one" if label == "teapot" else ""))
+    finally:
+        deterministic(False)
+        isect.SPHERE_KERNEL = False
+        kbuild.GraphReplay, path_mod.BatchRun = replay_cls, run_cls
+        tf.threefry_draw = draw
+        path_mod.batch_route = route
     return out
 
 
@@ -2999,7 +3355,8 @@ def main():
     stamp("dd")
     # dd. the graph route: threefry.cu vs plain, graph vs eager renders, the
     # teapot's rays/s, segment ms and idle share both ways
-    err_tf, times_tf, bound_tf, ops_tf = phase_threefry(dev, card, tfk)
+    err_tf, times_tf, bound_tf, ops_tf, batch_draw = phase_threefry(
+        dev, card, tfk)
     graph = phase_graph(dev, card, (*libs, tfk), {
         "teapot": (scene, camera, False, "auto"),
         "teapot_hires": (hscene, hcamera, False, "auto"),
@@ -3139,31 +3496,16 @@ def main():
           f"boundary found by the lockstep find, no kernel)")
 
     stamp("q")
-    # q. the batch integrator against the wavefront integrator
-    from hobbyraytracer_tpu_torch.integrator import path as path_mod
-    for lib in libs:
-        lib.launches = 0
-    t0 = time.perf_counter()
-    img_b = path_mod.render_image(scene, camera, BATCH_SIZE, BATCH_SIZE, SPP,
-                                  Sampler(SEED + 8, dev), max_depth=50)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    batch_launches = k1.launches
-    check(batch_launches > 0, "the batch integrator never launched K1")
-    img_w = wavefront.render_image(scene, camera, BATCH_SIZE, BATCH_SIZE,
-                                   SPP, Sampler(SEED + 9, dev), max_depth=50,
-                                   pool=POOL)
-    check(bool(torch.isfinite(img_b).all()), "batch: non-finite pixels")
-    mb, mw = img_b.mean().item(), img_w.mean().item()
-    check(abs(mb - mw) <= BATCH_BAND * mw,
-          f"batch mean {mb:.5f} outside wavefront {mw:.5f} +- "
-          f"{BATCH_BAND:.0%}")
-    print(f"[batch] teapot {BATCH_SIZE}x{BATCH_SIZE} @ {SPP} spp, max depth "
-          f"50, no RR: {seconds:.3f} s (one host read a bounce), "
-          f"{BATCH_SIZE * BATCH_SIZE * SPP / seconds:,.0f} primary rays/s, "
-          f"K1 launches {batch_launches}, mean {mb:.5f} vs wavefront "
-          f"{mw:.5f} "
-          f"on {card}")
+    # q. the batch integrator by both routes
+    batch = phase_batch(dev, card, (*libs, tfk), {
+        "teapot": (scene, camera), "cornell_smoke": (sscene, scamera),
+        "scattered_balls (K4)": (bscene, bcamera),
+        "teapot_hires": (hscene, hcamera)})
+    print("[batch numbers] " + json.dumps({"card": card, **batch}))
+    err_k1 = max(err_k1, batch["k1_err"])
+    k1_by_path[f"teapot by the batch integrator ({WIDTH}x{HEIGHT} @ {SPP} "
+               "spp, depth 50; graph and eager alike)"] = (
+        batch["launches"][k1.name])
 
     stamp("r")
     # r. the tables a vertex fit refreshes, on the card, and the kernels'
@@ -3248,6 +3590,11 @@ def main():
                 "issue_bound_ms": issue_bound(ops, sm_count, sm_clock_mhz),
                 "library_ms": library_ms, **more}
 
+    def small_label(label):
+        size, spp, _ = BATCH_SMALL
+        return (f"{label} by the batch integrator ({size}x{size} @ {spp} "
+                "spp; graph and eager alike)")
+
     # K1's `launches` is its count in the two_teapots render by the default
     # route; its counts in each render that drives it are listed beside it
     print(json.dumps({"kernels": [
@@ -3259,6 +3606,8 @@ def main():
             same_mesh_k1_k2_ms=same_mesh,
             launches_by_path={
                 "teapot_hires": k2_launches,
+                small_label("teapot_hires"):
+                batch["small"]["teapot_hires"]["launches"][k2.name],
                 "vertex fit step (teapot_hires {}x{} @ {} spp, depth {})"
                 .format(*HIRES_FIT): k2_step,
                 "vertex fit, 3 steps through the graph (eager the same)":
@@ -3267,13 +3616,19 @@ def main():
             *times_k3, bound_k3, ops_k3),
         row(k4, "sphere_traverse.cu",
             "hobbyraytracer_tpu/kernels/sphere_traverse.py:51", k4_launches,
-            err_k4, *times_k4[:2], bound_k4, ops_k4),
+            err_k4, *times_k4[:2], bound_k4, ops_k4, launches_by_path={
+                "scattered_balls (K4)": k4_launches,
+                small_label("scattered_balls (K4)"): batch["small"][
+                    "scattered_balls (K4)"]["launches"][k4.name]}),
         row(tfk, "threefry.cu",
             "hobbyraytracer_tpu/core/rng.py:43 (jax.random's threefry, "
             "XLA: no Pallas kernel)", tf_launches, err_tf, *times_tf[:2],
             bound_tf, ops_tf, library_ms=times_tf[2],
+            batch_draw_ms=batch_draw[0], batch_draw_bound_ms=batch_draw[1],
             launches_by_path={"teapot": tf_launches,
-                              **graph["threefry_launches"]})]}))
+                              **graph["threefry_launches"],
+                              "teapot by the batch integrator (graph and "
+                              "eager alike)": batch["launches"][tfk.name]})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,6 +25,12 @@ The iteration may be a host int or a 0-d int32 tensor on the sampler's
 device. With a tensor, the fold by the iteration and every fold after it
 run on the device inside the draw (a `Key` carries them), so a replayed
 CUDA graph draws new numbers each iteration without a host round trip.
+Likewise a key's words may live on the device: `KeySlot` is a (2,) int32
+buffer that the host fills with a key's words, and `Sampler.slotted(slot)`
+draws from it. Its folds, splits and streams are carried as the path of
+host folds after the slot's words, so a graph captured once draws under
+whatever key the host wrote into the slot before each replay (the batch
+integrator's samples, integrator/path.py).
 
 span=(offset, total) on a draw (reference core/rng.py:33-55): the rows
 offset:offset+n of the full (total, ...) draw, n the leading size of
@@ -40,7 +46,7 @@ from __future__ import annotations
 import copy
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -66,24 +72,32 @@ _M32 = 0xFFFFFFFF
 
 @dataclass(frozen=True)
 class Key:
-    """A threefry key. With `it` None it is `words`; with `it` a 0-d int32
-    tensor it is fold_in(words, it) followed by fold_in of each value of
-    `path`, derived on the tensor's device by each draw from it."""
-    words: tuple
+    """A threefry key: `words` (two host ints, or the (2,) int32 device
+    tensor of a KeySlot), folded by `it` when it is a 0-d int32 tensor,
+    then by each value of `path`. With host words and no `it` the path is
+    empty (host folds fold the words); otherwise each draw derives the key
+    on the device."""
+    words: Union[tuple, torch.Tensor]
     it: Optional[torch.Tensor] = None
     path: tuple = ()
+
+    @property
+    def on_device(self) -> bool:
+        """Are the folds carried to the draw (device words or `it`)?"""
+        return self.it is not None or isinstance(self.words, torch.Tensor)
 
     def fold_in(self, data) -> "Key":
         """jax.random.fold_in(key, data): data a host int (taken mod
         2**32) or, once, a 0-d int32 tensor."""
         if isinstance(data, torch.Tensor):
-            if self.it is not None:
-                raise ValueError("a key takes one fold by a device value")
+            if self.it is not None or self.path:
+                raise ValueError("a key takes one fold by a device value, "
+                                 "before any host fold of a slot")
             if data.dim() != 0:
                 raise ValueError(f"a device fold takes a 0-d tensor, got "
                                  f"shape {tuple(data.shape)}")
-            return Key(self.words, data)
-        if self.it is None:
+            return Key(self.words, data, self.path)
+        if not self.on_device:
             return Key(tf.fold(self.words, int(data) & _M32))
         return Key(self.words, self.it, self.path + (int(data) & _M32,))
 
@@ -104,6 +118,25 @@ def _draw_geometry(shape, span):
         raise ValueError(f"span {tuple(span)} does not hold {shape[:1]} "
                          f"rows")
     return n, off * math.prod(shape[1:])
+
+
+class KeySlot:
+    """A key's two words in device memory: a (2,) int32 tensor on `device`
+    that `fill` writes a host key's words into. Draws from
+    Sampler.slotted(slot) (and from its folds, splits and streams) read the
+    words there when they run, so a CUDA graph that captured them draws
+    under the key of the last fill before each replay. `fill` writes on the
+    device's current stream, outside any graph."""
+
+    def __init__(self, device):
+        self.words = torch.zeros((2,), dtype=torch.int32, device=device)
+
+    def fill(self, key: Key) -> None:
+        """Write the host words of `key` into the slot."""
+        if key.on_device:
+            raise ValueError("a key slot takes a key of host words")
+        for i, w in enumerate(key.words):
+            self.words[i].fill_(w - (w >> 31 << 32))   # as int32
 
 
 class Sampler:
@@ -130,6 +163,10 @@ class Sampler:
         """The Sampler of jax.random.fold_in(key, index): one sample of the
         batch integrator, one chunk of its samples, one worker."""
         return self._with_key(self.key.fold_in(index))
+
+    def slotted(self, slot: KeySlot) -> "Sampler":
+        """This sampler drawing under the key held in `slot`."""
+        return self._with_key(Key(slot.words))
 
     def split(self, n: int) -> list:
         """The Samplers of jax.random.split(key, n)."""

@@ -10,12 +10,14 @@ kernel's registers and spills on a build (`KernelLibrary.ptxas_info`).
 
 `GraphReplay` runs a function through a CUDA graph and keeps the launch
 counts of a replayed graph equal to an eager run's (the render's blocks,
-integrator/wavefront.py:_BlockGraph, and the fit's steps,
-diff/fit.py:fit_materials).
+integrator/wavefront.py:_BlockGraph, the fit's steps,
+diff/fit.py:fit_materials, and the batch integrator's sample steps,
+integrator/path.py:BatchRun).
 """
 from __future__ import annotations
 
 import ctypes
+import gc
 import glob
 import os
 import shutil
@@ -151,38 +153,61 @@ class GraphReplay:
     every replay, so the counts are an eager run's. The capture is made on
     a stream of `device` in thread-local mode: another thread may use the
     card meanwhile. A failed capture or replay raises; nothing runs the
-    function eagerly in its place."""
+    function eagerly in its place.
 
-    def __init__(self, device):
+    Several graphs may share one capture stream and one memory pool
+    (`stream`, `pool` from torch.cuda.graph_pool_handle()) when they never
+    run at once and pass data only through tensors allocated outside the
+    pool; their owner then calls `capture` and `replay` itself, in the
+    order the graphs run."""
+
+    def __init__(self, device, stream=None, pool=None):
         self.device = torch.device(device)
-        self.stream = torch.cuda.Stream(self.device)
+        self.stream = stream or torch.cuda.Stream(self.device)
+        self.pool = pool
         self.warm = False
         self.graph = None
         self.out = None
         self.launches = {}
 
-    def _capture(self, fn) -> None:
+    def capture(self, fn) -> None:
+        """Record fn() into the graph: nothing runs. The garbage collector
+        is off meanwhile: a collection that freed another CUDA graph would
+        reset it inside this capture, which the card refuses (the capture
+        would fail)."""
         before = {lib: lib.launches for lib in LIBRARIES}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            self.out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         for lib, n in before.items():
             if lib.launches != n:
                 self.launches[lib] = lib.launches - n
                 lib.launches = n
+
+    def replay(self):
+        """Run the captured graph on the current stream -> fn()'s result
+        as captured (the graph's own tensors)."""
+        self.graph.replay()
+        for lib, n in self.launches.items():
+            lib.launches += n
+        return self.out
 
     def __call__(self, fn):
         """fn() by this graph's turn -> its result (after a replay, the
         graph's own tensors, valid until the next replay). The caller makes
         `device` current."""
         if self.warm and self.graph is None:
-            self._capture(fn)
+            self.capture(fn)
         if self.graph is None:
             out = fn()
             self.warm = True
             return out
-        self.graph.replay()
-        for lib, n in self.launches.items():
-            lib.launches += n
-        return self.out
+        return self.replay()

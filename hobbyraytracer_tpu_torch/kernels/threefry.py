@@ -13,10 +13,12 @@ default of the JAX this repository runs), a key is two uint32 words and
 
 `threefry_draw(words, it, path, n, offset, floats, device)` gives the n
 elements from counter `offset` on of the draw under the key words, folded
-first by the 0-d int32 tensor `it` when one is given (read from device
-memory by the kernel: a replayed CUDA graph draws each iteration anew) and
-then by each host value of `path`. Bits come back as int64 values in
-[0, 2**32), uniforms as float32.
+first by the 0-d int32 tensor `it` when one is given and then by each host
+value of `path`. The words are two host ints, or a (2,) int32 tensor on
+the draw's device (a key slot, core/rng.py:KeySlot). The kernel reads a
+slot's words and `it` from device memory, so a replayed CUDA graph draws
+from whatever the host wrote there before the replay. Bits come back as
+int64 values in [0, 2**32), uniforms as float32.
 
 A draw on a CUDA device launches the kernel (csrc/threefry.cu), built at
 first use, and raises if it cannot be built or launched; a draw on the CPU
@@ -34,7 +36,7 @@ from .build import KernelLibrary
 from .mesh_traverse import _P, _I, _bind
 
 THREEFRY = KernelLibrary("threefry")
-MAX_PATH = 4            # folds after the device iteration (csrc: kTfMaxPath)
+MAX_PATH = 6            # folds after the device iteration (csrc: kTfMaxPath)
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -63,10 +65,13 @@ def fold(words: tuple, data: int) -> tuple:
 
 
 def _key_plain(words, it, path):
-    """The draw's key: host ints, or 0-d int64 tensors when `it` is given
-    (the fold by the iteration and the path's folds then run as tensor
-    arithmetic on its device, with no host read)."""
-    k0, k1 = words
+    """The draw's key: host ints, or 0-d int64 tensors when the words are
+    a tensor or `it` is given (the folds then run as tensor arithmetic on
+    its device, with no host read)."""
+    if isinstance(words, torch.Tensor):
+        k0, k1 = (words.to(torch.int64) & _M32).unbind()
+    else:
+        k0, k1 = words
     if it is not None:
         k0, k1 = threefry2x32(k0, k1, 0, it.to(torch.int64) & _M32)
     for d in path:
@@ -88,20 +93,28 @@ def threefry_plain(words, it, path, n: int, offset: int, floats: bool,
     return torch.clamp(f - 1.0, min=0.0)
 
 
+def _check_device_int32(name, t, shape, device):
+    if (t.device != device or t.dtype != torch.int32
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(f"the {name} must be a contiguous {shape} int32 "
+                         f"tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
 def _threefry_cuda(words, it, path, n, offset, floats, device):
     fn = _bind(THREEFRY, "hrt_threefry",
-               [ctypes.c_uint, ctypes.c_uint, _P, _I, _P, ctypes.c_longlong,
-                _I, _I, _P, _P])
+               [ctypes.c_uint, ctypes.c_uint, _P, _P, _I, _P,
+                ctypes.c_longlong, _I, _I, _P, _P])
     if device.type != "cuda":
         raise ValueError(f"the threefry kernel needs a CUDA device, got "
                          f"{device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    slot = isinstance(words, torch.Tensor)
+    if slot:
+        _check_device_int32("key slot", words, (2,), device)
     if it is not None:
-        if it.device != device or it.dtype != torch.int32 or it.dim() != 0:
-            raise ValueError(f"the iteration must be a 0-d int32 tensor on "
-                             f"{device}, got {it.dtype} {tuple(it.shape)} "
-                             f"on {it.device}")
+        _check_device_int32("iteration", it, (), device)
     if n >= 2 ** 31:
         raise ValueError(f"{n} elements exceed the kernel's int32 indexing")
     out = torch.empty((n,), dtype=torch.float32 if floats else torch.int32,
@@ -109,7 +122,9 @@ def _threefry_cuda(words, it, path, n, offset, floats, device):
     if n:
         path_arr = (ctypes.c_uint * MAX_PATH)(*path)
         with torch.cuda.device(device):   # the launch goes to its card
-            err = fn(words[0], words[1], None if it is None else it.data_ptr(),
+            err = fn(0 if slot else words[0], 0 if slot else words[1],
+                     words.data_ptr() if slot else None,
+                     None if it is None else it.data_ptr(),
                      len(path), ctypes.addressof(path_arr), offset, n,
                      int(bool(floats)), out.data_ptr(),
                      torch.cuda.current_stream(device).cuda_stream)

@@ -171,10 +171,15 @@ def shard_rays(rays: Rays, mesh: Sequence) -> list:
 def render_sharded(scene, camera, width: int, height: int, samples: int,
                    sampler, mesh: Sequence,
                    max_depth: int = path_mod.MAX_DEPTH,
-                   sample_chunk: int = 0) -> torch.Tensor:
+                   sample_chunk: int = 0, eager: bool = False) -> torch.Tensor:
     """The batch integrator's render (integrator/path.py:render_image) with
     the pixels split over the mesh's workers: the tonemapped (H, W, 3)
-    image on worker 0's device, equal to the single-worker render's."""
+    image on worker 0's device, equal to the single-worker render's.
+    On a card each worker's radiance_sum runs a BatchRun of its own: its
+    graphs (their span draws fixed at its pixel offset), capture stream
+    and memory pool are its own, also for two workers on one card; the
+    processes' sum (all_reduce) follows the replays, outside any graph.
+    eager as in path.render_image."""
     scenes = replicate_scene(scene, mesh)
     cameras = replicate_scene(camera, mesh)
     dev0 = torch.device(mesh[0])
@@ -186,7 +191,7 @@ def render_sharded(scene, camera, width: int, height: int, samples: int,
         part = path_mod.radiance_sum(
             scenes[i], cameras[i], width, height, samples,
             _sampler_on(sampler, mesh[i]), max_depth, sample_chunk,
-            pix0=a, n_pix=b - a)
+            pix0=a, n_pix=b - a, eager=eager)
         total[a:b] = part.to(dev0)
     if _process()[1] > 1:
         _all_reduce_(total)

@@ -1,8 +1,9 @@
 """The CUDA kernels of the port on the card: K1 (resident table), K2
 (streaming table), K3 (coherence keys), K4 (clustered sphere find) and
 threefry (the draws), each against its plain PyTorch version, and K2
-against K1; the wavefront render and the fit's steps replayed from a CUDA
-graph against the eager render and fit. All are built with -fmad=false and round op
+against K1; the wavefront render, the fit's steps and the batch
+integrator's samples replayed from CUDA graphs against the eager render
+and fit. All are built with -fmad=false and round op
 for op as PyTorch does, so kernel and plain version are equal (tolerance
 0), not only within the parity tolerances. Every test here needs a CUDA
 card and skips without one; the file imports neither JAX nor the JAX
@@ -879,9 +880,9 @@ def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
     captured = []
 
     class Counted(wavefront._BlockGraph):
-        def _capture(self, *args):
+        def capture(self, *args):
             captured.append(1)
-            return super()._capture(*args)
+            return super().capture(*args)
 
     monkeypatch.setattr(wavefront, "_BlockGraph", Counted)
     libs = (pk.KERNEL, pk.KERNEL_STREAM, pk.KEY_KERNEL, sk.SPHERE_KERNEL,
@@ -970,9 +971,9 @@ def test_cli_checkpoints_every_block_on_the_graph_route(dev, monkeypatch,
         writes.append(1)
 
     class Counted(wavefront._BlockGraph):
-        def _capture(self, *args):
+        def capture(self, *args):
             captured.append(1)
-            return super()._capture(*args)
+            return super().capture(*args)
 
     monkeypatch.setattr(ckpt, "save_state", slow_save)
     monkeypatch.setattr(wavefront, "_BlockGraph", Counted)
@@ -1021,15 +1022,22 @@ def test_graph_route_resume_and_checkpoints(dev, tmp_path):
 
 # --- the fit step through a CUDA graph (diff/fit.py:fit_materials) ----------
 
+def _batch_graphs(depth):
+    """The graphs a BatchRun captures at max depth `depth`: the start, one
+    a block of integrator/path.py:BOUNCE_BLOCK bounces, the add."""
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    return -(-depth // ppath.BOUNCE_BLOCK) + 2
+
+
 def _counted_graphs(monkeypatch):
     """Count the graphs that kernels/build.py:GraphReplay captures."""
     from hobbyraytracer_tpu_torch.kernels import build as kbuild
     captured = []
 
     class Counted(kbuild.GraphReplay):
-        def _capture(self, fn):
+        def capture(self, fn):
             captured.append(1)
-            return super()._capture(fn)
+            return super().capture(fn)
 
     monkeypatch.setattr(kbuild, "GraphReplay", Counted)
     return captured
@@ -1131,3 +1139,247 @@ def test_fit_capture_that_reads_the_host_raises(dev, monkeypatch):
                               sampler=Sampler(0, dev), verbose=False)
     assert len(calls) == 1
     torch.cuda.synchronize()
+
+
+# --- the batch integrator through CUDA graphs (integrator/path.py:BatchRun) -
+
+SMOKE = f"{SCENES}/cornell_smoke.yaml"
+
+
+@pytest.mark.parametrize("n_path", [0, 5, 6])
+@pytest.mark.parametrize("it", [None, 9])
+def test_threefry_kernel_reads_slot_words(dev, n_path, it):
+    """threefry.cu with its key words in a (2,) int32 slot on the card
+    (KeySlot: a word past 2**31 among them), 0, 5 or 6 folds after it and
+    an optional device iteration: bits and uniforms bit for bit the plain
+    version's on the card and on the CPU, and the kernel on the host words
+    folded the same way."""
+    from hobbyraytracer_tpu_torch.core.rng import Key, KeySlot
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    words = (3_000_000_001, 17)
+    slot = KeySlot(dev)
+    slot.fill(Key(words))
+    path = (2, 3, 11, 0, 1, 5)[:n_path]
+    it_t = None if it is None else torch.tensor(it, dtype=torch.int32,
+                                                device=dev)
+    host = tf._key_plain(words, None if it is None else it_t.cpu(), ())
+    host = (int(host[0]), int(host[1]))
+    for floats in (True, False):
+        for n, offset in ((1, 0), (196_608, 0), (4097, 1_500_000_000)):
+            before = tf.THREEFRY.launches
+            k = tf.threefry_draw(slot.words, it_t, path, n, offset, floats,
+                                 dev)
+            assert tf.THREEFRY.launches == before + 1
+            p = tf.threefry_plain(slot.words, it_t, path, n, offset, floats,
+                                  dev)
+            h = tf.threefry_draw(host, None, path, n, offset, floats, dev)
+            torch.cuda.synchronize()
+            assert torch.equal(k, p) and torch.equal(k, h)
+            assert torch.equal(p.cpu(), tf.threefry_plain(
+                slot.words.cpu(), None if it_t is None else it_t.cpu(),
+                path, n, offset, floats, "cpu"))
+
+
+def test_replay_draws_the_slot_s_new_key(dev):
+    """A CUDA graph that captured draws from a KeySlot's sampler (a split,
+    a stream's uniforms and in_ball: 5 folds after the slot) draws, at each
+    replay, under the key last written into the slot: replayed after fill
+    B, then A, then B, it equals the host keys' eager draws each time."""
+    from hobbyraytracer_tpu_torch.core import rng as prng
+    from hobbyraytracer_tpu_torch.core.rng import KeySlot
+    from hobbyraytracer_tpu_torch.kernels import build as kbuild
+    slot = KeySlot(dev)
+    kt = Sampler(0, dev).slotted(slot).split(3)[2]
+    out_u = torch.empty((4097,), device=dev)
+    out_b = torch.empty((4097, 3), device=dev)
+
+    def draw():
+        out_u.copy_(kt.uniform(prng.MEDIUM_FLIGHT, 3, (4097,)))
+        out_b.copy_(kt.in_ball(prng.SCATTER_BALL, 7, (4097,),
+                               span=(10, 5000)))
+
+    keys = [Sampler(5, dev).fold_in(1000003).fold_in(s) for s in (0, 1)]
+    want = []
+    for k in keys:
+        h = k.split(3)[2]
+        want.append((h.uniform(prng.MEDIUM_FLIGHT, 3, (4097,)),
+                     h.in_ball(prng.SCATTER_BALL, 7, (4097,),
+                               span=(10, 5000))))
+    graph = kbuild.GraphReplay(dev)
+    with torch.cuda.device(dev):
+        for i in (0, 1, 0, 1):
+            slot.fill(keys[i].key)
+            graph(draw)
+            torch.cuda.synchronize()
+            assert torch.equal(out_u, want[i][0])
+            assert torch.equal(out_b, want[i][1])
+    assert graph.graph is not None
+    assert not torch.equal(want[0][0], want[1][0])
+
+
+def _batch_renders(dev, monkeypatch, scene, camera, runs, w=64, h=64, spp=3,
+                   chunk=2):
+    """runs {label: (eager, per-bounce)} -> {label: (radiance sum, launches
+    of K1, K2, K4, threefry, graphs captured)} under deterministic
+    algorithms; per-bounce forces `trace`'s loop (batch_route False)."""
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    captured = _counted_graphs(monkeypatch)
+    route = ppath.batch_route
+    libs = (pk.KERNEL, pk.KERNEL_STREAM, sk.SPHERE_KERNEL, tf.THREEFRY)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, (eager, loop) in runs.items():
+            monkeypatch.setattr(ppath, "batch_route",
+                                (lambda *a, **k: False) if loop else route)
+            for lib in libs:
+                lib.launches = 0
+            captured.clear()
+            total = ppath.radiance_sum(scene, camera, w, h, spp,
+                                       Sampler(1, dev), sample_chunk=chunk,
+                                       eager=eager)
+            torch.cuda.synchronize()
+            out[label] = (total, [lib.launches for lib in libs],
+                          len(captured))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        monkeypatch.setattr(ppath, "batch_route", route)
+    return out
+
+
+@pytest.mark.parametrize("scene_path,sphere_kernel", [
+    (TEAPOT, False), (SMOKE, False), (BALLS, True), (HIRES, False)],
+    ids=["teapot", "smoke", "balls-k4", "hires-k2"])
+def test_batch_graph_render_equals_eager(dev, monkeypatch, scene_path,
+                                         sphere_kernel):
+    """radiance_sum at 64x64 @ 3 spp in chunks of 2, depth 50, through
+    BatchRun's CUDA graphs against eager=True (its steps eagerly) and
+    against `trace`'s per-bounce loop, under deterministic algorithms: the
+    sums bit for bit equal; the graphs and the eager steps launch every
+    kernel alike (the replays add the captured launches), the loop no
+    more; the start, each block of bounces and the add captured, nothing
+    eagerly."""
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    from hobbyraytracer_tpu_torch.ops import intersect as isect
+    monkeypatch.setattr(isect, "SPHERE_KERNEL", sphere_kernel)
+    job = build_scene(load_scene_desc(scene_path))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    assert ppath.batch_route(scene, dev)
+    out = _batch_renders(dev, monkeypatch, scene, camera, {
+        "eager": (True, False), "graph": (False, False),
+        "loop": (True, True)})
+    (a, la, ca), (b, lb, cb), (c, lc, cc) = (
+        out["eager"], out["graph"], out["loop"])
+    assert (ca, cb, cc) == (0, _batch_graphs(50), 0)
+    assert torch.equal(a, b) and torch.equal(a, c) and a.max() > 0
+    assert la == lb and la[-1] > 0
+    assert all(x <= y for x, y in zip(lc, la))
+    kernel = {TEAPOT: 0, SMOKE: None, BALLS: 2, HIRES: 1}[scene_path]
+    for i in range(3):
+        assert (la[i] > 0) == (i == kernel), la
+
+
+def test_batch_render_sharded_on_one_card(dev, monkeypatch):
+    """parallel/shard.py:render_sharded of the teapot (64x64 @ 3 spp in
+    chunks of 2) over two workers on the one card, each with graphs of its
+    own, against the one-worker render through the graphs and against its
+    own eager=True: the images bit for bit equal (deterministic
+    algorithms); a worker captures a run's graphs."""
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    from hobbyraytracer_tpu_torch.parallel import shard
+    captured = _counted_graphs(monkeypatch)
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    mesh = [torch.device("cuda", 0)] * 2
+    imgs, graphs = [], []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for fn in (
+                lambda: ppath.render_image(scene, camera, 64, 64, 3,
+                                           Sampler(4, dev), sample_chunk=2),
+                lambda: shard.render_sharded(scene, camera, 64, 64, 3,
+                                             Sampler(4, dev), mesh,
+                                             sample_chunk=2),
+                lambda: shard.render_sharded(scene, camera, 64, 64, 3,
+                                             Sampler(4, dev), mesh,
+                                             sample_chunk=2, eager=True)):
+            captured.clear()
+            imgs.append(fn())
+            graphs.append(len(captured))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graphs == [_batch_graphs(50), 2 * _batch_graphs(50), 0]
+    assert torch.equal(imgs[0], imgs[1]) and torch.equal(imgs[1], imgs[2])
+
+
+def test_batch_run_replays_under_each_render_s_keys(dev):
+    """One BatchRun's graphs serve every sample of every chunk: the run
+    used for seed 1, then seed 2 (replays only), equals fresh eager runs
+    of each seed bit for bit."""
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        run = ppath.BatchRun(scene, camera, 48, 48, Sampler(0, dev), 50,
+                             graphs=True)
+        got = [run.sample_sum(Sampler(seed, dev), 3).clone()
+               for seed in (1, 2)]
+        want = [ppath.BatchRun(scene, camera, 48, 48, Sampler(0, dev),
+                               50).sample_sum(Sampler(seed, dev), 3)
+                for seed in (1, 2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert run.samples == 6
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[0], got[1])
+
+
+def test_batch_capture_that_reads_the_host_raises(dev, monkeypatch):
+    """A bounce that reads a value on the host cannot be captured: the
+    batch render's capture (its second sample) raises, and nothing renders
+    eagerly in its place (the warm-up sample, eager, reads it freely)."""
+    from hobbyraytracer_tpu_torch.integrator import path as ppath
+    bounce = ppath._bounce
+    calls = []
+
+    def reading(*args, **kwargs):
+        carry = bounce(*args, **kwargs)
+        calls.append(float(carry[2].sum()))
+        return carry
+
+    monkeypatch.setattr(ppath, "_bounce", reading)
+    job = build_scene(load_scene_desc(TEAPOT))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    with pytest.raises(RuntimeError):
+        ppath.render_image(scene, camera, 32, 32, 3, Sampler(0, dev),
+                           max_depth=4)
+    assert 1 <= len(calls) <= 4
+    torch.cuda.synchronize()
+
+
+def test_batch_entry_points_take_the_graph_route(dev, monkeypatch, tmp_path):
+    """The CLI's `render --integrator batch --device cuda`, `bench` with
+    BENCH_INTEGRATOR=batch and entry.py's forward step each capture one
+    BatchRun's graphs (at depth 50, and at entry.py's depth 12); bench's
+    one-sample warm-up render none (a run captures at its second sample).
+    Each ends with finite output."""
+    from hobbyraytracer_tpu_torch import bench, entry
+    from hobbyraytracer_tpu_torch.cli import main as cli
+    captured = _counted_graphs(monkeypatch)
+    assert cli.main(["render", TEAPOT, "-o", str(tmp_path / "b.png"),
+                     "--spp", "3", "--width", "48", "--height", "48",
+                     "--device", "cuda", "--integrator", "batch"]) == 0
+    assert len(captured) == _batch_graphs(50)
+    captured.clear()
+    for name, value in (("BENCH_INTEGRATOR", "batch"), ("BENCH_SIZE", "32"),
+                        ("BENCH_SPP", "2"), ("BENCH_REPEATS", "1")):
+        monkeypatch.setenv(name, value)
+    line = bench.run(torch.device("cuda"))
+    assert len(captured) == _batch_graphs(50) and line["value"] > 0
+    captured.clear()
+    fn, example = entry.entry("cuda")
+    out = fn(*example)
+    assert (len(captured) == _batch_graphs(12)
+            and bool(torch.isfinite(out).all()))

@@ -397,10 +397,14 @@ def _site_medium(as_tensor):
 def _site_batch_split(as_tensor):
     """The batch integrator's sample s: fold_in(key, s), split in three:
     the jitters from the first two keys, the lens and the bounces from the
-    third (cornell_box with the lens on, depth 2)."""
+    third (cornell_box with the lens on, depth 2). as_tensor: through the
+    graph route's steps run eagerly, fold_in(key, s) in the key slot."""
     job, scene, camera = _carried(CORNELL, lens=True)
 
     def run_p():
+        if as_tensor:
+            return ppath.BatchRun(scene, camera, 6, 6, Sampler(4, "cpu"),
+                                  2).sample_sum(Sampler(4, "cpu"), 2)
         return ppath.sample_radiance(scene, camera, 6, 6, Sampler(4, "cpu"),
                                      2, max_depth=2)
 
@@ -412,10 +416,21 @@ def _site_batch_split(as_tensor):
 
 def _site_chunk_fold_in(as_tensor):
     """The batch render's sample chunks: chunk i draws from fold_in(key,
-    1000003 + i) (cornell_box, 3 spp in chunks of 2, depth 1)."""
+    1000003 + i) (cornell_box, 3 spp in chunks of 2, depth 1). as_tensor:
+    through the graph route's steps run eagerly (batch_route forced on the
+    CPU), fold_in(fold_in(key, 1000003 + i), s) in the key slot."""
     job, scene, camera = _carried(CORNELL)
 
     def run_p():
+        if as_tensor:
+            route = ppath.batch_route
+            ppath.batch_route = lambda *a, **k: True
+            try:
+                return ppath.render_image(scene, camera, 4, 4, 3,
+                                          Sampler(6, "cpu"), max_depth=1,
+                                          sample_chunk=2, eager=True)
+            finally:
+                ppath.batch_route = route
         return ppath.render_image(scene, camera, 4, 4, 3, Sampler(6, "cpu"),
                                   max_depth=1, sample_chunk=2)
 
@@ -456,13 +471,15 @@ _SITES = {"jitter": _site_jitter, "lens": _site_lens,
           "batch_split": _site_batch_split,
           "chunk_fold_in": _site_chunk_fold_in, "edges": _site_edges}
 _WAVEFRONT_SITES = ("jitter", "lens", "scatter", "rr", "medium")
+_SLOT_SITES = ("batch_split", "chunk_fold_in")
 
 
-# the wavefront sites run with the iteration a host int and a 0-d tensor;
-# the others take no iteration
+# the wavefront sites run with the iteration a host int and a 0-d tensor,
+# the batch sites with host keys and with the key in a device slot; the
+# others take no iteration
 _SITE_CASES = [(site, as_tensor) for site in _SITES
                for as_tensor in ((False, True) if site in _WAVEFRONT_SITES
-                                 else (False,))]
+                                 + _SLOT_SITES else (False,))]
 
 
 @pytest.mark.parametrize(
