@@ -1,0 +1,12 @@
+"""fit_busy_ms: device busy milliseconds of the replayed steps of the
+profiled fits, over those steps."""
+
+
+def read(run):
+    if run.job != "fit":
+        return None
+    units = sum(t.units for t in run.traces)
+    if not units:
+        return None
+    return 1e3 * sum(t.busy_by_span.get("replay", 0.0)
+                     for t in run.traces) / units
