@@ -24,7 +24,10 @@ the loss are summed over the processes; process 0 writes the image).
 from FILE when it exists (the geometry must match: io/checkpoint.py); a
 multi-worker render writes the workers' states stacked, and resumes on a
 mesh of the same size only. Checkpoints are refused across processes.
---profile DIR writes a torch.profiler trace of the render to DIR;
+--profile DIR writes a torch.profiler trace of the render to DIR
+(render_rank{r}.json, with the program's hrt.* spans as annotations) and
+the program's own record of it (tracing.py: spans, device phase times,
+counters) as DIR/spans_rank{r}.jsonl;
 --debug-nans raises on the first non-finite value in the render's state,
 checked after every block of iterations (the wavefront integrator).
 
@@ -186,6 +189,7 @@ def cmd_render(args) -> int:
 def _render(args, mesh, t_start: float) -> int:
     import torch
 
+    from .. import tracing
     from ..core.rng import Sampler
     from ..integrator import path as path_mod
     from ..integrator import wavefront
@@ -289,7 +293,10 @@ def _render(args, mesh, t_start: float) -> int:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, f"render_rank{rank}.json")
         profiler.export_chrome_trace(trace)
-        print(f"\n[profile trace written to {trace}]")
+        spans = os.path.join(args.profile, f"spans_rank{rank}.jsonl")
+        tracing.write_jsonl(spans, tracing.RECORDER.drain())
+        print(f"\n[profile trace written to {trace}, the program's spans "
+              f"to {spans}]")
     _progress(total_px, total_px)
     print()
 
@@ -452,7 +459,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--checkpoint-every", type=float, default=30.0,
                     help="seconds between checkpoint writes")
     sp.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the render to DIR")
+                    help="write a torch.profiler trace of the render and "
+                    "the program's spans (spans_rank{r}.jsonl) to DIR")
     sp.add_argument("--debug-nans", action="store_true",
                     help="raise on the first non-finite value in the render "
                          "state, checked after every block of iterations")

@@ -25,6 +25,11 @@ find follows the moving geometry.
 
 `render_linear_slice` renders one worker's pixels of the sharded fit
 (parallel/shard.py) with the whole image's draws sliced to them.
+
+A traced fit (tracing.py: a profiler recording, or tracing.recording(),
+when fit_materials starts) records the spans hrt.fit and hrt.fit.step and
+times each step's forward, backward and Adam update by events that the
+step's CUDA graph captures.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..core.rng import Sampler
 from ..integrator import path as path_mod
 from ..kernels import build as kbuild
@@ -292,26 +298,33 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
         return out
 
     def step(k) -> torch.Tensor:
-        for p in leaves:
-            p.grad.zero_()
-        loss = render_loss(params, rebuild, camera, width, height, k,
-                           n_samples, target, max_depth)
-        loss.backward()
-        if edge_tables is not None:
-            for v, b in zip(params["verts"], boundary_terms(k)):
-                v.grad.add_(b)
-        opt.step()
-        project_materials(params)
+        with tracing.phase("fit.forward"):
+            for p in leaves:
+                p.grad.zero_()
+            loss = render_loss(params, rebuild, camera, width, height, k,
+                               n_samples, target, max_depth)
+        with tracing.phase("fit.backward"):
+            loss.backward()
+            if edge_tables is not None:
+                for v, b in zip(params["verts"], boundary_terms(k)):
+                    v.grad.add_(b)
+        with tracing.phase("fit.adam"):
+            opt.step()
+            project_materials(params)
         return loss.detach()
 
     graph = (kbuild.GraphReplay(device) if not eager and fit_route(
         scene, device, boundary, correlated) else None)
     losses = []
-    for i in range(steps):
-        k = sampler if correlated else sampler.fold_in(i)
-        losses.append(float(_run_step(lambda: step(k), graph)))
-        if verbose and (i % max(1, steps // 10) == 0 or i == steps - 1):
-            print(f"fit step {i}: loss {losses[-1]:.6f}")
+    with tracing.job("fit", device, width=width, height=height,
+                     spp=n_samples, steps=steps):
+        for i in range(steps):
+            k = sampler if correlated else sampler.fold_in(i)
+            with tracing.span("fit.step", index=i):
+                losses.append(float(_run_step(lambda: step(k), graph)))
+                tracing.read_phases(1)
+            if verbose and (i % max(1, steps // 10) == 0 or i == steps - 1):
+                print(f"fit step {i}: loss {losses[-1]:.6f}")
     with torch.no_grad():
         fitted = rebuild(params)
     return FitResult(scene=fitted, losses=np.asarray(losses),

@@ -50,6 +50,14 @@ under torch.use_deterministic_algorithms: the framebuffer's index_add_
 otherwise adds in the order its atomics land). A multi-worker render
 (parallel/shard.py) drains one slice of the work items a worker through
 `_regenerate(item0=)`.
+
+Tracing (tracing.py): a render traced as a whole (a profiler recording, or
+tracing.recording(), at its start) records the spans hrt.render,
+hrt.block, hrt.host_read and hrt.film, times each segment's phases
+(regenerate, find, shade, retire) by events that a block's CUDA graph
+captures, and counts the lanes active, hit and deferred and the rows
+retired a segment on the device. Untraced, the same sites do nothing.
+The sharded render (parallel/shard.py) is never traced.
 """
 from __future__ import annotations
 
@@ -60,6 +68,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import tracing
 from ..core import rng as rng_mod
 from ..core.types import Rays
 from ..kernels import build as kbuild
@@ -230,78 +239,94 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
     pool = state.item.shape[0]
     chunk, n_chunks, last = _chunk_geometry(samples, sample_chunk)
     period = int(POOL_SORT if pool_sort is None else pool_sort)
-    mesh_cohsort = None
-    if period > 0 and scene_ir.has_wavefront_sort_key(scene):
-        if state.it % period == 0:
-            _pool_permute(state, scene)
-        mesh_cohsort = False
-    active = _active(state)
-    r = Rays(o=state.o, d=state.d)
-    hits = scene_ir.intersect_scene(scene, r, ray_valid=active, plain=plain,
-                                    sampler=sampler, bounce=state.it,
-                                    mesh_cohsort=mesh_cohsort)
+    with tracing.phase("segment.find"):
+        mesh_cohsort = None
+        if period > 0 and scene_ir.has_wavefront_sort_key(scene):
+            if state.it % period == 0:
+                _pool_permute(state, scene)
+            mesh_cohsort = False
+        active = _active(state)
+        r = Rays(o=state.o, d=state.d)
+        hits = scene_ir.intersect_scene(scene, r, ray_valid=active,
+                                        plain=plain, sampler=sampler,
+                                        bounce=state.it,
+                                        mesh_cohsort=mesh_cohsort)
 
-    miss = active & ~hits.hit
-    rad = state.rad + torch.where(miss[:, None],
-                                  state.thr * background_colour(scene, r.d),
-                                  0.0)
-    emit = shade_ops.emitted(scene.materials, scene.textures, hits)
-    hit_active = active & hits.hit
-    rad = rad + torch.where(hit_active[:, None], state.thr * emit, 0.0)
+    with tracing.phase("segment.shade"):
+        miss = active & ~hits.hit
+        rad = state.rad + torch.where(
+            miss[:, None], state.thr * background_colour(scene, r.d), 0.0)
+        emit = shade_ops.emitted(scene.materials, scene.textures, hits)
+        hit_active = active & hits.hit
+        rad = rad + torch.where(hit_active[:, None], state.thr * emit, 0.0)
 
-    ok, atten, new_d = shade_ops.scatter(scene.materials, scene.textures, r,
-                                         hits, sampler, state.it)
-    depth = state.depth + 1
-    cont = hit_active & ok & (depth < max_depth)  # bounce cap, main.cpp:43
-    thr = torch.where(cont[:, None], state.thr * atten, state.thr)
-    if rr:
-        # Russian roulette: unbiased (survivors scaled by 1/p); the
-        # reference traces every path to depth 50
-        p = torch.clamp(thr.max(dim=1).values, RR_MIN_P, 1.0)
-        u_rr = sampler.uniform(rng_mod.RUSSIAN_ROULETTE, state.it, (pool,))
-        rr_on = cont & (depth >= RR_START)
-        kill = rr_on & (u_rr >= p)
-        thr = torch.where((rr_on & ~kill)[:, None], thr / p[:, None], thr)
-        cont = cont & ~kill
-    state.o = torch.where(cont[:, None], hits.p, state.o)
-    state.d = torch.where(cont[:, None], new_d, state.d)
+        ok, atten, new_d = shade_ops.scatter(scene.materials,
+                                             scene.textures, r, hits,
+                                             sampler, state.it)
+        depth = state.depth + 1
+        # bounce cap, main.cpp:43
+        cont = hit_active & ok & (depth < max_depth)
+        thr = torch.where(cont[:, None], state.thr * atten, state.thr)
+        if rr:
+            # Russian roulette: unbiased (survivors scaled by 1/p); the
+            # reference traces every path to depth 50
+            p = torch.clamp(thr.max(dim=1).values, RR_MIN_P, 1.0)
+            u_rr = sampler.uniform(rng_mod.RUSSIAN_ROULETTE, state.it,
+                                   (pool,))
+            rr_on = cont & (depth >= RR_START)
+            kill = rr_on & (u_rr >= p)
+            thr = torch.where((rr_on & ~kill)[:, None], thr / p[:, None],
+                              thr)
+            cont = cont & ~kill
+        state.o = torch.where(cont[:, None], hits.p, state.o)
+        state.d = torch.where(cont[:, None], new_d, state.d)
 
-    # a lane whose sample ended starts the next sample of its chunk
-    # (depth -1: fresh ray at the next regenerate) or owes a retirement
-    chunk_n = torch.where(_floordiv(state.item, wh) == n_chunks - 1, last,
-                          chunk).to(torch.int32)
-    sample_end = active & ~cont
-    more = sample_end & (state.sub + 1 < chunk_n)
-    finished = sample_end & (state.sub + 1 >= chunk_n)
-    sub = torch.where(more, state.sub + 1, state.sub)
-    depth = torch.where(more, -1, depth)
+        # a lane whose sample ended starts the next sample of its chunk
+        # (depth -1: fresh ray at the next regenerate) or owes a retirement
+        chunk_n = torch.where(_floordiv(state.item, wh) == n_chunks - 1,
+                              last, chunk).to(torch.int32)
+        sample_end = active & ~cont
+        more = sample_end & (state.sub + 1 < chunk_n)
+        finished = sample_end & (state.sub + 1 >= chunk_n)
+        sub = torch.where(more, state.sub + 1, state.sub)
+        depth = torch.where(more, -1, depth)
 
-    # retirement: stable-argsort compaction of finished chunks, at most
-    # `cap` per segment, then per-channel scatter-adds into the planar fb
-    cap = min(max(pool // RETIRE_DIV, 64), pool)
-    done = finished | state.defer
-    skey = torch.where(done, torch.remainder(state.item, wh), _BIGI)
-    order = torch.argsort(skey, stable=True)[:cap]
-    pix_c = skey[order]
-    ok_c = pix_c < _BIGI
-    tgt = torch.where(ok_c, pix_c, 0).long()
-    vals = torch.where(ok_c[:, None], rad[order], 0.0)
-    state.fb.index_add_(1, tgt, vals.T.contiguous())
-    # the first `cap` ranks landed; when fewer than `cap` lanes were done
-    # those are exactly the done lanes
-    retired_mask = torch.zeros((pool,), dtype=torch.bool, device=done.device)
-    retired_mask[order] = ok_c
+    with tracing.phase("segment.retire"):
+        # retirement: stable-argsort compaction of finished chunks, at
+        # most `cap` per segment, then per-channel scatter-adds into the
+        # planar fb
+        cap = retire_cap(pool)
+        done = finished | state.defer
+        skey = torch.where(done, torch.remainder(state.item, wh), _BIGI)
+        order = torch.argsort(skey, stable=True)[:cap]
+        pix_c = skey[order]
+        ok_c = pix_c < _BIGI
+        tgt = torch.where(ok_c, pix_c, 0).long()
+        vals = torch.where(ok_c[:, None], rad[order], 0.0)
+        state.fb.index_add_(1, tgt, vals.T.contiguous())
+        # the first `cap` ranks landed; when fewer than `cap` lanes were
+        # done those are exactly the done lanes
+        retired_mask = torch.zeros((pool,), dtype=torch.bool,
+                                   device=done.device)
+        retired_mask[order] = ok_c
 
-    state.thr = thr
-    state.rad = rad
-    state.item = torch.where(retired_mask, -1, state.item)
-    state.depth = depth
-    state.sub = sub
-    state.defer = done & ~retired_mask
-    state.retired = state.retired + torch.where(
-        retired_mask, chunk_n, 0).sum(dtype=torch.int32)
-    state.it += 1
+        state.thr = thr
+        state.rad = rad
+        state.item = torch.where(retired_mask, -1, state.item)
+        state.depth = depth
+        state.sub = sub
+        state.defer = done & ~retired_mask
+        state.retired = state.retired + torch.where(
+            retired_mask, chunk_n, 0).sum(dtype=torch.int32)
+        state.it += 1
+    tracing.count_lanes(active, hit_active, state.defer, ok_c)
     return state
+
+
+def retire_cap(pool: int) -> int:
+    """The most chunks a segment retires: max(pool // RETIRE_DIV, 64),
+    at most the pool."""
+    return min(max(pool // RETIRE_DIV, 64), pool)
 
 
 def _samples_of(items: range, wh: int, samples: int,
@@ -323,8 +348,9 @@ def _issue_block(state: PoolState, scene, camera, width: int, height: int,
     costs the device nothing)."""
     counts = []
     for _ in range(steps):
-        _regenerate(state, camera, width, height, len(items), sampler,
-                    item0=items.start)
+        with tracing.phase("segment.regenerate"):
+            _regenerate(state, camera, width, height, len(items), sampler,
+                        item0=items.start)
         _segment(state, scene, width, height, sampler, max_depth, samples,
                  sample_chunk, rr, plain, pool_sort)
         counts.append(state.retired)
@@ -478,16 +504,27 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
             "states; resume it on a mesh of that size, not single-device")
     graph = (_BlockGraph(state.fb.device) if not eager and graph_route(
         scene, state.fb.device, plain, pool_sort) else None)
-    retired = int(state.retired)
-    while retired < total_samples:
-        counts = _pool_run(state, scene, camera, width, height, samples,
-                           sampler, steps_per_call, max_depth, sample_chunk,
-                           rr, plain, pool_sort, graph)
-        retired = _close_block(state, counts, total_samples)
-        if progress_cb is not None:
-            progress_cb(retired, total_samples)
-        if checkpoint_cb is not None:
-            checkpoint_cb(state)
+    pool = state.item.shape[0]
+    with tracing.job("render", state.fb.device, width=width, height=height,
+                     spp=samples, pool=pool, cap=retire_cap(pool),
+                     steps=steps_per_call):
+        tracing.lane_counters(state.fb.device, pool, retire_cap(pool))
+        retired = int(state.retired)
+        block = 0
+        while retired < total_samples:
+            with tracing.span("block", index=block):
+                counts = _pool_run(state, scene, camera, width, height,
+                                   samples, sampler, steps_per_call,
+                                   max_depth, sample_chunk, rr, plain,
+                                   pool_sort, graph)
+                with tracing.span("host_read"):
+                    retired = _close_block(state, counts, total_samples)
+                tracing.read_phases(len(counts))
+            block += 1
+            if progress_cb is not None:
+                progress_cb(retired, total_samples)
+            if checkpoint_cb is not None:
+                checkpoint_cb(state)
     return state
 
 
@@ -502,13 +539,15 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
     -> ACES -> gamma, as the reference); state / checkpoint_cb / eager as
     in render_state."""
-    state = render_state(scene, camera, width, height, samples, sampler,
-                         max_depth=max_depth, pool=pool,
-                         progress_cb=progress_cb, state=state,
-                         checkpoint_cb=checkpoint_cb,
-                         sample_chunk=sample_chunk, rr=rr, plain=plain,
-                         pool_sort=pool_sort, eager=eager)
-    return film_image(state.fb, width, height, samples)
+    with tracing.job("render", sampler.device):
+        state = render_state(scene, camera, width, height, samples, sampler,
+                             max_depth=max_depth, pool=pool,
+                             progress_cb=progress_cb, state=state,
+                             checkpoint_cb=checkpoint_cb,
+                             sample_chunk=sample_chunk, rr=rr, plain=plain,
+                             pool_sort=pool_sort, eager=eager)
+        with tracing.span("film"):
+            return film_image(state.fb, width, height, samples)
 
 
 def film_image(fb: torch.Tensor, width: int, height: int,

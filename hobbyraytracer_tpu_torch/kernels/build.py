@@ -12,7 +12,10 @@ kernel's registers and spills on a build (`KernelLibrary.ptxas_info`).
 counts of a replayed graph equal to an eager run's (the render's blocks,
 integrator/wavefront.py:_BlockGraph, the fit's steps,
 diff/fit.py:fit_materials, and the batch integrator's sample steps,
-integrator/path.py:BatchRun).
+integrator/path.py:BatchRun). While tracing is on (tracing.py) it records
+the spans hrt.graph.record, hrt.graph.instantiate and hrt.graph.replay,
+tells the traced job which pass runs (eager, capture, replay), and counts
+the captured graph's nodes by type before instantiating it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import time
 import weakref
 
 import torch
+
+from .. import tracing
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -176,17 +181,25 @@ class GraphReplay:
         reset it inside this capture, which the card refuses (the capture
         would fail)."""
         before = {lib: lib.launches for lib in LIBRARIES}
-        self.graph = torch.cuda.CUDAGraph()
+        traced = tracing.ACTIVE is not None
+        # traced: the graph is kept past the capture, its nodes counted,
+        # and instantiated in a span of its own
+        self.graph = (torch.cuda.CUDAGraph(keep_graph=True) if traced
+                      else torch.cuda.CUDAGraph())
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=self.pool,
-                                  stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with tracing.span("graph.record"), torch.cuda.graph(
+                    self.graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 self.out = fn()
         finally:
             if collecting:
                 gc.enable()
+        if traced:
+            tracing.count_graph_nodes(self.graph)
+            with tracing.span("graph.instantiate"):
+                self.graph.instantiate()
         for lib, n in before.items():
             if lib.launches != n:
                 self.launches[lib] = lib.launches - n
@@ -195,7 +208,8 @@ class GraphReplay:
     def replay(self):
         """Run the captured graph on the current stream -> fn()'s result
         as captured (the graph's own tensors)."""
-        self.graph.replay()
+        with tracing.span("graph.replay"):
+            self.graph.replay()
         for lib, n in self.launches.items():
             lib.launches += n
         return self.out
@@ -204,6 +218,8 @@ class GraphReplay:
         """fn() by this graph's turn -> its result (after a replay, the
         graph's own tensors, valid until the next replay). The caller makes
         `device` current."""
+        tracing.set_route("eager" if not self.warm else
+                          "capture" if self.graph is None else "replay")
         if self.warm and self.graph is None:
             self.capture(fn)
         if self.graph is None:

@@ -1,0 +1,15 @@
+"""segment_phase_ms.retire: device milliseconds a segment in the retirement:
+the capped argsort compaction, the framebuffer's index_add_ and the state
+updates, over the segments of the replayed blocks of the traced renders:
+the program's timing events around the phase inside the block's CUDA graph
+(perfbench/program_trace.py)."""
+from perfbench import program_trace
+
+
+def read(run, rec=None):
+    if run.job != "render":
+        return None
+    got = program_trace.phase_ms(rec, "render", "segment.retire")
+    if got is None:
+        return None
+    return got[0], f"over {got[1]} replayed segments"
