@@ -15,7 +15,10 @@ On a CUDA device `fit_materials` runs its steps as the JAX package runs
 its jitted step: the forward, the backward, Adam's update and
 `project_materials` of a step are one CUDA graph (kernels/build.py:
 GraphReplay), replayed every step; `fit_route` says when a step runs
-eagerly instead.
+eagerly instead. The graph outlives its fit (`FIT_GRAPHS`): a later fit of
+the same scene and camera objects, their buffers and flags as they were,
+at the same sizes replays it from its first step, its draws under its own
+key, which the graph reads from a key slot (core/rng.py:KeySlot).
 
 Mesh finds take "kernel_replay": the fused kernel (K1 / K2 on the card)
 finds the winning triangle without gradients and the winner is replayed
@@ -27,13 +30,15 @@ find follows the moving geometry.
 (parallel/shard.py) with the whole image's draws sliced to them.
 
 A traced fit (tracing.py: a profiler recording, or tracing.recording(),
-when fit_materials starts) records the spans hrt.fit and hrt.fit.step and
-times each step's forward, backward and Adam update by events that the
-step's CUDA graph captures.
+when fit_materials starts) records the spans hrt.fit (its attribute
+`graph`: "hit", "capture" or "eager") and hrt.fit.step and times each
+step's forward, backward and Adam update by events that the step's CUDA
+graph captures.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,11 +46,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import tracing
-from ..core.rng import Sampler
+from ..core.rng import KeySlot, Sampler
 from ..integrator import path as path_mod
 from ..kernels import build as kbuild
 from ..kernels import mesh_traverse as kmod
 from ..ops import film
+from ..ops import intersect as isect
 from ..ops.camera import get_rays
 from ..scene import ir as scene_ir
 
@@ -74,14 +80,11 @@ def select_params(scene: scene_ir.SceneIR, fit_vertices: bool = False):
     rebuild(params) -> the scene with those tensors in place of its own
     (and, for a vertex fit, each mesh's kernel tables refreshed from
     them)."""
-    def leaf(t):
-        return t.detach().clone().requires_grad_(True)
-
-    params = {"materials": {f: leaf(getattr(scene.materials, f))
-                            for f in MAT_FIELDS}}
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in _start_values(scene, fit_vertices)]
+    params = {"materials": dict(zip(MAT_FIELDS, leaves))}
     if fit_vertices:
-        params["verts"] = [leaf(inst.mesh.verts) for inst in scene.instances
-                           if inst.kind == "mesh"]
+        params["verts"] = leaves[len(MAT_FIELDS):]
 
     def rebuild(p) -> scene_ir.SceneIR:
         mats = scene_ir.replace(scene.materials, **p["materials"])
@@ -99,6 +102,21 @@ def select_params(scene: scene_ir.SceneIR, fit_vertices: bool = False):
                                 instances=nn.ModuleList(instances))
 
     return params, rebuild
+
+
+def _start_values(scene: scene_ir.SceneIR, fit_vertices: bool) -> list:
+    """The scene's tensors that a fit's leaves start from, in the leaves'
+    order (_leaves): the material fields of MAT_FIELDS, then each mesh
+    instance's vertices for a vertex fit."""
+    out = [getattr(scene.materials, f) for f in MAT_FIELDS]
+    if fit_vertices:
+        out += [inst.mesh.verts for inst in scene.instances
+                if inst.kind == "mesh"]
+    return out
+
+
+def _leaves(params: dict) -> list:
+    return list(params["materials"].values()) + list(params.get("verts", []))
 
 
 def render_linear(scene: scene_ir.SceneIR, camera, width: int, height: int,
@@ -199,44 +217,138 @@ def _run_step(step, graph):
         return graph(step)
 
 
-def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
-                  steps: int = 50, lr: float = 2e-2, n_samples: int = 4,
-                  max_depth: int = 6, sampler=None,
-                  fit_vertices: bool = False, verbose: bool = True,
-                  correlated: bool = True, boundary: bool = False,
-                  boundary_samples: int = 4096,
-                  shadow_light=None, eager: bool = False) -> FitResult:
-    """Adam fit of the material parameters (and the mesh vertices with
-    fit_vertices) to a target image, target (W*H, 3) linear radiance on the
-    scene's device. losses[i] is the loss at the parameters step i started
-    from.
+@dataclass(eq=False)
+class _Fit:
+    """What a fit's steps run on: the parameter leaves (`params` and
+    `rebuild`, as select_params gives them; `leaves` in _leaves's order)
+    with their gradients, Adam over them, the target, `step(k)` (one step
+    drawing from k -> its loss) and the graph that replays it (None:
+    eager). `sampler` draws the steps of a correlated fit. A kept fit
+    (FitGraphs) also holds its cache key, the scene and camera that the
+    key names, the tensors whose addresses the key holds (`held`, kept
+    alive so that no other tensor takes an address the graph reads), its
+    key slot and the phase marks of its traced capture (tracing.py)."""
+    params: dict
+    rebuild: Callable
+    leaves: list
+    opt: torch.optim.Adam
+    target: torch.Tensor
+    step: Callable
+    graph: Optional[kbuild.GraphReplay]
+    sampler: Sampler
+    scene: scene_ir.SceneIR
+    camera: object
+    fit_vertices: bool
+    key: Optional[tuple] = None
+    held: list = field(default_factory=list)
+    slot: Optional[KeySlot] = None
+    marks: list = field(default_factory=list)
 
-    correlated=True (the default) renders every step from the same
-    sampler: when the target was rendered with it at the same spp, the
-    Monte Carlo noise cancels between render and target and the optimum is
-    exact. correlated=False draws step i from sampler.fold_in(i), for
-    targets with noise of their own.
+    def reset(self, target, key) -> None:
+        """Make this kept fit a fresh one of its scene to `target` under
+        the host key `key`, in place: the leaves at the scene's values,
+        the gradients and Adam's moments and step count at 0, the target
+        and the slot's words written. A replayed first step then does an
+        eager first step's arithmetic (Adam is capturable on the card on
+        both routes)."""
+        with torch.no_grad():
+            for leaf, start in zip(self.leaves, _start_values(
+                    self.scene, self.fit_vertices)):
+                leaf.copy_(start)
+                leaf.grad.zero_()
+            for state in self.opt.state.values():
+                for v in state.values():   # exp_avg, exp_avg_sq, step
+                    v.zero_()
+            self.target.copy_(target)
+        self.slot.fill(key)
 
-    boundary=True (with fit_vertices) adds the edge-sampled silhouette
-    term (diff/edges.py:boundary_grad) to each mesh's vertex gradient;
-    shadow_light, a (3,) emitter position, adds the shadow-silhouette term
-    as well (shadow_boundary_grad). Without them the vertices feel only the
-    smooth shading-chain gradient.
 
-    On fit_route's CUDA route step 0 runs eagerly (the warm-up: it builds
-    the kernels and creates Adam's state), step 1 is captured into a CUDA
-    graph and replayed at once, and every later step is a replay: the
-    forward, the backward, Adam's update and project_materials. The
-    parameters, their gradients and the loss are the graph's static
-    buffers, and the loss is read once a step, as the JAX package's loop
-    reads it. Otherwise, or with eager=True (a comparison switch), every
-    step runs eagerly. Both routes give the same losses and parameters bit
-    for bit where the device's sums are deterministic."""
-    if sampler is None:
-        sampler = Sampler(0, target.device)
+class FitGraphs:
+    """The fits kept with their step graphs across fits, in one process
+    (FIT_GRAPHS): at most one for each (device, traced) pair, since a
+    traced graph holds timing events that an untraced one lacks. A fit
+    takes the kept fit of its cache key out (`take`) and gives it back
+    when it has run all its steps (`give`); a fit that raises never gives
+    it back, so no half-run state is kept. `hits` counts the fits that
+    replayed a kept graph, `captures` the fits on the graph route that
+    captured one of their own. A kept fit holds its graph's memory pool
+    and its scene and camera until a miss replaces it or `clear` drops
+    it."""
+
+    def __init__(self):
+        self.kept = {}
+        self.hits = 0
+        self.captures = 0
+
+    def clear(self) -> None:
+        """Drop every kept fit, with its graph, buffers, scene and camera
+        (the counts stay): the next fit captures again."""
+        self.kept.clear()
+
+    def take(self, key: tuple) -> Optional[_Fit]:
+        """The kept fit of `key`, taken out, or None. A kept fit of another
+        key on the same (device, traced) pair is dropped (a miss replaces
+        it), so its graph's memory is free before the new capture."""
+        fit = self.kept.pop(key[:2], None)
+        return fit if fit is not None and fit.key == key else None
+
+    def give(self, fit: _Fit) -> None:
+        self.kept[fit.key[:2]] = fit
+
+
+FIT_GRAPHS = FitGraphs()
+
+
+def _held(value, tensors: list):
+    """What a step graph recorded over `value` (a scene or a camera, or a
+    part of one) takes as fixed, as a hashable value: each module's type,
+    its plain attributes (flags such as Camera.use_lens and TextureTable.
+    bilinear, which the step branches on as it is recorded) and its parts;
+    each tensor's address, shape, strides, dtype and device (the graph
+    reads it in place). Appends each tensor met to `tensors`, and each
+    object that is told apart only by its identity."""
+    if isinstance(value, torch.Tensor):
+        tensors.append(value)
+        return ("tensor", value.data_ptr(), tuple(value.shape),
+                value.stride(), value.dtype, value.device)
+    if isinstance(value, nn.Module):
+        parts = {**value._parameters, **value._buffers, **value._modules}
+        parts.update((k, v) for k, v in vars(value).items()
+                     if not k.startswith("_") and k != "training")
+        return (type(value),) + tuple((k, _held(parts[k], tensors))
+                                      for k in sorted(parts))
+    if isinstance(value, (tuple, list)):
+        return (type(value),) + tuple(_held(v, tensors) for v in value)
+    try:
+        hash(value)
+    except TypeError:   # no value to compare: the object itself, held
+        tensors.append(value)
+        return ("object", id(value))
+    return value
+
+
+def _switches() -> tuple:
+    """The module-level switches that a fit step's finds read as it is
+    recorded (ops/intersect.py's HRT_* settings, the mesh find a
+    comparison may swap in)."""
+    return (isect.KEY_MODE, isect.CORRIDOR_MIN_K, isect.SPHERE_KERNEL,
+            isect.NO_COHSORT, kmod.traverse_clusters)
+
+
+def _new_fit(scene, camera, target, width, height, lr, n_samples,
+             max_depth, sampler, fit_vertices, boundary, boundary_samples,
+             shadow_light, graph, key=None, held=()) -> _Fit:
+    """A fit's state and step at the scene's values (see _Fit). With a
+    cache `key` (and the tensors it holds the addresses of, `held`) it is
+    a fit to keep: its target a buffer of its own and its draws from a
+    key slot, both for _Fit.reset to fill."""
+    slot = None
+    if key is not None:
+        target = torch.empty_like(target)
+        slot = KeySlot(target.device)
+        sampler = sampler.slotted(slot)
     params, rebuild = select_params(scene, fit_vertices)
-    leaves = list(params["materials"].values()) + list(
-        params.get("verts", []))
+    leaves = _leaves(params)
     # every gradient is a buffer of its own, zeroed and summed into by each
     # step. A parameter outside the render keeps a zero gradient: optax
     # updates it as such (its step count advances), torch's Adam would
@@ -313,19 +425,108 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
             project_materials(params)
         return loss.detach()
 
-    graph = (kbuild.GraphReplay(device) if not eager and fit_route(
-        scene, device, boundary, correlated) else None)
+    return _Fit(params, rebuild, leaves, opt, target, step, graph, sampler,
+                scene, camera, fit_vertices, key, list(held), slot)
+
+
+def _owned(params: dict) -> dict:
+    """Copies of the parameter leaves, with copies of their gradients,
+    that share no storage with the fit's own (which a kept fit's graph
+    writes into again)."""
+    def own(p):
+        out = p.detach().clone().requires_grad_(True)
+        out.grad = p.grad.clone()
+        return out
+
+    return {name: ({f: own(p) for f, p in group.items()}
+                   if isinstance(group, dict) else [own(p) for p in group])
+            for name, group in params.items()}
+
+
+def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
+                  steps: int = 50, lr: float = 2e-2, n_samples: int = 4,
+                  max_depth: int = 6, sampler=None,
+                  fit_vertices: bool = False, verbose: bool = True,
+                  correlated: bool = True, boundary: bool = False,
+                  boundary_samples: int = 4096,
+                  shadow_light=None, eager: bool = False) -> FitResult:
+    """Adam fit of the material parameters (and the mesh vertices with
+    fit_vertices) to a target image, target (W*H, 3) linear radiance on the
+    scene's device. losses[i] is the loss at the parameters step i started
+    from. The result's params (leaves with their last gradients) and scene
+    are the caller's own: no later fit writes into them.
+
+    correlated=True (the default) renders every step from the same
+    sampler: when the target was rendered with it at the same spp, the
+    Monte Carlo noise cancels between render and target and the optimum is
+    exact. correlated=False draws step i from sampler.fold_in(i), for
+    targets with noise of their own.
+
+    boundary=True (with fit_vertices) adds the edge-sampled silhouette
+    term (diff/edges.py:boundary_grad) to each mesh's vertex gradient;
+    shadow_light, a (3,) emitter position, adds the shadow-silhouette term
+    as well (shadow_boundary_grad). Without them the vertices feel only the
+    smooth shading-chain gradient.
+
+    On fit_route's CUDA route step 0 runs eagerly (the warm-up: it builds
+    the kernels and creates Adam's state), step 1 is captured into a CUDA
+    graph and replayed at once, and every later step is a replay: the
+    forward, the backward, Adam's update and project_materials. The
+    parameters, their gradients, the target and the loss are the graph's
+    static buffers, and the loss is read once a step, as the JAX package's
+    loop reads it. The fit is kept (FIT_GRAPHS) under a key of everything
+    its capture holds fixed: the scene and camera objects, and in them each
+    tensor's address and layout and each plain attribute (such as
+    Camera.use_lens), ops/intersect.py's switches, the sizes, spp, depth,
+    lr, fit_vertices, the target's shape and dtype, the device and whether
+    the fit is traced. A later fit of the same key resets the kept buffers
+    in place (_Fit.reset) and replays every step, step 0 included, drawing
+    under its own sampler's key (host words) from the key slot. With
+    eager=True (a comparison switch), or off fit_route's graph route,
+    every step runs eagerly. All routes give the same losses and
+    parameters bit for bit where the device's sums are deterministic."""
+    if sampler is None:
+        sampler = Sampler(0, target.device)
+    device = scene.materials.albedo.device
+    on_graph = not eager and fit_route(scene, device, boundary, correlated)
     losses = []
     with tracing.job("fit", device, width=width, height=height,
-                     spp=n_samples, steps=steps):
+                     spp=n_samples, steps=steps) as job:
+        fit = key = None
+        held = []
+        if on_graph:
+            key = (device, job is not None, _switches(), id(scene),
+                   id(camera), _held(scene, held), _held(camera, held),
+                   width, height, n_samples, max_depth, lr, fit_vertices,
+                   tuple(target.shape), target.dtype)
+            fit = FIT_GRAPHS.take(key)
+        how = "hit" if fit is not None else "capture" if on_graph else "eager"
+        if fit is None:
+            fit = _new_fit(
+                scene, camera, target, width, height, lr, n_samples,
+                max_depth, sampler, fit_vertices, boundary, boundary_samples,
+                shadow_light,
+                kbuild.GraphReplay(device) if on_graph else None, key, held)
+        if on_graph:
+            fit.reset(target, sampler.key)
+        FIT_GRAPHS.hits += how == "hit"
+        FIT_GRAPHS.captures += how == "capture"
+        if job is not None:
+            job.root.attrs["graph"] = how
+            job.captured = fit.marks
         for i in range(steps):
-            k = sampler if correlated else sampler.fold_in(i)
+            k = fit.sampler if correlated else sampler.fold_in(i)
             with tracing.span("fit.step", index=i):
-                losses.append(float(_run_step(lambda: step(k), graph)))
+                losses.append(float(_run_step(lambda: fit.step(k),
+                                              fit.graph)))
                 tracing.read_phases(1)
             if verbose and (i % max(1, steps // 10) == 0 or i == steps - 1):
                 print(f"fit step {i}: loss {losses[-1]:.6f}")
+        if on_graph:
+            if job is not None:
+                fit.marks = job.captured
+            FIT_GRAPHS.give(fit)
+    params = _owned(fit.params)
     with torch.no_grad():
-        fitted = rebuild(params)
-    return FitResult(scene=fitted, losses=np.asarray(losses),
-                     params=params)
+        fitted = fit.rebuild(params)
+    return FitResult(scene=fitted, losses=np.asarray(losses), params=params)

@@ -1141,6 +1141,116 @@ def test_fit_capture_that_reads_the_host_raises(dev, monkeypatch):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("path,size,spp,depth,steps,fit_vertices", [
+    (f"{SCENES}/shiny_teapot.yaml", (60, 34), 2, 4, 5, False),
+    (HIRES, (32, 32), 1, 3, 3, True)], ids=["shiny_teapot", "hires_vertices"])
+def test_kept_fit_graph_equals_eager_fits(dev, monkeypatch, path, size, spp,
+                                          depth, steps, fit_vertices):
+    """Three fits with three seeds through the step graph kept across fits
+    (diff/fit.py:FIT_GRAPHS): shiny_teapot's materials, and teapot_hires's
+    vertices, whose 32-row tables the graph refreshes every step (K2).
+    One graph captured, by the first, and 2 hits; under deterministic
+    algorithms each fit's losses and parameters equal an eager=True fit's
+    of its seed bit for bit, so a replayed first step after the reset
+    reads the reset state, and its launches equal the eager fit's. The
+    first fit's result is unaltered by the later fits, and no result
+    shares storage with the kept buffers."""
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    captured = _counted_graphs(monkeypatch)
+    monkeypatch.setattr(fit_mod, "FIT_GRAPHS", fit_mod.FitGraphs())
+    scene, camera, target = _fit_job(dev, path, size, spp, depth,
+                                     fit_vertices)
+    libs = (pk.KERNEL, pk.KERNEL_STREAM, tf.THREEFRY)
+
+    def run(seed, eager):
+        for lib in libs:
+            lib.launches = 0
+        res = fit_mod.fit_materials(
+            scene, camera, target, *size, steps=steps, n_samples=spp,
+            max_depth=depth, sampler=Sampler(seed, dev), verbose=False,
+            fit_vertices=fit_vertices, eager=eager)
+        return res, [lib.launches for lib in libs]
+
+    seeds = (11, 12, 2 ** 31 + 13)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kept = []
+        for seed in seeds:
+            kept.append(run(seed, False))
+            if len(kept) == 1:
+                first = [t.clone() for t in
+                         fit_mod._leaves(kept[0][0].params)]
+        eager = [run(seed, True) for seed in seeds]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    graphs = fit_mod.FIT_GRAPHS
+    assert (len(captured), graphs.captures, graphs.hits) == (1, 1, 2)
+    for (a, la), (b, lb) in zip(kept, eager):
+        assert np.array_equal(a.losses, b.losses)
+        assert np.isfinite(a.losses).all()
+        for name in fit_mod.MAT_FIELDS:
+            assert torch.equal(a.params["materials"][name],
+                               b.params["materials"][name]), name
+        assert len(a.params.get("verts", [])) == (1 if fit_vertices else 0)
+        for va, vb in zip(a.params.get("verts", []),
+                          b.params.get("verts", [])):
+            assert torch.equal(va, vb)
+        assert la == lb and la[2] > 0 and la[1 if fit_vertices else 0] > 0
+    assert len({tuple(r.losses) for r, _ in kept}) == 3
+    assert all(torch.equal(a, b) for a, b in
+               zip(fit_mod._leaves(kept[0][0].params), first))
+    (fit,) = graphs.kept.values()
+    own = {t.data_ptr() for p in fit.leaves for t in (p, p.grad)}
+    own.add(fit.target.data_ptr())
+    for res, _ in kept:
+        ptrs = {t.data_ptr() for p in fit_mod._leaves(res.params)
+                for t in (p, p.grad)}
+        ptrs |= {getattr(res.scene.materials, f).data_ptr()
+                 for f in fit_mod.MAT_FIELDS}
+        assert not own & ptrs
+
+
+def test_kept_fit_graph_misses_when_the_camera_takes_its_lens(dev,
+                                                              monkeypatch):
+    """A fit of shiny_teapot (60x34 @ 2 spp, depth 4, 4 steps), then the
+    same camera object's use_lens set in place (its lens radius 0.05 from
+    the start, which only the lens reads), then a second fit: the second
+    misses the pinhole graph and captures its own (2 captures, no hit),
+    and each fit equals an eager=True fit of its camera bit for bit; the
+    lens moved the losses."""
+    from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    captured = _counted_graphs(monkeypatch)
+    monkeypatch.setattr(fit_mod, "FIT_GRAPHS", fit_mod.FitGraphs())
+    size = (60, 34)
+    scene, camera, target = _fit_job(dev, f"{SCENES}/shiny_teapot.yaml",
+                                     size, 2, 4, False)
+    camera.lens_radius.fill_(0.05)
+
+    def run(eager):
+        return fit_mod.fit_materials(
+            scene, camera, target, *size, steps=4, n_samples=2, max_depth=4,
+            sampler=Sampler(21, dev), verbose=False, eager=eager)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fits = []
+        for lens in (False, True):
+            camera.use_lens = lens
+            fits.append((run(False), run(True)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        camera.use_lens = False
+    graphs = fit_mod.FIT_GRAPHS
+    assert (len(captured), graphs.captures, graphs.hits) == (2, 2, 0)
+    for kept, eager in fits:
+        assert np.array_equal(kept.losses, eager.losses)
+        for name in fit_mod.MAT_FIELDS:
+            assert torch.equal(kept.params["materials"][name],
+                               eager.params["materials"][name]), name
+    assert not np.array_equal(fits[0][0].losses, fits[1][0].losses)
+
+
 # --- the batch integrator through CUDA graphs (integrator/path.py:BatchRun) -
 
 SMOKE = f"{SCENES}/cornell_smoke.yaml"

@@ -4,8 +4,14 @@ step reads nothing on the host besides its loss (what a capture needs);
 the checkpoints without a stashed generator state give the numbers they
 gave before and JAX's; the material rows gathered by index_select
 (ops/shade.py:rows) equal indexing's, and their gradients indexing's and
-JAX's. The card's cases (graph against eager, bit for bit) are in
-tests/test_torch_cuda.py."""
+JAX's; the step graph kept across fits (FIT_GRAPHS), with an eager
+stand-in for the graph: fits that reuse it equal fresh fits, each field of
+its key and each change in place of what the capture holds tells fits
+apart, its draws read the key from a slot and the results are the
+caller's own. The card's cases (graph against eager, bit
+for bit) are in tests/test_torch_cuda.py."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,11 +22,13 @@ from torch.utils.checkpoint import checkpoint as torch_checkpoint
 from hobbyraytracer_tpu.diff import fit as jfit
 from hobbyraytracer_tpu.scene import build_scene as jax_build_scene
 from hobbyraytracer_tpu.scene import load_scene_desc as jax_load_scene_desc
-from hobbyraytracer_tpu_torch.core.rng import Sampler
+from hobbyraytracer_tpu_torch import tracing
+from hobbyraytracer_tpu_torch.core.rng import KeySlot, Sampler
 from hobbyraytracer_tpu_torch.diff import fit as pfit
 from hobbyraytracer_tpu_torch.integrator import path as ppath
 from hobbyraytracer_tpu_torch.kernels import build as kbuild
 from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+from hobbyraytracer_tpu_torch.ops import intersect as isect
 from hobbyraytracer_tpu_torch.ops import shade
 from hobbyraytracer_tpu_torch.scene import build_scene, convert
 from hobbyraytracer_tpu_torch.scene import ir as pir
@@ -34,6 +42,7 @@ torch.set_num_threads(2)
 
 KEY = jax.random.PRNGKey(0)
 SHINY = f"{SCENES}/shiny_teapot.yaml"
+SMOKE = f"{SCENES}/cornell_smoke.yaml"
 CUDA = torch.device("cuda")
 
 
@@ -259,3 +268,244 @@ def test_material_rows_match_indexing_and_jax(shape):
     assert (g_new[1:3] > 100).all()
     ids = torch.from_numpy(rng.integers(-1, 4, shape[:1]).astype(np.int32))
     assert torch.equal(shade.rows(ids, mid), ids[mid])
+
+
+# --- the step graph kept across fits (diff/fit.py:FIT_GRAPHS) --------------
+
+@pytest.fixture
+def kept(monkeypatch):
+    """The graph route on the CPU: fit_route says yes, GraphReplay is a
+    stand-in that runs the step eagerly every time, and FIT_GRAPHS a cache
+    of its own -> the list of stand-ins made (one a captured graph)."""
+    made = []
+
+    class EagerGraph:
+        def __init__(self, device):
+            self.device = -1     # torch.cuda.device(-1) makes no change
+            made.append(self)
+
+        def __call__(self, fn):
+            return fn()
+
+    monkeypatch.setattr(pfit, "fit_route", lambda *args, **kwargs: True)
+    monkeypatch.setattr(kbuild, "GraphReplay", EagerGraph)
+    monkeypatch.setattr(pfit, "FIT_GRAPHS", pfit.FitGraphs())
+    return made
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    job = build_scene(load_scene_desc(SMOKE))
+    return job.scene, job.camera
+
+
+def _fit_job(scene, camera, size=12, spp=2, depth=3):
+    """(start scene, target) of a small fit: the albedos perturbed, the
+    target the scene's own render."""
+    with torch.no_grad():
+        target = pfit.render_linear(scene, camera, size, size,
+                                    Sampler(4, "cpu"), spp, depth)
+    m = scene.materials
+    return pir.replace(scene, materials=pir.replace(
+        m, albedo=torch.clamp(m.albedo * 0.3 + 0.3, 0, 1))), target
+
+
+def _run(start, camera, target, seed, size=12, spp=2, depth=3, steps=2,
+         **kwargs):
+    return pfit.fit_materials(start, camera, target, size, size,
+                              steps=steps, n_samples=spp, max_depth=depth,
+                              sampler=Sampler(seed, "cpu"), verbose=False,
+                              **kwargs)
+
+
+def _tensors(res) -> list:
+    return pfit._leaves(res.params)
+
+
+def _assert_same_fit(a, b):
+    assert np.array_equal(a.losses, b.losses)
+    for f in pfit.MAT_FIELDS:
+        assert torch.equal(a.params["materials"][f],
+                           b.params["materials"][f]), f
+    assert len(a.params.get("verts", [])) == len(b.params.get("verts", []))
+    for va, vb in zip(a.params.get("verts", []), b.params.get("verts", [])):
+        assert torch.equal(va, vb)
+
+
+@pytest.mark.parametrize("fit_vertices", [False, True],
+                         ids=["materials", "vertices"])
+def test_kept_fit_equals_fresh_fits(kept, shiny, fit_vertices):
+    """Three fits of one scene and camera with three seeds: the first
+    captures, the other two reset the kept buffers and replay (1 capture,
+    2 hits), and each equals a fresh eager=True fit of its seed bit for
+    bit: the losses, every material field and, in a vertex fit, the
+    vertices. The first fit's result is as it was after the third, and no
+    result (params, gradients, the fitted scene's materials) shares
+    storage with the kept fit's buffers."""
+    scene, camera = shiny
+    if fit_vertices:
+        scene = pir.replace(scene, textures=pir.replace(scene.textures))
+        scene.textures.bilinear = True
+    start, target = _fit_job(scene, camera)
+    runs = []
+    for seed in (1, 2, 3):
+        runs.append(_run(start, camera, target, seed,
+                         fit_vertices=fit_vertices))
+        if seed == 1:
+            first = [t.clone() for t in _tensors(runs[0])]
+    graphs = pfit.FIT_GRAPHS
+    assert (len(kept), graphs.captures, graphs.hits) == (1, 1, 2)
+    for seed, res in zip((1, 2, 3), runs):
+        _assert_same_fit(res, _run(start, camera, target, seed,
+                                   fit_vertices=fit_vertices, eager=True))
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(runs[0]), first))
+    assert len(runs[0].losses) == 2 and len(set(map(tuple, (
+        r.losses for r in runs)))) == 3
+    (fit,) = graphs.kept.values()
+    own = {t.data_ptr() for p in fit.leaves for t in (p, p.grad)}
+    own.add(fit.target.data_ptr())
+    for res in runs:
+        ptrs = [t.data_ptr() for p in _tensors(res) for t in (p, p.grad)]
+        ptrs += [getattr(res.scene.materials, f).data_ptr()
+                 for f in pfit.MAT_FIELDS]
+        assert not own & set(ptrs)
+
+
+MISSES = {
+    "size": dict(size=10),
+    "spp": dict(spp=1),
+    "depth": dict(depth=2),
+    "lr": dict(lr=1e-2),
+    "scene object": dict(start=lambda s: pir.replace(s)),
+    "camera object": dict(camera=lambda c: pir.replace(c)),
+    "fit_vertices": dict(fit_vertices=True),
+    "traced": dict(traced=True),
+}
+
+
+@pytest.mark.parametrize("field_", list(MISSES))
+def test_each_key_field_tells_fits_apart(kept, shiny, field_):
+    """A fit that differs from the kept one in one field of the key (the
+    film size, spp, depth, lr, the scene or camera object, fit_vertices,
+    traced) misses and captures a graph of its own, whose fit equals a
+    fresh eager one; a second such fit hits it. A traced fit's graph is
+    kept beside the untraced one, so an untraced fit after it still hits;
+    any other miss replaces the kept fit."""
+    scene, camera = shiny
+    start, target = _fit_job(scene, camera)
+    _run(start, camera, target, 1)
+    change = dict(MISSES[field_])
+    traced = change.pop("traced", False)
+    start2 = change.pop("start", lambda s: s)(start)
+    camera2 = change.pop("camera", lambda c: c)(camera)
+    if "size" in change or "spp" in change or "depth" in change:
+        args = {"size": change.get("size", 12), "spp": change.get("spp", 2),
+                "depth": change.get("depth", 3)}
+        _, target2 = _fit_job(scene, camera2, **args)
+    else:
+        target2 = target
+
+    def second():
+        with tracing.recording() if traced else contextlib.nullcontext():
+            return _run(start2, camera2, target2, 2, **change)
+
+    res = second()
+    graphs = pfit.FIT_GRAPHS
+    assert (len(kept), graphs.captures, graphs.hits) == (2, 2, 0)
+    assert len(graphs.kept) == (2 if traced else 1)
+    _assert_same_fit(res, _run(start2, camera2, target2, 2, eager=True,
+                               **change))
+    second()
+    assert (len(kept), graphs.hits) == (2, 1)
+    _run(start, camera, target, 3)
+    assert (len(kept), graphs.hits) == ((2, 2) if traced else (3, 1))
+    tracing.RECORDER.drain()
+
+
+@pytest.mark.parametrize("scene_name", ["shiny_teapot", "cornell_smoke"])
+def test_render_loss_under_a_key_slot_equals_host_keys(shiny, smoke,
+                                                       scene_name):
+    """render_loss and its material gradients (12x12 @ 2 spp, depth 3)
+    drawing from Sampler.slotted(slot), the slot filled with the sampler's
+    key, equal those drawing from the host key bit for bit: on
+    shiny_teapot (the metal lobe's unit_sphere, 5 folds after the slot)
+    and cornell_smoke (its media's in_ball, 6 folds, the kernel's
+    MAX_PATH)."""
+    scene, camera = shiny if scene_name == "shiny_teapot" else smoke
+    start, target = _fit_job(scene, camera)
+    host = Sampler(7, "cpu")
+    slot = KeySlot("cpu")
+    slot.fill(host.key)
+    out = [_loss_and_grads(start, camera, s, target, 12, 12, 2, 3)
+           for s in (host, host.slotted(slot))]
+    (la, ga), (lb, gb) = out
+    assert float(la) > 0 and torch.equal(la, lb)
+    assert ga["albedo"].abs().max() > 0
+    for name in ga:
+        assert torch.equal(ga[name], gb[name]), name
+
+
+IN_PLACE = {
+    "use_lens": lambda start, camera: (camera, "use_lens", True),
+    "bilinear": lambda start, camera: (start.textures, "bilinear", True),
+    "buffer reassigned": lambda start, camera: (
+        camera, "origin", camera.origin.clone()),
+    "find switch": lambda start, camera: (
+        isect, "NO_COHSORT", not isect.NO_COHSORT),
+}
+
+
+@pytest.mark.parametrize("change", list(IN_PLACE))
+def test_a_change_in_place_tells_fits_apart(kept, shiny, change):
+    """The same scene and camera objects, changed in place between two
+    fits: a flag the step branches on as it is recorded (Camera.use_lens,
+    TextureTable.bilinear), a buffer set to another tensor (the graph
+    reads the old one's address) or a switch of the finds
+    (ops/intersect.py). The fit after the change misses and captures a
+    graph of its own, and equals a fresh eager fit under the change; once
+    the change is undone the next fit misses again."""
+    scene, camera = shiny
+    start, target = _fit_job(scene, camera)
+    _run(start, camera, target, 1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(*IN_PLACE[change](start, camera))
+        res = _run(start, camera, target, 2)
+        graphs = pfit.FIT_GRAPHS
+        assert (len(kept), graphs.captures, graphs.hits) == (2, 2, 0)
+        _assert_same_fit(res, _run(start, camera, target, 2, eager=True))
+    _run(start, camera, target, 3)
+    assert (len(kept), graphs.captures, graphs.hits) == (3, 3, 0)
+
+
+def test_clear_drops_the_kept_fits(kept, shiny):
+    """FitGraphs.clear drops every kept fit, traced or not: the next fit
+    of the same key captures again, and the counts stay."""
+    scene, camera = shiny
+    start, target = _fit_job(scene, camera)
+    _run(start, camera, target, 1)
+    with tracing.recording():
+        _run(start, camera, target, 1)
+    tracing.RECORDER.drain()
+    graphs = pfit.FIT_GRAPHS
+    assert len(graphs.kept) == 2
+    graphs.clear()
+    assert not graphs.kept and (graphs.captures, graphs.hits) == (2, 0)
+    _run(start, camera, target, 2)
+    _run(start, camera, target, 3)
+    assert (len(kept), graphs.captures, graphs.hits) == (3, 3, 1)
+
+
+def test_fit_span_says_how_its_graph_ran(kept, shiny):
+    """hrt.fit's attribute `graph`: "capture" for a fit that captured its
+    graph, "hit" for one that replayed a kept graph, "eager" for an eager
+    fit."""
+    scene, camera = shiny
+    start, target = _fit_job(scene, camera)
+    tracing.RECORDER.drain()
+    with tracing.recording() as rec:
+        for eager in (False, False, True):
+            _run(start, camera, target, 1, eager=eager)
+    roots = [s for s in rec.drain() if s["type"] == "span"
+             and s["name"] == "hrt.fit"]
+    assert [r["attrs"]["graph"] for r in roots] == ["capture", "hit",
+                                                    "eager"]

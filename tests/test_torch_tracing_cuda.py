@@ -2,7 +2,8 @@
 card: the timing events inside a replayed block graph against CUDA events
 around the replay; the untraced block graph against the traced one, node
 type by node type; the graph's kernel nodes against the kernels a profiler
-sees a replayed segment; the fit's step graph; the profiler's copies of
+sees a replayed segment; the fit's step graph, and its replays when a
+later fit keeps it; the profiler's copies of
 the program's spans dropped by the benchmark's reduction. Every test needs
 a CUDA card and skips without one; the file imports neither JAX nor the
 JAX package:
@@ -207,6 +208,39 @@ def test_fit_step_graph_times_its_phases(card):
     counters = _counters(rec.records())
     assert counters["steps"] == 6 and counters["graph.event_record"] == 4
     assert counters["graph.kernel"] > 0
+
+
+def test_kept_fit_graph_times_its_phases(monkeypatch, card):
+    """Two traced fits of one start scene on the card: the second replays
+    the first's kept step graph (diff/fit.py:FIT_GRAPHS) from its step 0,
+    so its six steps all read the three phases, > 0 ms, from the events
+    the first fit's capture recorded; it captures nothing, so it counts no
+    graph nodes. Its hrt.fit reads graph "hit", the first's "capture"."""
+    monkeypatch.setattr(pfit, "FIT_GRAPHS", pfit.FitGraphs())
+    job = build_scene(load_scene_desc(os.path.join(SCENES,
+                                                   "shiny_teapot.yaml")))
+    scene, camera = job.scene.to(card), job.camera.to(card)
+    with torch.no_grad():
+        target = pfit.render_linear(scene, camera, 60, 34, Sampler(4, card),
+                                    4, 6)
+    with tracing.recording() as rec:
+        for seed in (5, 6):
+            res = pfit.fit_materials(scene, camera, target, 60, 34, steps=6,
+                                     n_samples=4, max_depth=6,
+                                     sampler=Sampler(seed, card),
+                                     verbose=False)
+            assert np.isfinite(res.losses).all()
+    records = rec.records()
+    roots = [s for s in records if s["type"] == "span"
+             and s["name"] == "hrt.fit"]
+    assert [r["attrs"]["graph"] for r in roots] == ["capture", "hit"]
+    second = roots[1]["id"]
+    phases = [p for p in records if p["type"] == "phase"
+              and p["job"] == second]
+    assert [p["route"] for p in phases] == ["replay"] * 18
+    assert all(p["ms"] > 0 for p in phases)
+    assert _counters(records, second) == {"steps": 6}
+    assert "graph.kernel" in _counters(records, roots[0]["id"])
 
 
 def test_profiler_copies_of_the_spans_are_annotations(teapot, card):
