@@ -4,8 +4,11 @@ it (its own route, after a warm-up job) against the reference (the sound
 readings), and for each control seed the reference computed in bfloat16
 put in the program's place against the float32 reference (the control's
 readings), and for each fault seed job 0 as the program runs it and with
-each of the job kind's planted faults (faults.py) against one reference
-(the faults' readings at the cell's own size).
+each of the job kind's planted faults (faults.planted), each after a
+warm-up job of its own, against one reference (the faults' readings at the
+cell's own size). The jobs are of
+the cell's kind (jobs.kind), checked by the reference its configuration
+names (manifest.reference).
 
     python3 perfbench/calibrate.py --workload <cell> --seeds 1 2 3 \
         --control-seeds 4 5 6 --fault-seeds 7 8 9
@@ -40,10 +43,10 @@ def main() -> int:
     cell = manifest.load_cell(args.workload)
     manifest.verify_inputs(cell)
     dev = torch.device("cuda", 0)
-    cls = jobs.KINDS[cell.traffic["job"]]
+    cls, ref = jobs.kind(cell), manifest.reference(cell)
     scene = cell.path(cell.config["scene"])
     for seed in args.seeds:
-        program = cls(scene, cell.traffic, dev, seed)
+        program = cls(scene, cell.traffic, dev, seed, ref)
         program.run(-1)
         t0 = time.perf_counter()
         out = program.run(0)
@@ -54,28 +57,29 @@ def main() -> int:
                 "job_s": t1 - t0, "reference_s": time.perf_counter() - t1}
         print(json.dumps(line), flush=True)
     for seed in args.control_seeds:
-        program = cls.__new__(cls)
-        program.t, program.device, program.seed = cell.traffic, dev, seed
-        program.scene_path = scene
+        program = cls(scene, cell.traffic, dev, seed, ref)
         t0 = time.perf_counter()
-        ref = program.reference(0)
-        ctrl = program.reference(0, torch.bfloat16)
-        if cls is jobs.FitJobs:
-            ctrl = ctrl[:2]
-        got = program.compare(ctrl, ref)
+        expected = program.reference(0)
+        got = program.compare(
+            cls.as_output(program.reference(0, torch.bfloat16)), expected)
         print(json.dumps({"seed": seed, "side": "control", **got,
                           "seconds": time.perf_counter() - t0}), flush=True)
     for seed in args.fault_seeds:
-        program = cls(scene, cell.traffic, dev, seed)
-        program.run(-1)
-        t0 = time.perf_counter()
-        ref = program.reference(0)
-        line = {"seed": seed, "reference_s": time.perf_counter() - t0}
-        for name, plant in [("sound", cls.run),
-                            *faults.FAULTS[cls.kind].items()]:
-            out = plant(program, 0)
+        line, expected = {"seed": seed}, None
+        for name in ["sound", *faults.planted(cell)]:
+            # jobs of their own and a warm-up job each, as in a whole run: a
+            # fit replays the step graph that the process's first fit of
+            # its scene captured, which a fault planted later never reaches
+            broken = cls if name == "sound" else faults.broken(cell, name)
+            program = broken(scene, cell.traffic, dev, seed, ref)
+            program.run(-1)
+            out = program.run(0)
             torch.cuda.synchronize()
-            line[name] = program.compare(out, ref)
+            if expected is None:
+                t0 = time.perf_counter()
+                expected = program.reference(0)
+                line["reference_s"] = time.perf_counter() - t0
+            line[name] = program.compare(out, expected)
         print(json.dumps(line), flush=True)
     return 0
 

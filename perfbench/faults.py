@@ -1,7 +1,8 @@
 """The planted faults of the timed path, each a function (program, j) ->
-the output of job j with the fault in it. The tests drive whole runs with
-them (tests/test_perfbench_reference.py), and `calibrate.py --fault-seeds`
-reads them at a cell's own size.
+the output of job j with the fault in it: here those of the built-in job
+kinds, and in a kind file (`kinds/<job>.py`) its own `FAULTS`. The tests
+drive whole runs with them (tests/test_perfbench_reference.py), and
+`calibrate.py --fault-seeds` reads them at a cell's own size.
 
 Renders:
 - half_the_samples: half of the samples left out, the mean over the rest;
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import jobs
+from . import jobs, manifest
 
 
 def _half_the_samples(p, j):
@@ -89,9 +90,16 @@ FAULTS = {
 }
 
 
-def broken(cls, fault: str):
-    """`cls` (a job kind of jobs.KINDS) with `fault` planted in its run."""
-    plant = FAULTS[cls.kind][fault]
+def planted(cell) -> dict:
+    """The planted faults of the cell's job kind: a built-in kind's, or the
+    `FAULTS` of its file `kinds/<job>.py`."""
+    job = cell.traffic["job"]
+    return FAULTS.get(job) or manifest.kind(job, cell.bench).FAULTS
+
+
+def broken(cell, fault: str):
+    """The class of the cell's jobs with `fault` planted in its run."""
+    cls, plant = jobs.kind(cell), planted(cell)[fault]
 
     class Broken(cls):
         def run(self, j):

@@ -1,5 +1,7 @@
 """One run of one cell: set-up, the measured window, the traced jobs, the
-check against the reference, and the result line.
+check against the plain reference that the cell's configuration names, and
+the result line (its `checked_by` and a note on stderr name that reference
+and the job kind).
 
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s>
                              --trace <0|1>
@@ -98,6 +100,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     program_cls: the jobs' class (default: the traffic's kind)."""
     import torch
 
+    cls = program_cls or jobs.kind(cell)   # a refused kind or reference
+    ref = manifest.reference(cell)         # raises before set-up starts
     manifest.verify_inputs(cell)
     cuda = torch.device(device).type == "cuda"
 
@@ -108,8 +112,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     spans = profiling.Spans() if trace else None
     if spans:
         spans.install()
-    program = (program_cls or jobs.KINDS[cell.traffic["job"]])(
-        cell.path(cell.config["scene"]), cell.traffic, device, seed)
+    program = cls(cell.path(cell.config["scene"]), cell.traffic, device, seed,
+                  ref)
     program.run(-1)                                     # the warm-up job
     sync()
 
@@ -171,7 +175,13 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     run = Run(cell, setup_s, window_s, walls,
               [program.work()] * n, spans.jobs if spans else [],
               traces, spans.lanes if spans else set(), _peaks(kind))
-    metrics, notes = {}, []
+    checked_by = {"reference": _rel(ref.__file__, package=True),
+                  "kind": cell.traffic["job"],
+                  "jobs": f"{_rel(sys.modules[cls.__module__].__file__)}:"
+                          f"{cls.__qualname__}"}
+    metrics, notes = {}, [
+        "checked by the reference {reference}; job kind {kind} ({jobs})"
+        .format(**checked_by)]
     for m in (cell.per_layer if trace else cell.end_to_end):
         got = manifest.reader(m["name"])(run)
         if isinstance(got, tuple):
@@ -182,7 +192,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     device_info = {"platform": "gpu" if cuda else "cpu", "kind": kind,
                    "count": cell.chips, "memory_peak_bytes": int(peak)}
     result = {"correct": correct, "attempted": n + failed, "failed": failed,
-              "metrics": metrics, "device": device_info}
+              "metrics": metrics, "device": device_info,
+              "checked_by": checked_by}
     if trace:
         device_info["busy_s"] = sum(t.busy_s for t in traces)
         device_info["window_s"] = sum(t.window_s for t in traces)
@@ -196,6 +207,13 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
         print(note, file=sys.stderr)
     result["checks"] = checks
     return result
+
+
+def _rel(path: str, package: bool = False) -> str:
+    """`path` (a package's folder where `package`) from the checkout's
+    root."""
+    return os.path.relpath(os.path.dirname(path) if package else path,
+                           manifest.ROOT)
 
 
 def _finite(x: float) -> float:

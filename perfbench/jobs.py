@@ -1,6 +1,7 @@
-"""The general traffic generator: the two kinds of job a traffic mix can
-name, each driven through the program's own entry point, and the check of
-a finished job against the plain reference.
+"""The general traffic generator: the kinds of job a traffic mix can name,
+each driven through the program's own entry point, and the check of a
+finished job against the plain reference that the cell's configuration
+names (manifest.reference).
 
 - "render": `integrator.wavefront.render_image` at the mix's film, spp,
   depth, pool and Russian roulette, on the route the program chooses (the
@@ -13,6 +14,11 @@ a finished job against the plain reference.
   check runs the same fit with the reference and compares every step's
   loss and the fitted materials.
 
+Any other "job" is a new kind: a file `kinds/<job>.py` (see manifest.py)
+whose class `JOBS` has the interface of `Jobs` (the constructor, `kind`,
+`work`, `run`, `reference`, `as_output`, `compare`), as a subclass of
+`RenderJobs` or `FitJobs` or of `Jobs`; `kind(cell)` finds it.
+
 Job j of a run draws from the seed `job_seed(seed, "job", j)`; the same
 seed gives the same jobs.
 """
@@ -22,10 +28,7 @@ import hashlib
 
 import torch
 
-from .reference import fit as ref_fit
-from .reference import render as ref_render
-from .reference import scene as ref_scene
-from .reference import trace as ref_trace
+from . import manifest
 
 PIXEL_STEP = 1.0 / 256.0   # one step of the 8-bit output (film.cpp:25-30)
 
@@ -37,17 +40,40 @@ def job_seed(seed: int, purpose: str, j: int = 0) -> int:
     return int.from_bytes(h[:4], "little")
 
 
-class RenderJobs:
+class Jobs:
+    """The jobs of one cell, of one kind, run by the program under test:
+    `run(j)` runs job j (j = -1: the warm-up) and returns its output,
+    `work()` counts one job's units, `reference(j, dtype)` computes job j
+    with the plain reference package `ref` (the shared `reference/` where
+    none is given) in `dtype`, `as_output` cuts such a result to what `run`
+    returns, and `compare(out, ref)` gives {name of a number compared: its
+    gap} (the cell's limits name them)."""
+
+    kind = ""
+
+    def __init__(self, scene_path: str, traffic: dict, device, seed: int,
+                 ref=None):
+        self.t = traffic
+        self.scene_path, self.device, self.seed = scene_path, device, seed
+        self.ref = ref or manifest.reference_package()
+
+    @staticmethod
+    def as_output(ref):
+        """The reference's result of a job as `run` would return it."""
+        return ref
+
+
+class RenderJobs(Jobs):
     """Renders of one scene at one film (the program under test)."""
 
     kind = "render"
 
-    def __init__(self, scene_path: str, traffic: dict, device, seed: int):
+    def __init__(self, scene_path: str, traffic: dict, device, seed: int,
+                 ref=None):
+        super().__init__(scene_path, traffic, device, seed, ref)
         from hobbyraytracer_tpu_torch.integrator import wavefront
         from hobbyraytracer_tpu_torch.scene import (build_scene,
                                                     load_scene_desc)
-        self.t = traffic
-        self.scene_path, self.device, self.seed = scene_path, device, seed
         self.wavefront = wavefront
         job = build_scene(load_scene_desc(scene_path))
         self.scene = job.scene.to(device)
@@ -67,10 +93,10 @@ class RenderJobs:
 
     def reference(self, j: int, dtype=torch.float32):
         """The reference's image of job j, computed in `dtype`."""
-        t = self.t
-        sc = ref_trace.DeviceScene(ref_scene.load(self.scene_path),
+        t, ref = self.t, self.ref
+        sc = ref.trace.DeviceScene(ref.scene.load(self.scene_path),
                                    self.device, dtype)
-        return ref_render.render(sc, t["width"], t["height"], t["spp"],
+        return ref.render.render(sc, t["width"], t["height"], t["spp"],
                                  job_seed(self.seed, "job", j),
                                  t["max_depth"], t["pool"], t["rr"])
 
@@ -83,18 +109,19 @@ class RenderJobs:
         return {"pixels_off_pct": 100.0 * off.float().mean().item()}
 
 
-class FitJobs:
+class FitJobs(Jobs):
     """Material fits of one scene (the program under test)."""
 
     kind = "fit"
 
-    def __init__(self, scene_path: str, traffic: dict, device, seed: int):
+    def __init__(self, scene_path: str, traffic: dict, device, seed: int,
+                 ref=None):
+        super().__init__(scene_path, traffic, device, seed, ref)
         from hobbyraytracer_tpu_torch.core.rng import Sampler
         from hobbyraytracer_tpu_torch.diff import fit as fit_mod
         from hobbyraytracer_tpu_torch.scene import (build_scene,
                                                     load_scene_desc, ir)
-        self.t = t = traffic
-        self.scene_path, self.device, self.seed = scene_path, device, seed
+        t = traffic
         self.fit_mod, self.Sampler = fit_mod, Sampler
         job = build_scene(load_scene_desc(scene_path))
         scene = job.scene.to(device)
@@ -130,17 +157,22 @@ class FitJobs:
     def reference(self, j: int, dtype=torch.float32):
         """The reference's (losses, fitted materials, start materials) of
         job j, computed in `dtype`."""
-        t = self.t
-        sc = ref_trace.DeviceScene(ref_scene.load(self.scene_path),
+        t, ref = self.t, self.ref
+        sc = ref.trace.DeviceScene(ref.scene.load(self.scene_path),
                                    self.device, dtype)
         with torch.no_grad():
-            target = ref_fit.render_linear(
+            target = ref.fit.render_linear(
                 sc, sc.mats, t["width"], t["height"],
                 job_seed(self.seed, "target"), t["spp"], t["max_depth"])
-        losses, params = ref_fit.fit(
+        losses, params = ref.fit.fit(
             sc, target, t["width"], t["height"], job_seed(self.seed, "job", j),
             t["steps"], t["lr"], t["spp"], t["max_depth"])
-        return losses, params, ref_fit.perturb(sc.mats)
+        return losses, params, ref.fit.perturb(sc.mats)
+
+    @staticmethod
+    def as_output(ref):
+        """(losses, fitted materials), as `run` returns them."""
+        return ref[:2]
 
     @staticmethod
     def compare(out, ref) -> dict:
@@ -167,4 +199,11 @@ def worst(gaps: list) -> float:
     return float("inf") if any(g != g for g in gaps) else max(gaps)
 
 
-KINDS = {"render": RenderJobs, "fit": FitJobs}
+KINDS = {"render": RenderJobs, "fit": FitJobs}   # the built-in kinds
+
+
+def kind(cell: manifest.Cell) -> type:
+    """The class of the cell's jobs: a built-in kind, or the `JOBS` of
+    `kinds/<job>.py` in the cell's bench folder."""
+    job = cell.traffic["job"]
+    return KINDS.get(job) or manifest.kind(job, cell.bench).JOBS

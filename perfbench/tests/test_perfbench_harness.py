@@ -1,17 +1,22 @@
 """The harness's arithmetic and layout on the CPU: the reduction of a
 profiler window, the metric readers, K1's counts, the manifest's names,
-data found by name, and the modules a run may not load."""
+data, references and job kinds found by name, and the modules a run may
+not load."""
+import dataclasses
+import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
+import time
 from dataclasses import dataclass
 
 import pytest
 
-from perfbench import counts, harness, manifest, profiling
+from perfbench import counts, faults, harness, jobs, manifest, profiling
 
 HERE = manifest.HERE
 
@@ -186,28 +191,47 @@ def test_each_layer_metric_moves_a_metric_its_cells_report():
         assert any(cell in reported(x) for x in m["per_layer"])
 
 
-def test_a_new_config_mix_metric_and_cell_are_found_by_name(tmp_path):
-    """A later change adds files and manifest entries only."""
+def copy_bench(tmp_path):
+    """The manifest and a copy of the benchmark's folder in tmp_path, for a
+    later change's files and entries."""
     bench = tmp_path / "perfbench"
     shutil.copytree(HERE, bench, ignore=shutil.ignore_patterns(
         "__pycache__", "tests"))
-    m = manifest.load_json(os.path.join(manifest.ROOT, "BENCHMARK.json"))
-    cfg = json.loads((bench / "configs" / "teapot.json").read_text())
-    cfg["name"] = "teapot_copy"
-    (bench / "configs" / "teapot_copy.json").write_text(json.dumps(cfg))
-    (bench / "traffic" / "tiny.json").write_text(json.dumps(
-        {"job": "render", "width": 8, "height": 8, "spp": 1, "max_depth": 4,
-         "pool": 64, "rr": True, "profile_jobs": 1, "check_jobs": 1}))
-    (bench / "cells" / "teapot_copy.tiny.json").write_text(json.dumps(
-        {"limits": {"pixels_off_pct": 0.1}}))
+    return manifest.load_json(os.path.join(manifest.ROOT,
+                                           "BENCHMARK.json")), bench
+
+
+def add_cell(m, bench, config: dict, traffic: str, mix: dict, limits: dict):
+    """A configuration (`config`, written as configs/<name>.json), a mix
+    and their cell, as files and manifest entries -> the cell's name."""
+    name = f"{config['name']}.{traffic}"
+    (bench / "configs" / f"{config['name']}.json").write_text(
+        json.dumps(config))
+    (bench / "traffic" / f"{traffic}.json").write_text(json.dumps(mix))
+    (bench / "cells" / f"{name}.json").write_text(json.dumps(
+        {"limits": limits}))
+    m["configs"].append({"name": config["name"], "source": "x",
+                         "file": f"perfbench/configs/{config['name']}.json",
+                         "reduced": [], "why": "x"})
+    m["workloads"].append({"name": name, "config": config["name"],
+                           "traffic": traffic, "chips": 1, "why": "x"})
+    return name
+
+
+def teapot_config(bench, **changes) -> dict:
+    return {**json.loads((bench / "configs" / "teapot.json").read_text()),
+            **changes}
+
+
+def test_a_new_config_mix_metric_and_cell_are_found_by_name(tmp_path):
+    """A later change adds files and manifest entries only."""
+    m, bench = copy_bench(tmp_path)
+    add_cell(m, bench, teapot_config(bench, name="teapot_copy"), "tiny",
+             {"job": "render", "width": 8, "height": 8, "spp": 1,
+              "max_depth": 4, "pool": 64, "rr": True, "profile_jobs": 1,
+              "check_jobs": 1}, {"pixels_off_pct": 0.1})
     (bench / "metrics" / "jobs_done.py").write_text(
         "def read(run):\n    return len(run.walls)\n")
-    m["configs"].append({"name": "teapot_copy", "source": "x",
-                         "file": "perfbench/configs/teapot_copy.json",
-                         "reduced": [], "why": "x"})
-    m["workloads"].append({"name": "teapot_copy.tiny", "config":
-                           "teapot_copy", "traffic": "tiny", "chips": 1,
-                           "why": "x"})
     m["per_layer"].append({"name": "jobs_done", "unit": "jobs",
                            "better": "higher", "source": "host_clock",
                            "layer": "render loop", "moves": "rays_per_s",
@@ -219,6 +243,133 @@ def test_a_new_config_mix_metric_and_cell_are_found_by_name(tmp_path):
     assert [x["name"] for x in cell.per_layer][-1] == "jobs_done"
     read = manifest.reader("jobs_done", str(bench))
     assert read(harness.Run(cell, 0.0, 1.0, [0.5, 0.5], [1, 1])) == 2
+
+
+KIND_FILE = '''"""Renders as a job kind of its own, with a fault of its own."""
+from perfbench import faults, jobs
+
+
+class JOBS(jobs.RenderJobs):
+    kind = "render_copy"
+
+
+def _corner_altered(p, j):
+    img = JOBS.run(p, j).clone()
+    img[:2, :2] += 0.05
+    return img
+
+
+FAULTS = {"corner_altered": _corner_altered,
+          "half_the_samples": faults.FAULTS["render"]["half_the_samples"]}
+'''
+
+
+@pytest.fixture
+def own_cell(tmp_path):
+    """A cell whose configuration names its own reference package (a copy
+    of the shared one) and whose mix names its own job kind, a file: both
+    new files and manifest entries only."""
+    m, bench = copy_bench(tmp_path)
+    shutil.copytree(bench / "reference", bench / "reference_copy")
+    (bench / "kinds").mkdir()
+    (bench / "kinds" / "render_copy.py").write_text(KIND_FILE)
+    name = add_cell(
+        m, bench, teapot_config(bench, name="teapot_own",
+                                reference="reference_copy"), "tiny_own",
+        {"job": "render_copy", "width": 24, "height": 20, "spp": 4,
+         "max_depth": 50, "pool": 512, "rr": True, "profile_jobs": 1,
+         "check_jobs": 1}, {"pixels_off_pct": 0.01})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    return manifest.load_cell(name, str(tmp_path), str(bench))
+
+
+def run_tiny(cell, program_cls=None):
+    return harness.run_cell(cell, 2 ** 31 + 7, 0.5, False, "cpu",
+                            time.perf_counter(), program_cls)
+
+
+def test_a_config_s_own_reference_and_a_mix_s_own_kind_run(own_cell,
+                                                            capsys):
+    folder = os.path.join(own_cell.bench, "reference_copy")
+    ref = manifest.reference(own_cell)
+    for module in (ref, ref.scene, ref.trace, ref.render, ref.fit):
+        assert os.path.dirname(module.__file__) == folder
+    cls = jobs.kind(own_cell)
+    assert cls.kind == "render_copy" and issubclass(cls, jobs.RenderJobs)
+    assert cls is not jobs.RenderJobs
+    result = run_tiny(own_cell)
+    assert result["correct"], result["checks"]
+    assert [c["value"] for c in result["checks"].values()] == [0.0]
+    assert result["checked_by"]["reference"].endswith("reference_copy")
+    assert result["checked_by"]["kind"] == "render_copy"
+    assert list(result)[-1] == "checks"
+    err = capsys.readouterr().err
+    assert "reference_copy" in err and "job kind render_copy" in err
+
+
+@pytest.mark.parametrize("fault", ["corner_altered", "half_the_samples"])
+def test_a_kind_file_s_own_faults_are_not_correct(own_cell, fault):
+    assert set(faults.planted(own_cell)) == {"corner_altered",
+                                             "half_the_samples"}
+    assert not run_tiny(own_cell, faults.broken(own_cell, fault))["correct"]
+
+
+CELLS = ("teapot.final640", "shiny_teapot.fit", "teapot.film256",
+         "shiny_teapot.film1080")
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_cells_resolve_to_the_built_in_kinds_and_shared_reference(name):
+    import perfbench.reference as shared
+    from perfbench.reference import fit, render, scene, trace
+    cell = manifest.load_cell(name)
+    job = cell.traffic["job"]
+    assert jobs.kind(cell) is {"render": jobs.RenderJobs,
+                               "fit": jobs.FitJobs}[job]
+    assert faults.planted(cell) is faults.FAULTS[job]
+    ref = manifest.reference(cell)
+    assert ref is shared
+    assert (ref.scene, ref.trace, ref.render, ref.fit) == (scene, trace,
+                                                           render, fit)
+
+
+def _no_set_up(monkeypatch):
+    def built(*args, **kwargs):
+        raise AssertionError("set-up started")
+    monkeypatch.setattr(jobs.RenderJobs, "__init__", built)
+
+
+@pytest.mark.parametrize("name, says", [
+    ("../x", "not a valid name"), ("scene", "starts with 'reference'"),
+    ("reference.x", "without '.'"), ("reference_none", "no package")])
+def test_a_refused_reference_raises_before_set_up(monkeypatch, name, says):
+    _no_set_up(monkeypatch)
+    cell = manifest.load_cell("teapot.film256")
+    cell = dataclasses.replace(cell, config={**cell.config,
+                                             "reference": name})
+    with pytest.raises(ValueError, match=re.escape(says)):
+        run_tiny(cell)
+
+
+@pytest.mark.parametrize("text, says", [
+    (None, "has no file"),
+    ("FAULTS = {'x': print}\n", "no class JOBS"),
+    ("from perfbench import jobs\nJOBS = jobs.RenderJobs\n", "no FAULTS"),
+    ("from perfbench import jobs\nJOBS = jobs.RenderJobs\nFAULTS = {}\n",
+     "no FAULTS")])
+def test_a_refused_kind_file_raises_before_set_up(tmp_path, monkeypatch,
+                                                  text, says):
+    _no_set_up(monkeypatch)
+    (tmp_path / "kinds").mkdir()
+    if text is not None:
+        (tmp_path / "kinds" / "bad.py").write_text(text)
+    cell = manifest.load_cell("teapot.film256")
+    cell = dataclasses.replace(cell, traffic={**cell.traffic, "job": "bad"},
+                               bench=str(tmp_path))
+    with pytest.raises(ValueError, match=re.escape(says)):
+        run_tiny(cell)
+    with pytest.raises(ValueError, match=re.escape(says)):
+        faults.planted(cell)
 
 
 def test_importing_the_benchmark_loads_no_jax():
@@ -233,6 +384,12 @@ def test_importing_the_benchmark_loads_no_jax():
         "from perfbench import manifest\n"
         f"for f in glob.glob(os.path.join({HERE!r}, 'metrics', '*.py')):\n"
         "    manifest.reader(os.path.basename(f)[:-3])\n"
+        f"for f in glob.glob(os.path.join({HERE!r}, 'reference*',"
+        " '__init__.py')):\n"
+        "    manifest.reference_package("
+        "os.path.basename(os.path.dirname(f)))\n"
+        f"for f in glob.glob(os.path.join({HERE!r}, 'kinds', '*.py')):\n"
+        "    manifest.kind(os.path.basename(f)[:-3])\n"
         "bad = {m.split('.')[0] for m in sys.modules} & "
         "{'jax', 'jaxlib', 'flax', 'hobbyraytracer_tpu'}\n"
         "print(sorted(bad))\n")
@@ -243,10 +400,15 @@ def test_importing_the_benchmark_loads_no_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for f in os.listdir(os.path.join(HERE, "reference")):
-        if f.endswith(".py"):
-            text = open(os.path.join(HERE, "reference", f)).read()
-            assert "hobbyraytracer_tpu" not in text, f
+    """Nor anything of JAX: every reference package of the benchmark."""
+    files = glob.glob(os.path.join(HERE, "reference*", "**", "*.py"),
+                      recursive=True)
+    assert os.path.join(HERE, "reference", "scene.py") in files
+    jax = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax)\b", re.M)
+    for f in files:
+        text = open(f).read()
+        assert "hobbyraytracer_tpu" not in text, f
+        assert not jax.search(text), f
 
 
 def test_run_refuses_without_a_card(monkeypatch):

@@ -32,8 +32,7 @@ def as_program(dtype):
     def make(cls):
         class Reference(cls):
             def run(self, j):
-                out = self.reference(j, dtype)
-                return out[:2] if cls is jobs.FitJobs else out
+                return cls.as_output(self.reference(j, dtype))
         return Reference
     return make
 
@@ -48,14 +47,14 @@ def test_program_reads_as_the_reference_bit_for_bit(name):
 @pytest.mark.parametrize("name", CELLS)
 def test_reference_on_both_sides_is_correct(name):
     cell = tiny_cell(name)
-    cls = jobs.KINDS[cell.traffic["job"]]
+    cls = jobs.kind(cell)
     assert run(cell, as_program(torch.float32)(cls))["correct"]
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_bfloat16_control_is_not_correct(name):
     cell = tiny_cell(name)
-    cls = jobs.KINDS[cell.traffic["job"]]
+    cls = jobs.kind(cell)
     result = run(cell, as_program(torch.bfloat16)(cls))
     assert not result["correct"]
 
@@ -63,15 +62,15 @@ def test_bfloat16_control_is_not_correct(name):
 @pytest.mark.parametrize("fault", ["half_the_samples", "answer_altered",
                                    "framebuffer_unchanged"])
 def test_render_fault_is_not_correct(fault):
-    assert not run(tiny_cell("teapot.final640"),
-                   faults.broken(jobs.RenderJobs, fault))["correct"]
+    cell = tiny_cell("teapot.final640")
+    assert not run(cell, faults.broken(cell, fault))["correct"]
 
 
 @pytest.mark.parametrize("fault", ["step_unchanged", "half_the_batch",
                                    "answer_altered"])
 def test_fit_fault_is_not_correct(fault):
-    assert not run(tiny_cell("shiny_teapot.fit"),
-                   faults.broken(jobs.FitJobs, fault))["correct"]
+    cell = tiny_cell("shiny_teapot.fit")
+    assert not run(cell, faults.broken(cell, fault))["correct"]
 
 
 def test_cluster_split_keeps_equal_keys_as_std_sort_does():
