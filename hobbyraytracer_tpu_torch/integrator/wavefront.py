@@ -54,9 +54,12 @@ otherwise adds in the order its atomics land). A multi-worker render
 Tracing (tracing.py): a render traced as a whole (a profiler recording, or
 tracing.recording(), at its start) records the spans hrt.render,
 hrt.block, hrt.host_read and hrt.film, times each segment's phases
-(regenerate, find, shade, retire) by events that a block's CUDA graph
-captures, and counts the lanes active, hit and deferred and the rows
-retired a segment on the device. Untraced, the same sites do nothing.
+(regenerate, find, shade, retire; the sphere find nested in the find) by
+events that a block's CUDA graph captures, and counts the lanes active,
+hit and deferred and the rows retired a segment on the device (and where
+the scene has them, the lanes whose closest hit is a pooled sphere and
+those the dielectric lobe scattered). Untraced, the same sites do
+nothing.
 The sharded render (parallel/shard.py) is never traced.
 """
 from __future__ import annotations
@@ -319,7 +322,7 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
         state.retired = state.retired + torch.where(
             retired_mask, chunk_n, 0).sum(dtype=torch.int32)
         state.it += 1
-    tracing.count_lanes(active, hit_active, state.defer, ok_c)
+    tracing.count_lanes(active, hit_active, state.defer, ok_c, hits)
     return state
 
 
@@ -507,8 +510,9 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     pool = state.item.shape[0]
     with tracing.job("render", state.fb.device, width=width, height=height,
                      spp=samples, pool=pool, cap=retire_cap(pool),
-                     steps=steps_per_call):
-        tracing.lane_counters(state.fb.device, pool, retire_cap(pool))
+                     steps=steps_per_call, **_sphere_attrs(scene)):
+        tracing.lane_counters(state.fb.device, pool, retire_cap(pool),
+                              _lane_kinds(scene))
         retired = int(state.retired)
         block = 0
         while retired < total_samples:
@@ -526,6 +530,21 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
             if checkpoint_cb is not None:
                 checkpoint_cb(state)
     return state
+
+
+def _sphere_attrs(scene: scene_ir.SceneIR) -> dict:
+    """A traced render's attributes of its pooled spheres (none without)."""
+    route = scene_ir.sphere_route(scene)
+    if route is None:
+        return {}
+    return {"spheres": scene.spheres.center.shape[0], "sphere_route": route}
+
+
+def _lane_kinds(scene: scene_ir.SceneIR) -> tuple:
+    """The tracing.LANE_KINDS counters that the scene has lanes for."""
+    return tuple(name for name, has in zip(tracing.LANE_KINDS, (
+        not scene.spheres.empty,
+        shade_ops.MAT_DIELECTRIC in scene.materials.present)) if has)
 
 
 def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,

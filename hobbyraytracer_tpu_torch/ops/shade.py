@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..core import mathx
 from ..core import rng as rng_mod
 from ..core.types import Hits, Rays, as_buffer
@@ -226,6 +227,7 @@ def scatter(mats: MaterialTable, tab: tex_ops.TextureTable, rays: Rays,
         die_dir = (torch.where(choose_reflect[..., None], d_reflect,
                                d_refract) + rough[..., None] * sph)
         sel = mt == MAT_DIELECTRIC
+        tracing.note_lanes("lanes.dielectric", lambda hits: sel)
         new_d = torch.where(sel[..., None], die_dir, new_d)
         atten = torch.where(sel[..., None], torch.ones_like(atten), atten)
 

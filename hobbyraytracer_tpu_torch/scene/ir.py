@@ -50,6 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..core import quat
 from ..core import rng as rng_mod
 from ..core.mathx import BIG, T_MIN, length, ray_at
@@ -499,6 +500,20 @@ def _intersect_medium(med: Medium, rays: Rays, sampler, bounce,
         mat_id=torch.where(valid, med.mat_id, -1).to(torch.int32))
 
 
+def sphere_route(scene: SceneIR, mesh_backend: str = "kernel"):
+    """How intersect_scene finds the pooled spheres: "clustered" (kernel
+    K4; the reference's routing: opt-in by isect.SPHERE_KERNEL, with the
+    pool's cluster tables and a kernel mesh backend), "dense" (the scan,
+    the default), or None without pooled spheres."""
+    sp = scene.spheres
+    if sp.empty:
+        return None
+    if (isect.SPHERE_KERNEL and sp.kernel_table is not None
+            and mesh_backend in ("kernel", "kernel_replay")):
+        return "clustered"
+    return "dense"
+
+
 def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
                     ray_valid=None, plain: bool = False, sampler=None,
                     bounce: int = 0, mesh_backend: str = "kernel",
@@ -525,20 +540,22 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
                          "free-flight draws")
     n = rays.o.shape[0]
     best = Hits.none(n, rays.o.device)
-    if not scene.spheres.empty:
+    route = sphere_route(scene, mesh_backend)
+    if route is not None:
         sp = scene.spheres
-        # the reference's routing: the clustered find is opt-in
-        # (isect.SPHERE_KERNEL), needs the pool's cluster tables and goes
-        # with the kernel mesh backends
-        if (isect.SPHERE_KERNEL and sp.kernel_table is not None
-                and mesh_backend in ("kernel", "kernel_replay")):
-            best = closer(best, isect.intersect_spheres_clustered(
-                rays, sp.center, sp.radius, sp.mat_id, sp.kernel_table,
-                sp.kernel_bounds, sp.kernel_ids, t_min, BIG,
-                ray_valid=ray_valid, plain=plain))
-        else:
-            best = closer(best, isect.intersect_spheres(
-                rays, sp.center, sp.radius, sp.mat_id, t_min, BIG))
+        with tracing.subphase("segment.find.spheres", inside="segment.find"):
+            if route == "clustered":
+                sph = isect.intersect_spheres_clustered(
+                    rays, sp.center, sp.radius, sp.mat_id, sp.kernel_table,
+                    sp.kernel_bounds, sp.kernel_ids, t_min, BIG,
+                    ray_valid=ray_valid, plain=plain)
+            else:
+                sph = isect.intersect_spheres(
+                    rays, sp.center, sp.radius, sp.mat_id, t_min, BIG)
+        # the closest hit is a sphere where nothing later is strictly closer
+        tracing.note_lanes("lanes.sphere_hit",
+                           lambda final: sph.hit & (final.t == sph.t))
+        best = closer(best, sph)
     if not scene.rects.empty:
         rt = scene.rects
         best = closer(best, isect.intersect_rects(

@@ -29,11 +29,17 @@ that ends each block or step (`read_phases`), per phase summed over the
 block's segments, tagged with the route. On the CPU a phase records its
 host time under the same name.
 
+A phase may hold a nested one (`subphase`: the sphere find inside a
+segment's find), timed by two events of its own, so that the phases
+around it keep their shared boundaries.
+
 Counters: segments (or steps) run; the nodes of each captured graph by
 type, counted on the graph before it is instantiated; in a render, lane
 counters on the device, allocated before any capture and added to in
 every segment (lanes active at the find, lanes that hit, lanes left
-deferred by the retirement cap, rows retired): one int32 count a lane (a
+deferred by the retirement cap, rows retired, and where the scene has
+what they count the `LANE_KINDS`: lanes whose closest hit is a pooled
+sphere, lanes the dielectric lobe scattered): one int32 count a lane (a
 retirement row), so a segment adds elementwise, and summed once when the
 render ends.
 
@@ -56,6 +62,10 @@ import torch
 # masks
 LANE_COUNTERS = ("lanes.active", "lanes.hit", "lanes.deferred",
                  "rows.retired")
+# lane counters a render keeps only where its scene has what they count
+# (pooled spheres; a dielectric material), each noted by its site in the
+# segment (`note_lanes`)
+LANE_KINDS = ("lanes.sphere_hit", "lanes.dielectric")
 # CUgraphNodeType (the runtime's cudaGraphNodeType has the same values)
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 7: "event_record"}
 
@@ -102,6 +112,8 @@ class Job:
         self.boundary = None   # the end event of the phase just closed
         self.units = 0         # segments (render) or steps (fit) run
         self.lanes = None      # (3, pool) and (cap,) int32 counts (render)
+        self.kinds = {}        # LANE_KINDS name -> (pool,) int32 counts
+        self.noted = {}        # name -> this segment's mask of the hits
         self.root = None
 
 
@@ -174,6 +186,27 @@ class _Phase(Span):
         super().__exit__(*exc)
 
 
+class _SubPhase(Span):
+    """A phase nested inside an open one, timed by two events of its own
+    (its host time on the CPU): the phases around it keep their shared
+    boundaries."""
+
+    def __enter__(self) -> "_SubPhase":
+        super().__enter__()
+        self._start = _stamp(self.trace.job)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        job = self.trace.job
+        job.marks.append((self.name, self._start, _stamp(job)))
+        super().__exit__(*exc)
+
+
+def _stamp(job: Job):
+    """A timing event on the card, the host's ns on the CPU."""
+    return _event() if job.device.type == "cuda" else time.perf_counter_ns()
+
+
 def _event() -> "torch.cuda.Event":
     """A timing event recorded on the current stream (inside a capture, an
     event-record node of the graph)."""
@@ -200,6 +233,16 @@ def phase(name: str):
     if tr is None or tr.job is None:
         return _NULL
     return _Phase(tr, name, {})
+
+
+def subphase(name: str, inside: str):
+    """A phase "hrt.<name>" of a traced job nested in the open phase
+    "hrt.<inside>" (else a no-op: untraced, or called from elsewhere)."""
+    tr = ACTIVE
+    if (tr is None or tr.job is None or not tr.stack
+            or tr.stack[-1].name != inside):
+        return _NULL
+    return _SubPhase(tr, name, {})
 
 
 def set_route(route: str) -> None:
@@ -257,6 +300,8 @@ def job(kind: str, device, **attrs):
                 sums.append(int(rows.sum(dtype=torch.int64)))
                 for name, value in zip(LANE_COUNTERS, sums):
                     _counter(j, name, value)
+                for name, lanes in j.kinds.items():
+                    _counter(j, name, int(lanes.sum(dtype=torch.int64)))
     finally:
         tr.job = None
         tr.profiling = saved
@@ -264,28 +309,47 @@ def job(kind: str, device, **attrs):
             ACTIVE = None
 
 
-def lane_counters(device, pool: int, cap: int) -> None:
+def lane_counters(device, pool: int, cap: int, kinds=()) -> None:
     """Allocate the traced render's lane counters for a pool of `pool`
-    lanes retiring at most `cap` rows a segment (before any graph is
+    lanes retiring at most `cap` rows a segment, and one for each name of
+    `kinds` (of LANE_KINDS) that the scene has (before any graph is
     captured: the graph adds to them in place)."""
     tr = ACTIVE
     if tr is not None and tr.job is not None and tr.job.lanes is None:
         tr.job.lanes = (
             torch.zeros((3, pool), dtype=torch.int32, device=device),
             torch.zeros((cap,), dtype=torch.int32, device=device))
+        tr.job.kinds = {k: torch.zeros((pool,), dtype=torch.int32,
+                                       device=device) for k in kinds}
+
+
+def note_lanes(name: str, mask_of) -> None:
+    """In a traced render that counts `name` (a LANE_KINDS counter): keep
+    `mask_of`, a function of the segment's closest hits to the (pool,)
+    mask of the lanes it counts, for this segment's count_lanes (no
+    device work here; else a no-op)."""
+    tr = ACTIVE
+    if tr is not None and tr.job is not None and name in tr.job.kinds:
+        tr.job.noted[name] = mask_of
 
 
 def count_lanes(active: torch.Tensor, hit: torch.Tensor,
-                deferred: torch.Tensor, retired: torch.Tensor) -> None:
+                deferred: torch.Tensor, retired: torch.Tensor,
+                hits=None) -> None:
     """Count one segment on the device: the (pool,) masks of the lanes
     active at the find, that hit and left deferred, and the (cap,) mask
-    of the retirement rows that retired a chunk."""
+    of the retirement rows that retired a chunk; and of the lanes that
+    hit, those each noted counter marks in `hits`, the segment's closest
+    hits."""
     tr = ACTIVE
     if tr is None or tr.job is None or tr.job.lanes is None:
         return
     lanes, rows = tr.job.lanes
     lanes.add_(torch.stack([active, hit, deferred]))
     rows.add_(retired)
+    for name, mask_of in tr.job.noted.items():
+        tr.job.kinds[name].add_(hit & mask_of(hits))
+    tr.job.noted = {}
     tr.job.boundary = None
 
 

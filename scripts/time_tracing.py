@@ -2,18 +2,20 @@
 """The cost of the program's own tracing (hobbyraytracer_tpu_torch/
 tracing.py) on one CUDA card, and what it reads: jobs of benchmark cells
 (perfbench/: teapot.final640's renders, shiny_teapot.fit's fits, as the
-harness runs them) untraced and under tracing.recording() (no profiler),
-in turns off, on, on, off, --jobs jobs a turn, in one process.
+harness runs them: each cell's own job kind and reference) untraced and
+under tracing.recording() (no profiler), in turns off, on, on, off,
+--jobs jobs a turn, in one process.
 
     python3 scripts/time_tracing.py [--cells teapot.final640 shiny_teapot.fit]
         [--jobs 3] [--device cuda:0] [--out FILE]
 
 Prints the card's name and power limit; for each cell each turn's job
 seconds, the traced jobs' readings (device ms a replayed segment or step
-by phase, kernel nodes a segment or step, lane occupancy, deferred lanes,
-the retirement cap's fill) and each traced job's host split: the eager
-first block or step, the capture (graph record, instantiate, the first
-replay) and the replays; both modes' host ms a job in each pass of the
+by phase, the sphere find's where the scene has spheres, kernel nodes a
+segment or step, lane occupancy, deferred lanes, the retirement cap's
+fill) and each traced job's host split: the eager first block or step,
+the capture (graph record, instantiate, the first replay) and the
+replays; both modes' host ms a job in each pass of the
 graph (eager, capture, replay) and device ms of its replays (CUDA events
 around each); for fits, how many of each mode's fits replayed the step
 graph kept across fits (diff/fit.py:FIT_GRAPHS: "hits") and how many
@@ -100,8 +102,8 @@ class _GraphTimes:
 
 def _readings(rec, kind: str) -> dict:
     from perfbench import program_trace as pt
-    phases = (("segment.regenerate", "segment.find", "segment.shade",
-               "segment.retire") if kind == "render" else
+    phases = (("segment.regenerate", "segment.find", "segment.find.spheres",
+               "segment.shade", "segment.retire") if kind == "render" else
               ("fit.forward", "fit.backward", "fit.adam"))
     out = {}
     for name in phases:
@@ -144,8 +146,9 @@ def main() -> int:
     for name in args.cells:
         cell = manifest.load_cell(name)
         kind = cell.traffic["job"]
-        program = jobs.KINDS[kind](cell.path(cell.config["scene"]),
-                                   cell.traffic, device, args.seed)
+        program = jobs.kind(cell)(cell.path(cell.config["scene"]),
+                                  cell.traffic, device, args.seed,
+                                  ref=manifest.reference(cell))
         program.run(-1)                       # warm-up: builds, allocator
         torch.cuda.synchronize(device)
         graph_times.take()

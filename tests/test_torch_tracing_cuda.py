@@ -272,3 +272,41 @@ def test_traced_render_equals_untraced_on_the_card(teapot, card):
     finally:
         torch.use_deterministic_algorithms(before)
     assert torch.equal(off, on)
+
+
+@pytest.fixture(scope="module")
+def balls(card):
+    job = build_scene(load_scene_desc(os.path.join(SCENES,
+                                                   "scattered_balls.yaml")))
+    return job.scene.to(card), job.camera.to(card)
+
+
+def test_sphere_find_phase_reads_on_the_replay_route(balls, card):
+    """A traced render of the 485 spheres by the default dense scan: each
+    replayed block reads hrt.segment.find.spheres above 0 ms and at most
+    its find; the traced block graph holds two events a segment more than
+    the four phases' five; the render names the dense route, counts
+    sphere hits among its active lanes, and launches no K4."""
+    from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
+    launches = skmod.SPHERE_KERNEL.launches
+    with tracing.recording() as rec:
+        _render(balls, card, size=320, spp=4)
+    records = rec.records()
+    root = next(s for s in records if s["type"] == "span"
+                and s["name"] == "hrt.render")
+    assert root["attrs"]["spheres"] == 485
+    assert root["attrs"]["sphere_route"] == "dense"
+    replays = [p for p in records if p["type"] == "phase"
+               and p["route"] == "replay"]
+    blocks = [replays[i:i + 5] for i in range(0, len(replays), 5)]
+    assert len(blocks) >= 2
+    for block in blocks:
+        ms = {p["name"]: p["ms"] for p in block}
+        assert set(ms) == {*PHASES, "hrt.segment.find.spheres"}
+        assert 0 < ms["hrt.segment.find.spheres"] <= ms["hrt.segment.find"]
+    counted = _counters(records)
+    steps = root["attrs"]["steps"]
+    assert counted["graph.event_record"] == steps * (len(PHASES) + 1 + 2)
+    assert 0 < counted["lanes.sphere_hit"] <= counted["lanes.active"]
+    assert 0 < counted["lanes.dielectric"] < counted["lanes.sphere_hit"]
+    assert skmod.SPHERE_KERNEL.launches == launches
