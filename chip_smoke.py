@@ -8,13 +8,13 @@ in phases that each raise on failure (non-zero exit, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi) and
    turn TF32 off;
-2. (and a) build the five kernels from kernels/csrc at once, one nvcc
+2. (and a) build the six kernels from kernels/csrc at once, one nvcc
    each -- K1 mesh_traverse, K2 mesh_traverse_stream, K3 coherence_keys,
-   K4 sphere_traverse, and threefry (the port's draws) -- and print each
-   build's time and ptxas's registers and spills (K3 and K4 must not
-   spill); require the native cluster
-   build (the reference's), print its library, and hold both scenes'
-   cluster tables against their pinned digests;
+   K4 sphere_traverse, sphere_scan (the dense sphere scan) and threefry
+   (the port's draws) -- and print each build's time and ptxas's
+   registers and spills (K3, K4 and sphere_scan must not spill); require
+   the native cluster build (the reference's), print its library, and
+   hold both scenes' cluster tables against their pinned digests;
 3. hold K1 against its plain PyTorch version on the teapot scene's own
    tables (K = 30 clusters) at the main path's shape: 196,608 rays of the
    pool's first segments (camera rays, then bounce rays), coherence-sorted
@@ -49,15 +49,18 @@ g. hold K4 against its plain version on scenes/scattered_balls.yaml's own
    sphere tables (485 spheres, K = 4) at 196,608 camera and
    after-one-bounce rays, in pool order (the sphere find does not sort)
    and in a seeded random order: t and ids bitwise equal; time both, the
-   kernel on the random order too, and the dense sphere scan beside them;
+   kernel on the random order too, and the dense route beside them; then
+   sphere_scan against the chunked scan it fuses on the same pool rays: t
+   and winners bitwise equal; the median of 10 CUDA-event timings of the
+   kernel, the plain scan's, and the dense route's with its hit records;
 h. K4's route against the dense route (intersect_spheres_clustered vs
    intersect_spheres) on the same rays: hit masks and materials equal but
    for counted grazing rays, hit points and normals within tolerance;
 i. render scattered_balls at 640x640, 16 spp, pool 196,608, max depth 50
-   with Russian roulette, by the default route (the dense scan: no kernel
-   launched) and with SPHERE_KERNEL on (K4 launched, K1-K3 not): every
-   sample retired, finite images, the tonemapped mean against a JAX CPU
-   render; rays/s of both;
+   with Russian roulette, by the default route (the dense scan: sphere_scan
+   once a segment, K4 never) and with SPHERE_KERNEL on (K4 launched,
+   sphere_scan and K1-K3 not): every sample retired, finite images, the
+   tonemapped mean against a JAX CPU render; rays/s of both;
 j. render the balls 64x64 at 8 spp through K4 and with the sphere find
    forced to the plain version, and compare;
 k. hold K1 and K2 against the plain version, bitwise, on a random mesh of
@@ -88,7 +91,8 @@ o. the lockstep find (ops/intersect.py:intersect_mesh_clustered, plain
    after-one-bounce rays: hit masks equal, t within 1e-6, under 1% of ids
    differing; its time beside K1's;
 p. render scenes/cornell_smoke.yaml (two box media, a glass sphere) at its
-   own 256x256, 64 spp: every sample retired, finite, no kernel launched,
+   own 256x256, 64 spp: every sample retired, finite, no traversal kernel
+   launched and sphere_scan (the glass sphere's find) once a segment,
    the tonemapped mean against a JAX CPU render; then a scene built here
    with the teapot mesh as a medium's boundary, for a few segments at the
    full pool: finite, and the medium scatters a counted number of rays;
@@ -229,9 +233,13 @@ before its final hit), and `issue_bound_ms`, the same operations at one
 an instruction over the SMs x 128 lanes x the card's maximum SM clock: what
 code built without FMA contraction, as these kernels are so as to equal
 their plain versions, can reach. No single PyTorch call computes any of the
-four functions, so `library_ms` is null. The threefry row replaces no
-Pallas kernel (jax.random is XLA): its `launches` are the teapot render's
-(phase 4), its times are device time a call over 100 calls under
+five functions, so `library_ms` is null. The sphere_scan row replaces no
+Pallas kernel (the JAX package leaves its dense scan to XLA): its
+`launches` are the balls render's by the default route (phase i), its
+plain time the chunked scan's, and its operations SCAN_OPS a ray and
+sphere. The threefry row replaces no Pallas kernel (jax.random is XLA):
+its `launches` are the teapot render's (phase 4), its times are device
+time a call over 100 calls under
 torch.profiler (CUDA events around one call of a few-microsecond kernel
 time the host), its bound counts 79 integer operations a threefry2x32,
 one an element and 11 more, and one for the device iteration's fold (the
@@ -388,6 +396,11 @@ SPHERE_OPS = 30
 SM_LANES = 128
 T_RTOL = 1e-5
 T_ATOL = 1e-6
+# float32 operations of one test of the dense sphere scan (3 subtractions,
+# two dot products and |oc|^2 - r^2, the discriminant, its sign test and
+# the running minimum; the roots only where disc >= 0), counted from
+# csrc/sphere_scan.cu
+SCAN_OPS = 20
 # the sphere find's near end of the ray window (core/mathx.py:T_MIN)
 T_MIN = 1e-3
 # the 64x64 renders of phase f may differ only by the order of the
@@ -2814,6 +2827,7 @@ def main():
     from hobbyraytracer_tpu_torch.integrator import wavefront
     from hobbyraytracer_tpu_torch.core.types import Rays
     from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
+    from hobbyraytracer_tpu_torch.kernels import sphere_scan
     from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
     from hobbyraytracer_tpu_torch.kernels import threefry
     from hobbyraytracer_tpu_torch.ops import intersect as isect
@@ -2844,6 +2858,7 @@ def main():
     k1, k2, k3 = kmod.KERNEL, kmod.KERNEL_STREAM, kmod.KEY_KERNEL
     k4 = skmod.SPHERE_KERNEL
     libs = (k1, k2, k3, k4)        # the traversal kernels
+    ks = sphere_scan.SCAN_KERNEL   # the dense sphere scan
     tfk = threefry.THREEFRY        # the draws
 
     stamp("2 and a")
@@ -2851,18 +2866,18 @@ def main():
     # (one thread, so one nvcc, each; a library left by an earlier run is
     # built again, so that ptxas reports on these sources), and load them
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs) + 1) as pool:
-        for fut in [pool.submit(lib.build) for lib in (*libs, tfk)]:
+    with ThreadPoolExecutor(len(libs) + 2) as pool:
+        for fut in [pool.submit(lib.build) for lib in (*libs, ks, tfk)]:
             fut.result()
-    for lib in (*libs, tfk):
+    for lib in (*libs, ks, tfk):
         lib.load()
-    for lib in (*libs, tfk):
+    for lib in (*libs, ks, tfk):
         print(f"[build] {lib.source} -> {lib.path} in "
               f"{lib.build_seconds:.2f} s")
         for line in lib.ptxas_info:
             print(f"  {line}")
-    print(f"[build] all five in {time.perf_counter() - t0:.2f} s")
-    for lib in (k3, k4):
+    print(f"[build] all six in {time.perf_counter() - t0:.2f} s")
+    for lib in (k3, k4, ks):
         spills = [ln for ln in lib.ptxas_info if "spill" in ln]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
                              for ln in spills),
@@ -3171,8 +3186,8 @@ def main():
         unsorted, *sargs, t_min))
     print(f"[K4] kernel {times_k4[0]:.4f} ms (the same rays in random order "
           f"{ms_unsorted:.4f} ms), plain {times_k4[1]:.4f} ms, "
-          f"dense scan (with its hit records) {times_k4[2]:.4f} ms "
-          f"({POOL} rays, K = {bk}; {card})")
+          f"dense route (sphere_scan and its hit records) {times_k4[2]:.4f} "
+          f"ms ({POOL} rays, K = {bk}; {card})")
     t_k, id_k = skmod.intersect_spheres_kernel(rays8, *sargs, t_min)
     visits = entered_clusters(rays8, sp.kernel_bounds, t_k)
     ops_k4 = (POOL * bk * SLAB_OPS
@@ -3180,6 +3195,37 @@ def main():
     bound_k4 = bound(nbytes(rays8, *sargs, t_k, id_k), ops_k4)
     print(f"[K4] bound {bound_k4[0]:.4f} ms by {bound_k4[1]} "
           f"({visits / POOL:.3f} cluster visits a ray)")
+
+    # sphere_scan vs the chunked scan it fuses, on the same pool rays
+    n_sph = sp.center.shape[0]
+    scan_args = (sp.center, sp.radius, t_min, 1e30)
+    for label, rays8 in bsets.items():
+        r = Rays(o=rays8[:, 0:3].contiguous(), d=rays8[:, 3:6].contiguous())
+        t_s, id_s = sphere_scan.scan_spheres(r, *scan_args)
+        t_q, id_q = sphere_scan.scan_spheres_plain(r, *scan_args)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(id_s, id_q)),
+              f"sphere_scan, {label}: winners differ on "
+              f"{int((id_s != id_q).sum())} rays")
+        check(bool(torch.equal(t_s, t_q)),
+              f"sphere_scan, {label}: t differs on {int((t_s != t_q).sum())} "
+              "rays")
+        print(f"  sphere_scan vs the chunked scan, {label}: {POOL} rays, "
+              f"{int((id_s >= 0).sum())} hits, t and winners bitwise equal")
+    err_scan = (t_s - t_q).abs().max().item()
+    times_scan = (
+        cuda_ms(lambda: sphere_scan.scan_spheres(brays, *scan_args)),
+        cuda_ms(lambda: sphere_scan.scan_spheres_plain(brays, *scan_args),
+                reps=5, warmup=1))
+    t_s, id_s = sphere_scan.scan_spheres(brays, *scan_args)
+    ops_scan = POOL * n_sph * SCAN_OPS
+    bound_scan = bound(nbytes(brays.o, brays.d, sp.center, sp.radius, t_s,
+                              id_s), ops_scan)
+    print(f"[sphere_scan] kernel {times_scan[0]:.4f} ms, plain (the chunked "
+          f"scan) {times_scan[1]:.4f} ms, dense route with its hit records "
+          f"{times_k4[2]:.4f} ms ({POOL} rays, {n_sph} spheres; {card}); "
+          f"bound {bound_scan[0]:.4f} ms by {bound_scan[1]}, issue bound "
+          f"{issue_bound(ops_scan, sm_count, sm_clock_mhz):.4f} ms")
 
     stamp("h")
     # h. K4's route vs the dense route on the same rays
@@ -3213,17 +3259,22 @@ def main():
 
     stamp("i")
     # i. the sphere path: 640x640, 16 spp balls renders by both routes
-    k4_launches = 0
+    k4_launches = scan_launches = 0
     for on in (False, True):
         isect.SPHERE_KERNEL = on
-        launches, seconds, mean, rays_per_s, (retired, total), _ = render(
-            bscene, bcamera, libs, "scattered_balls", JAX_CPU_MEAN_BALLS)
+        launches, seconds, mean, rays_per_s, (retired, total), segs = render(
+            bscene, bcamera, (*libs, ks), "scattered_balls",
+            JAX_CPU_MEAN_BALLS)
         route = "K4 (SPHERE_KERNEL on)" if on else "dense scan (default)"
         check((launches[k4.name] > 0) == on,
               f"{route}: K4 launched {launches[k4.name]} times")
+        check(launches[ks.name] == (0 if on else segs) and segs > 0,
+              f"{route}: sphere_scan launched {launches[ks.name]} times in "
+              f"{segs} segments")
         check(launches[k1.name] == launches[k2.name] == launches[k3.name] == 0,
               f"the balls render launched a mesh kernel: {launches}")
-        k4_launches = launches[k4.name]
+        k4_launches = launches[k4.name] or k4_launches
+        scan_launches = launches[ks.name] or scan_launches
         print(f"[render] scattered_balls {WIDTH}x{HEIGHT} @ {SPP} spp, pool "
               f"{POOL}, {route}: {seconds:.3f} s, {rays_per_s:,.0f} primary "
               f"rays/s, launches {launches}, retired {retired}/{total}, "
@@ -3448,10 +3499,12 @@ def main():
     sscene, scamera = sjob.scene.to(dev), sjob.camera.to(dev)
     check(len(sscene.media) == 2, f"cornell_smoke media {len(sscene.media)}")
     launches, seconds, mean, rays_per_s, (retired, total), segs = render(
-        sscene, scamera, libs, "cornell_smoke", JAX_CPU_MEAN_SMOKE,
+        sscene, scamera, (*libs, ks), "cornell_smoke", JAX_CPU_MEAN_SMOKE,
         width=sjob.width, height=sjob.height, spp=sjob.samples)
-    check(not any(launches.values()),
-          f"the cornell_smoke render launched {launches}")
+    smoke_scans = launches.pop(ks.name)
+    check(not any(launches.values()) and smoke_scans == segs,
+          f"the cornell_smoke render launched {launches}, sphere_scan "
+          f"{smoke_scans} times in {segs} segments")
     print(f"[render] cornell_smoke {sjob.width}x{sjob.height} @ "
           f"{sjob.samples} spp, pool {POOL}: {seconds:.3f} s, "
           f"{rays_per_s:,.0f} primary rays/s, {segs} segments, retired "
@@ -3620,6 +3673,13 @@ def main():
                 "scattered_balls (K4)": k4_launches,
                 small_label("scattered_balls (K4)"): batch["small"][
                     "scattered_balls (K4)"]["launches"][k4.name]}),
+        row(ks, "sphere_scan.cu",
+            "hobbyraytracer_tpu/ops/intersect.py:intersect_spheres (the "
+            "dense scan, XLA: no Pallas kernel)", scan_launches, err_scan,
+            *times_scan, bound_scan, ops_scan,
+            dense_route_ms=times_k4[2], launches_by_path={
+                "scattered_balls (dense route)": scan_launches,
+                "cornell_smoke": smoke_scans}),
         row(tfk, "threefry.cu",
             "hobbyraytracer_tpu/core/rng.py:43 (jax.random's threefry, "
             "XLA: no Pallas kernel)", tf_launches, err_tf, *times_tf[:2],

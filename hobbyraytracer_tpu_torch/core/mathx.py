@@ -14,6 +14,14 @@ T_MIN = 1e-3      # shadow epsilon (main.cpp:45)
 BIG = 1e30        # stand-in for +INFINITY in closest-hit windows
 
 
+def first_min(tc: torch.Tensor):
+    """Row minimum of (R, C) and the lowest column index at it."""
+    t_c = tc.min(dim=1).values
+    lane = torch.arange(tc.shape[1], device=tc.device)
+    i_c = torch.where(tc == t_c[:, None], lane, tc.shape[1]).min(dim=1).values
+    return t_c, i_c
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dot product over the last axis."""
     return (a * b).sum(dim=-1)

@@ -58,8 +58,10 @@ hrt.block, hrt.host_read and hrt.film, times each segment's phases
 events that a block's CUDA graph captures, and counts the lanes active,
 hit and deferred and the rows retired a segment on the device (and where
 the scene has them, the lanes whose closest hit is a pooled sphere and
-those the dielectric lobe scattered). Untraced, the same sites do
-nothing.
+those the dielectric lobe scattered, and the sphere_scan kernel's
+launches in the render where the dense scan finds its pooled spheres:
+`sphere_scan.launches`, one a segment on the card). Untraced, the same
+sites do nothing.
 The sharded render (parallel/shard.py) is never traced.
 """
 from __future__ import annotations
@@ -75,6 +77,7 @@ from .. import tracing
 from ..core import rng as rng_mod
 from ..core.types import Rays
 from ..kernels import build as kbuild
+from ..kernels import sphere_scan
 from ..ops import film as film_ops
 from ..ops import shade as shade_ops
 from ..ops.camera import Camera, get_rays
@@ -510,9 +513,10 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     pool = state.item.shape[0]
     with tracing.job("render", state.fb.device, width=width, height=height,
                      spp=samples, pool=pool, cap=retire_cap(pool),
-                     steps=steps_per_call, **_sphere_attrs(scene)):
+                     steps=steps_per_call, **_sphere_attrs(scene)) as job:
         tracing.lane_counters(state.fb.device, pool, retire_cap(pool),
                               _lane_kinds(scene))
+        scans = sphere_scan.SCAN_KERNEL.launches
         retired = int(state.retired)
         block = 0
         while retired < total_samples:
@@ -529,6 +533,9 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                 progress_cb(retired, total_samples)
             if checkpoint_cb is not None:
                 checkpoint_cb(state)
+        if job is not None and scene_ir.sphere_route(scene) == "dense":
+            tracing._counter(job, "sphere_scan.launches",
+                             sphere_scan.SCAN_KERNEL.launches - scans)
     return state
 
 

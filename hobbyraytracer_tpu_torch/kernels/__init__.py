@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version (kernels/mesh_traverse.py, kernels/sphere_traverse.py,
-kernels/threefry.py):
+kernels/sphere_scan.py, kernels/threefry.py):
 
 - K1 mesh_traverse: fused cluster-BVH traversal + Moller-Trumbore +
   attribute interpolation over the 24-row resident table (replaces the
@@ -11,6 +11,9 @@ kernels/threefry.py):
   (replaces :_key_kernel);
 - K4 sphere_traverse: nearest sphere of a clustered sphere pool (replaces
   hobbyraytracer_tpu/kernels/sphere_traverse.py:_kernel);
+- sphere_scan: nearest pooled sphere by the dense scan, the default
+  sphere find (the reference leaves its dense scan to XLA, so this kernel
+  replaces no Pallas kernel);
 - threefry: jax.random's threefry2x32 bits and float32 uniforms, the
   port's every draw (kernels/threefry.py; jax.random is XLA, so this
   kernel replaces no Pallas kernel).

@@ -1,10 +1,12 @@
 """Batched ray/primitive intersection: the parts the ported paths run
 (counterpart of hobbyraytracer_tpu/ops/intersect.py).
 
-- spheres: `sphere_t` / `intersect_spheres` (the dense scan over chunks of
-  the pool, the default route) and `intersect_spheres_clustered` (the
-  clustered find of kernel K4, then a differentiable replay of the
-  winner's quadratic), chosen by HRT_SPHERE_KERNEL in scene/ir.py;
+- spheres: `sphere_t` / `intersect_spheres` (the dense scan, the default
+  route: one launch of the sphere_scan kernel on the card, chunks of the
+  pool on the CPU; kernels/sphere_scan.py) and
+  `intersect_spheres_clustered` (the clustered find of kernel K4, then a
+  differentiable replay of the winner's quadratic), chosen by
+  HRT_SPHERE_KERNEL in scene/ir.py;
 - axis-aligned rects: `rect_t` / `intersect_rects` (aarect.h:5-144);
 - the coherence keys: `cheap_key_from_box` (octant and corridor forms),
   `cheap_coherence_key`, `cluster_entries`, `pack_coherence_key` and
@@ -36,10 +38,12 @@ import os
 
 import torch
 
-from ..core.mathx import BIG, ray_at, safe_arccos
+from ..core.mathx import BIG, first_min, ray_at, safe_arccos
 from ..core.types import Hits, Rays, set_face_normal
 from ..kernels import mesh_traverse as kmod
+from ..kernels import sphere_scan as scmod
 from ..kernels import sphere_traverse as skmod
+from ..kernels.sphere_scan import sphere_t  # noqa: F401 (the reference's)
 
 # primitives (spheres, rects) processed per step of the running-min scan
 # (bounds the (R, chunk) intermediate, as in the reference)
@@ -69,42 +73,7 @@ _AXIS_A = (1, 0, 0)
 _AXIS_B = (2, 2, 1)
 
 
-def _first_min(tc: torch.Tensor):
-    """Row minimum of (R, C) and the lowest column index at it."""
-    t_c = tc.min(dim=1).values
-    lane = torch.arange(tc.shape[1], device=tc.device)
-    i_c = torch.where(tc == t_c[:, None], lane, tc.shape[1]).min(dim=1).values
-    return t_c, i_c
-
-
 # ---------------------------------------------------------------- spheres
-
-def sphere_t(rays: Rays, center, radius, t_min, t_max):
-    """Candidate t per (ray, sphere): the half-b quadratic with the two-root
-    window test of sphere.cpp:20-49. center (S, 3), radius (S,) -> (R, S),
-    BIG where missed. The square root runs on 1 where disc <= 0 (no inf in
-    a masked lane's gradient), and a ray counts as hitting from disc >= 0,
-    both as in the reference's dense scan."""
-    ox, oy, oz = (rays.o[:, i, None] for i in range(3))   # (R, 1)
-    dx, dy, dz = (rays.d[:, i, None] for i in range(3))
-    cx, cy, cz = (center[None, :, i] for i in range(3))   # (1, S)
-    ocx = ox - cx
-    ocy = oy - cy
-    ocz = oz - cz
-    a = dx * dx + dy * dy + dz * dz                       # (R, 1)
-    half_b = ocx * dx + ocy * dy + ocz * dz               # (R, S)
-    c = (ocx * ocx + ocy * ocy + ocz * ocz
-         - (radius * radius)[None, :])
-    disc = half_b * half_b - a * c
-    sqrtd = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
-    inv_a = 1.0 / a
-    r1 = (-half_b - sqrtd) * inv_a
-    r2 = (-half_b + sqrtd) * inv_a
-    in1 = (r1 >= t_min) & (r1 <= t_max)
-    in2 = (r2 >= t_min) & (r2 <= t_max)
-    root = torch.where(in1, r1, torch.where(in2, r2, BIG))
-    return torch.where(disc >= 0.0, root, BIG)
-
 
 def sphere_uv(outward_normal: torch.Tensor) -> torch.Tensor:
     """getSphereUV (sphere.cpp:4-18): theta = acos(-n.y), phi =
@@ -132,31 +101,32 @@ def _sphere_attribs(rays: Rays, center, radius, mat_id, t, idx) -> Hits:
 
 
 def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
-                      chunk: int = DEFAULT_CHUNK) -> Hits:
-    """Closest sphere per ray by the dense scan: a running strict-< minimum
-    over chunks of `chunk` spheres (the last chunk padded with spheres at
-    1e30 of radius 0, which never hit), then the winner's hit record."""
+                      chunk: int = DEFAULT_CHUNK,
+                      plain: bool = False) -> Hits:
+    """Closest sphere per ray by the dense scan (kernels/sphere_scan.py):
+    on CUDA tensors one launch of the sphere_scan kernel, on the CPU (or
+    with plain=True, a comparison switch) its plain version, a running
+    strict-< minimum over chunks of `chunk` spheres; then the winner's hit
+    record. The two give the same (t, winner) bit for bit.
+
+    The find runs without gradients. Where a gradient is wanted (grad mode
+    on and the rays, center or radius requiring grad), t is replayed from
+    the winner's center and radius by the scan's own operations: the same
+    bits, and the scan's gradients but for exact ties between spheres."""
     n_rays = rays.o.shape[0]
     n = center.shape[0]
     dev = rays.o.device
     if n == 0:
         return Hits.none(n_rays, dev)
-    chunk = min(chunk, n)
-    pad = -n % chunk
-    if pad:
-        center_p = torch.cat([center, center.new_full((pad, 3), 1e30)])
-        radius_p = torch.cat([radius, radius.new_zeros((pad,))])
-    else:
-        center_p, radius_p = center, radius
-    t_best = torch.full((n_rays,), BIG, dtype=torch.float32, device=dev)
-    i_best = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
-    for s in range(0, n + pad, chunk):
-        t_c, i_c = _first_min(sphere_t(rays, center_p[s:s + chunk],
-                                       radius_p[s:s + chunk], t_min, t_max))
-        take = t_c < t_best
-        t_best = torch.where(take, t_c, t_best)
-        i_best = torch.where(take, i_c + s, i_best)
-    return _sphere_attribs(rays, center, radius, mat_id, t_best, i_best)
+    find = scmod.scan_spheres_plain if plain else scmod.scan_spheres
+    with torch.no_grad():
+        t, idx = find(Rays(o=rays.o.contiguous(), d=rays.d.contiguous()),
+                      center.contiguous(), radius.contiguous(), t_min, t_max,
+                      chunk)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (rays.o, rays.d, center, radius)):
+        t = scmod.winner_t(rays, center, radius, idx, t_min, t_max)
+    return _sphere_attribs(rays, center, radius, mat_id, t, idx)
 
 
 def intersect_spheres_clustered(rays: Rays, center, radius, mat_id,
@@ -253,7 +223,7 @@ def intersect_rects(rays: Rays, axis, a0, a1, b0, b1, k, mat_id,
         sl = slice(s, s + chunk)
         tc = rect_t(rays, axis[sl], a0[sl], a1[sl], b0[sl], b1[sl], k[sl],
                     t_min, t_max)
-        t_c, i_c = _first_min(tc)
+        t_c, i_c = first_min(tc)
         take = t_c < t_best
         t_best = torch.where(take, t_c, t_best)
         i_best = torch.where(take, i_c + s, i_best)
@@ -406,7 +376,7 @@ def intersect_triangles(rays: Rays, verts, normals, uvs, indices, mat_id,
         tc = torch.where(tri_ok[None, s:s + chunk],
                          triangle_t(rays, c[:, 0], c[:, 1], c[:, 2], t_max),
                          BIG)
-        t_c, i_c = _first_min(tc)
+        t_c, i_c = first_min(tc)
         take = t_c < t_best
         t_best = torch.where(take, t_c, t_best)
         i_best = torch.where(take, i_c + s, i_best)

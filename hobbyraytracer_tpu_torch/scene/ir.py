@@ -35,11 +35,12 @@ have no counterpart, and nothing here moves from a kernel to the lockstep
 find on its own.
 
 The pooled spheres take the reference's routing: the dense scan by
-default, the clustered find of kernel K4 when `ops.intersect.SPHERE_KERNEL`
-is set (HRT_SPHERE_KERNEL=1) and the table carries cluster tables. The
-reference also asks whether its backend can run a Pallas kernel at all;
-here the tensor's device decides (a CUDA tensor launches K4 or raises, a
-CPU tensor runs the plain version), so that check has no counterpart.
+default (on a CUDA tensor the sphere_scan kernel), the clustered find of
+kernel K4 when `ops.intersect.SPHERE_KERNEL` is set (HRT_SPHERE_KERNEL=1)
+and the table carries cluster tables. The reference also asks whether its
+backend can run a Pallas kernel at all; here the tensor's device decides
+(a CUDA tensor launches the kernel or raises, a CPU tensor runs the plain
+version), so that check has no counterpart.
 """
 from __future__ import annotations
 
@@ -373,7 +374,7 @@ def _intersect_instance(inst: Instance, rays: Rays, t_min,
         # a transformed sphere takes the dense scan, as in the reference
         sp = inst.spheres
         h = isect.intersect_spheres(r, sp.center, sp.radius, sp.mat_id,
-                                    t_min, BIG)
+                                    t_min, BIG, plain=plain)
     elif inst.kind == "rect":
         rt = inst.rects
         h = isect.intersect_rects(r, rt.axis, rt.a0, rt.a1, rt.b0, rt.b1,
@@ -524,8 +525,8 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
 
     ray_valid: optional (N,) bool of live wavefront lanes; dead lanes open
     no mesh or sphere clusters and report no hit there. plain=True runs the
-    mesh find and the clustered sphere find through the kernels' plain
-    PyTorch versions (a comparison switch). sampler and bounce (the
+    mesh find and both sphere finds through the kernels' plain PyTorch
+    versions (a comparison switch). sampler and bounce (the
     sampler's stream index: the wavefront's iteration, or the batch
     integrator's bounce) feed the media's free-flight draws; a scene with
     media and no sampler raises. mesh_backend: "kernel", "kernel_replay"
@@ -551,7 +552,8 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
                     ray_valid=ray_valid, plain=plain)
             else:
                 sph = isect.intersect_spheres(
-                    rays, sp.center, sp.radius, sp.mat_id, t_min, BIG)
+                    rays, sp.center, sp.radius, sp.mat_id, t_min, BIG,
+                    plain=plain)
         # the closest hit is a sphere where nothing later is strictly closer
         tracing.note_lanes("lanes.sphere_hit",
                            lambda final: sph.hit & (final.t == sph.t))

@@ -8,7 +8,7 @@ the name does not start with test_).
 - the scattered-balls scene's sphere pool and a random pool with their
   cluster tables, for the sphere-find tests;
 - models on the CPU of the CUDA kernels' schedules (the mesh traversal,
-  the sphere find and the key kernel);
+  the sphere find, the key kernel and the dense sphere scan's order);
 - `Noise`: seeded numpy noise per (purpose, iteration), fed identically
   to the port (through a Sampler subclass) and to the JAX package
   (through a monkeypatch of hobbyraytracer_tpu.core.rng; for the fit's
@@ -494,6 +494,40 @@ def sphere_pool(seed, n, spread=10.0):
     return (rng.uniform(-spread, spread, (n, 3)).astype(np.float32),
             rng.uniform(0.2, 1.5, (n,)).astype(np.float32),
             rng.integers(0, 5, (n,)).astype(np.int32))
+
+
+def tied_sphere_pool(seed, n=485):
+    """sphere_pool with exact ties: spheres 0, 8, ..., 232 repeated under
+    higher indices, the first half 4 places later (mostly in the same
+    chunk of 128), the second half 245 places later (in a later chunk);
+    every source also gets some of `aimed_rays`' targets. -> center,
+    radius, mat_id, and the rays (o, d) aimed at the sources."""
+    center, radius, mat = sphere_pool(seed, n, spread=10.0)
+    src = np.arange(0, 240, 8)
+    dst = np.where(src < 120, src + 4, src + 245)
+    center[dst], radius[dst] = center[src], radius[src]
+    rng = np.random.default_rng(seed + 1)
+    o = rng.uniform(-15.0, 15.0, (4000, 3)).astype(np.float32)
+    tgt = center[rng.choice(src, 4000)] + rng.normal(0, 0.3, (4000, 3))
+    return center, radius, mat, o, (tgt - o).astype(np.float32)
+
+
+def scan_by_sphere(rays, center, radius, t_min, t_max=1e30):
+    """The sphere_scan kernel's order in PyTorch (csrc/sphere_scan.cu):
+    every sphere in index order, by the scan's own sphere_t, folded into a
+    running minimum with a strict < -> (t, idx int64)."""
+    from hobbyraytracer_tpu_torch.kernels.sphere_scan import sphere_t
+    n = rays.o.shape[0]
+    best_t = torch.full((n,), 1e30, dtype=torch.float32,
+                        device=rays.o.device)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=rays.o.device)
+    for s in range(center.shape[0]):
+        t = sphere_t(rays, center[s:s + 1], radius[s:s + 1], t_min,
+                     t_max)[:, 0]
+        take = t < best_t
+        best_t = torch.where(take, t, best_t)
+        best_i = torch.where(take, s, best_i)
+    return best_t, best_i
 
 
 def balls_pool():

@@ -122,7 +122,8 @@ def test_traced_balls_render_records_the_sphere_find():
     sphere find as a phase nested in each segment's find, the pool's 485
     spheres on the dense route, and lane counters that equal a recount of
     the segments stepped by hand: active lanes whose closest hit is a
-    sphere (every hit here), lanes the dielectric lobe scattered."""
+    sphere (every hit here), lanes the dielectric lobe scattered; and no
+    launch of the sphere_scan kernel (the CPU runs its plain version)."""
     width, height, spp, pool = 16, 9, 2, 128
     scene, camera, off = _program(BALLS, width, height, spp, pool)
     with tracing.recording() as rec:
@@ -171,6 +172,7 @@ def test_traced_balls_render_records_the_sphere_find():
         assert got[name] == want[name], name
     assert 0 < got["lanes.sphere_hit"] <= got["lanes.active"]
     assert 0 < got["lanes.dielectric"] < got["lanes.sphere_hit"]
+    assert got["sphere_scan.launches"] == 0
 
 
 def test_the_sphere_route_is_dense_unless_the_kernel_is_asked_for(

@@ -1,13 +1,13 @@
 """The CUDA kernels of the port on the card: K1 (resident table), K2
-(streaming table), K3 (coherence keys), K4 (clustered sphere find) and
-threefry (the draws), each against its plain PyTorch version, and K2
-against K1; the wavefront render, the fit's steps and the batch
-integrator's samples replayed from CUDA graphs against the eager render
-and fit. All are built with -fmad=false and round op
-for op as PyTorch does, so kernel and plain version are equal (tolerance
-0), not only within the parity tolerances. Every test here needs a CUDA
-card and skips without one; the file imports neither JAX nor the JAX
-package, so it also runs where JAX is not installed:
+(streaming table), K3 (coherence keys), K4 (clustered sphere find),
+sphere_scan (the dense sphere scan) and threefry (the draws), each against
+its plain PyTorch version, and K2 against K1; the wavefront render, the
+fit's steps and the batch integrator's samples replayed from CUDA graphs
+against the eager render and fit. All are built with -fmad=false and
+round op for op as PyTorch does, so kernel and plain version are equal
+(tolerance 0), not only within the parity tolerances. Every test here
+needs a CUDA card and skips without one; the file imports neither JAX nor
+the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o markers=cuda tests/test_torch_cuda.py -q
 
@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from hobbyraytracer_tpu_torch.core.rng import Sampler
+from hobbyraytracer_tpu_torch.core.types import Rays
 from hobbyraytracer_tpu_torch.integrator import wavefront
 from hobbyraytracer_tpu_torch.kernels import mesh_traverse as pk
+from hobbyraytracer_tpu_torch.kernels import sphere_scan as sc
 from hobbyraytracer_tpu_torch.kernels import sphere_traverse as sk
 from hobbyraytracer_tpu_torch.scene.bvh import build_sphere_clusters
 from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
@@ -484,6 +486,256 @@ def test_balls_render_routes(dev, monkeypatch):
     assert near.float().mean() >= 0.99
 
 
+# --- the dense sphere scan (sphere_scan) ------------------------------------
+
+def _scan_both(rays, center, radius, t_min=1e-3, t_max=1e30):
+    """The kernel and the plain chunked scan on the same card tensors,
+    synchronised; the kernel's launch counted once (none for no rays)."""
+    before = sc.SCAN_KERNEL.launches
+    t_k, i_k = sc.scan_spheres(rays, center, radius, t_min, t_max)
+    assert sc.SCAN_KERNEL.launches == before + (rays.o.shape[0] > 0)
+    t_p, i_p = sc.scan_spheres_plain(rays, center, radius, t_min, t_max)
+    torch.cuda.synchronize()
+    assert t_k.dtype == torch.float32 and i_k.dtype == torch.int64
+    assert t_k.shape == i_k.shape == (rays.o.shape[0],)
+    return t_k, i_k, t_p, i_p
+
+
+def _balls_on(dev):
+    """The balls scene's pooled spheres on the card: center, radius, mat."""
+    center, radius, mat = balls_pool()[:3]
+    return _on(dev, center, radius, mat)
+
+
+@pytest.mark.parametrize("n_spheres", [1, 127, 128, 129, 485])
+def test_sphere_scan_matches_plain(dev, n_spheres):
+    """The kernel against the chunked scan, t and index bit for bit
+    (tolerance 0), on random pools of one sphere, just under, at and just
+    over one chunk of 128, and 485 (three chunks and a padded fourth), in
+    the default window and a narrower one."""
+    center, radius, _ = sphere_pool(41, n_spheres,
+                                    spread=10.0 if n_spheres > 1 else 1.0)
+    o, d, _ = random_rays(42, 30_000, spread=15.0 if n_spheres > 1 else 3.0)
+    rays = Rays(*_on(dev, o, d))
+    c, r = _on(dev, center, radius)
+    t_k, i_k, t_p, i_p = _scan_both(rays, c, r)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    hit = i_k >= 0
+    assert hit.any() and (t_k[~hit] == 1e30).all() and (t_k[hit] < 1e30).all()
+    t_k, i_k, t_p, i_p = _scan_both(rays, c, r, 0.5, 9.0)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    assert ((t_k >= 0.5) & (t_k <= 9.0) | (i_k < 0)).all()
+
+
+def _grazing_rays(center, radius, n, seed):
+    """Rays that pass a small sphere of the pool at about its radius from
+    its center (disc near 0, of either sign) -> o, d, the grazed index."""
+    rng = np.random.default_rng(seed)
+    small = np.flatnonzero(radius < 2.0)
+    j = rng.choice(small, n)
+    o = (rng.uniform(-12.0, 12.0, (n, 3))
+         + np.asarray([0.0, 12.5, 0.0])).astype(np.float32)
+    w = center[j] - o
+    u = np.cross(w, rng.normal(0, 1, (n, 3)))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    scale = 1.0 + rng.choice([-1e-6, 0.0, 1e-6], n)
+    tgt = center[j] + u * (radius[j] * scale)[:, None]
+    return o, (tgt - o).astype(np.float32), j
+
+
+@pytest.mark.parametrize("rays", ["aimed", "grazing", "ground"])
+def test_sphere_scan_on_the_balls_pool(dev, rays):
+    """The kernel against the chunked scan on the balls scene's 485
+    spheres, bit for bit: rays aimed into the scene; rays that graze a
+    small sphere (the grazed sphere hit by some and missed by others);
+    rays down at the ground sphere of radius 1000 (most end on it)."""
+    center, radius, _ = balls_pool()[:3]
+    if rays == "aimed":
+        o, d, _ = aimed_rays(43, 50_000, center=(0.0, 0.5, 0.0), half=6.0,
+                             spread=12.0)
+        o[:, 1] = np.abs(o[:, 1]) + 0.3
+    elif rays == "grazing":
+        o, d, j = _grazing_rays(center, radius, 50_000, 44)
+    else:
+        rng = np.random.default_rng(45)
+        o = np.stack([rng.uniform(-50, 50, 50_000), rng.uniform(0.3, 3.0,
+                      50_000), rng.uniform(-50, 50, 50_000)], 1)
+        d = np.stack([rng.normal(0, 1, 50_000), -rng.uniform(0.01, 1.0,
+                      50_000), rng.normal(0, 1, 50_000)], 1)
+        o, d = o.astype(np.float32), d.astype(np.float32)
+    r = Rays(*_on(dev, o, d))
+    c, rad = _on(dev, center, radius)
+    t_k, i_k, t_p, i_p = _scan_both(r, c, rad)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    assert (i_k >= 0).float().mean() > 0.2
+    if rays == "grazing":
+        own = sc.winner_t(r, c, rad, torch.from_numpy(j).to(dev), 1e-3, 1e30)
+        assert 0.05 < (own < 1e30).float().mean() < 0.95
+    if rays == "ground":
+        ground = int(np.flatnonzero(radius == 1000.0)[0])
+        assert (i_k == ground).float().mean() > 0.5
+
+
+def test_sphere_scan_keeps_the_root_of_one_at_disc_zero(dev):
+    """Rays that touch a sphere with disc exactly 0: spheres on a grid 10
+    apart in y and z, and each ray o = c + (-k, r, 0) along x with |d| = m
+    (integers and powers of two, so half_b^2 = a c = k^2 m^2 exactly) meets
+    only its own. The scan takes the square root of 1 there, so t = (k m -
+    1) / m^2 and not the tangent's k / m; the kernel gives that bit for bit,
+    and its winner is each ray's own sphere."""
+    rng = np.random.default_rng(46)
+    n = 4096
+    iy, iz = np.divmod(np.arange(n), 64)
+    cen = np.stack([rng.integers(-20, 20, n), 10 * iy, 10 * iz],
+                   1).astype(np.float32)
+    rad = rng.integers(1, 4, n).astype(np.float32)
+    k = rng.integers(3, 30, n).astype(np.float32)
+    m = rng.choice([1.0, 2.0, 4.0], n).astype(np.float32)
+    o = cen + np.stack([-k, rad, np.zeros(n, np.float32)], 1)
+    d = np.stack([m, np.zeros(n), np.zeros(n)], 1).astype(np.float32)
+    c, r = _on(dev, cen, rad)
+    rays = Rays(*_on(dev, o, d))
+    t_k, i_k, t_p, i_p = _scan_both(rays, c, r)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    assert torch.equal(i_k, torch.arange(n, device=dev))
+    assert torch.equal(t_k, torch.from_numpy((k * m - 1.0) / (m * m)).to(dev))
+
+
+@pytest.mark.parametrize("n_rays", [0, 1, 33, 196_608])
+def test_sphere_scan_takes_any_ray_count(dev, n_rays):
+    """No rays (no launch), a ray count that fills neither a warp nor a
+    block, and the main path's pool of 196,608 on the balls pool: the
+    kernel equals the chunked scan."""
+    c, r, _ = _balls_on(dev)
+    o, d, _ = aimed_rays(47, max(n_rays, 1), center=(0.0, 0.5, 0.0),
+                         half=6.0, spread=12.0)
+    o[:, 1] = np.abs(o[:, 1]) + 0.3
+    rays = Rays(*_on(dev, o[:n_rays], d[:n_rays]))
+    t_k, i_k, t_p, i_p = _scan_both(rays, c, r)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    assert n_rays <= 1 or (i_k >= 0).any()
+
+
+def test_sphere_scan_on_a_mid_render_pool(dev):
+    """The rays of a balls render's pool after three segments (camera rays,
+    bounces off lambertian, metal and glass, dead lanes): the kernel
+    equals the chunked scan bit for bit."""
+    job = build_scene(load_scene_desc(BALLS))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    state, _ = _pool_after(scene, camera, dev, 3)
+    sp = scene.spheres
+    t_k, i_k, t_p, i_p = _scan_both(Rays(o=state.o, d=state.d), sp.center,
+                                    sp.radius)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    assert 0.1 < (i_k >= 0).float().mean() < 1.0
+
+
+def test_sphere_scan_argument_checks(dev):
+    c, r, _ = _balls_on(dev)
+    o, d, _ = random_rays(48, 64, spread=8.0)
+    rays8 = _on(dev, np.concatenate([o, d, o[:, :2]], 1))[0]
+    o, d = _on(dev, o, d)
+    rays = Rays(o=o, d=d)
+    with pytest.raises(TypeError):
+        sc.scan_spheres(Rays(o=o.double(), d=d.double()), c, r, 1e-3, 1e30)
+    with pytest.raises(TypeError):
+        sc.scan_spheres(rays, c, r.double(), 1e-3, 1e30)
+    with pytest.raises(ValueError, match="is on"):
+        sc.scan_spheres(rays, c.cpu(), r, 1e-3, 1e30)
+    with pytest.raises(ValueError, match="is on"):
+        sc.scan_spheres(Rays(o=o, d=d.cpu()), c, r, 1e-3, 1e30)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.scan_spheres(Rays(o=rays8[:, 0:3], d=rays8[:, 3:6]), c, r, 1e-3,
+                        1e30)
+    with pytest.raises(ValueError, match="shape"):
+        sc.scan_spheres(rays, c, r[:-1].contiguous(), 1e-3, 1e30)
+    with pytest.raises(ValueError, match="shape"):
+        sc.scan_spheres(rays, torch.cat([c, r[:, None]], 1), r, 1e-3, 1e30)
+    with pytest.raises(ValueError, match="shape"):
+        sc.scan_spheres(Rays(o=o[:, :2].contiguous(), d=d), c, r, 1e-3,
+                        1e30)
+    with pytest.raises(ValueError, match="S >= 1"):
+        sc.scan_spheres(rays, c[:0], r[:0], 1e-3, 1e30)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.scan_spheres(Rays(o=o.to("meta"), d=d.to("meta")), c.to("meta"),
+                        r.to("meta"), 1e-3, 1e30)
+
+
+def test_balls_render_through_the_scan_kernel_equals_plain(dev, monkeypatch):
+    """A small scattered_balls render by the default route (the scan
+    kernel, blocks replayed from a CUDA graph) against plain=True (the
+    chunked scan, eager), under deterministic algorithms: the framebuffers
+    bit for bit; the kernel launched once a segment on the default route
+    and never under plain=True."""
+    segments = _count_iterations(monkeypatch)
+    job = build_scene(load_scene_desc(BALLS))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for plain in (False, True):
+            before, segments[0] = sc.SCAN_KERNEL.launches, 0
+            st = wavefront.render_state(scene, camera, 48, 27, 4,
+                                        Sampler(7, dev), pool=2048,
+                                        plain=plain)
+            out[plain] = (st.fb, sc.SCAN_KERNEL.launches - before,
+                          segments[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (fb, scans, segs), (fb_plain, scans_plain, _) = out[False], out[True]
+    assert torch.isfinite(fb).all() and fb.abs().sum() > 0
+    assert torch.equal(fb, fb_plain)
+    assert scans == segs > 0 and scans_plain == 0
+
+
+@pytest.mark.parametrize("pool", ["balls", "random-384"])
+def test_sphere_scan_gradient_replay_on_card(dev, pool):
+    """Gradients wanted: intersect_spheres finds the winner through the
+    kernel and replays its quadratic. The replayed t is the kernel's bit
+    for bit, and the gradients of a loss over t, p and the normal with
+    respect to the rays' origins and directions, the centers and the radii
+    are the chunked scan's own (autograd through it, one chunk: no pad
+    spheres) within float32 rounding of a sum's order (1e-5 of the
+    largest; the backward's index_add_ sums in the order its atomics
+    land)."""
+    if pool == "balls":
+        center, radius, mat = balls_pool()[:3]
+        o, d, _ = aimed_rays(49, 20_000, center=(0.0, 0.5, 0.0), half=6.0,
+                             spread=12.0)
+        o[:, 1] = np.abs(o[:, 1]) + 0.3
+    else:
+        center, radius, mat = sphere_pool(50, 384, spread=10.0)
+        o, d, _ = random_rays(51, 20_000, spread=15.0)
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    cpu = (o, d, center, radius)
+    mat_d, w = _on(dev, mat, np.linspace(0.1, 1.0, len(o), dtype=np.float32))
+    t_k, _ = sc.scan_spheres(Rays(*_on(dev, o, d)), *_on(dev, center, radius),
+                             1e-3, 1e30)
+
+    def grads(find):
+        leaves = [x.requires_grad_() for x in _on(dev, *cpu)]
+        h = find(Rays(o=leaves[0], d=leaves[1]), leaves[2], leaves[3])
+        loss = ((torch.where(h.hit, h.t, 0.0) * w).sum()
+                + (h.p * w[:, None]).sum() + (h.normal * w[:, None]).sum())
+        return h, torch.autograd.grad(loss, leaves)
+
+    before = sc.SCAN_KERNEL.launches
+    h_r, g_r = grads(lambda r, c, rad: pisect.intersect_spheres(
+        r, c, rad, mat_d, 1e-3, 1e30))
+    assert sc.SCAN_KERNEL.launches == before + 1
+    h_s, g_s = grads(lambda r, c, rad: pisect._sphere_attribs(
+        r, c, rad, mat_d, *sc.scan_spheres_plain(r, c, rad, 1e-3, 1e30,
+                                                 len(center))))
+    torch.cuda.synchronize()
+    assert h_r.t.requires_grad
+    assert torch.equal(h_r.t, t_k) and torch.equal(h_s.t, t_k)
+    assert h_r.hit.float().mean() > 0.2
+    for name, a, b in zip(("o", "d", "center", "radius"), g_r, g_s):
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), name
+        assert b.abs().max() > 0, name
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name
+
+
 # --- the pool sort, the lockstep find and media on the card ---------------
 
 TWO_TEAPOTS = TEAPOT.replace("teapot_scene", "two_teapots")
@@ -860,8 +1112,10 @@ def test_sampler_draws_on_card_equal_cpu(dev):
 
 @pytest.mark.parametrize("scene_path,sphere_kernel,key_mode", [
     (TEAPOT, False, "auto"), (TWO_TEAPOTS, False, "auto"),
-    (BALLS, True, "auto"), (HIRES, False, "auto"), (HIRES, False, "pallas")],
-    ids=["teapot", "two_teapots", "balls-k4", "hires", "hires-k3"])
+    (BALLS, True, "auto"), (BALLS, False, "auto"), (HIRES, False, "auto"),
+    (HIRES, False, "pallas")],
+    ids=["teapot", "two_teapots", "balls-k4", "balls-scan", "hires",
+         "hires-k3"])
 def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
                                    sphere_kernel, key_mode):
     """A 64x64 @ 4 spp render (pool 2048, 3 iterations a block, so that
@@ -869,7 +1123,8 @@ def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
     under deterministic algorithms: framebuffer, `it` and retired equal,
     every kernel's launches equal (the replays add the captured launches),
     one graph captured. key_mode "pallas" takes the coherence keys from K3,
-    which then launches in both renders."""
+    which then launches in both renders; the balls without K4 launch the
+    sphere_scan kernel."""
     from hobbyraytracer_tpu_torch.kernels import threefry as tf
     from hobbyraytracer_tpu_torch.ops import intersect as isect
     monkeypatch.setattr(isect, "SPHERE_KERNEL", sphere_kernel)
@@ -886,7 +1141,7 @@ def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
 
     monkeypatch.setattr(wavefront, "_BlockGraph", Counted)
     libs = (pk.KERNEL, pk.KERNEL_STREAM, pk.KEY_KERNEL, sk.SPHERE_KERNEL,
-            tf.THREEFRY)
+            sc.SCAN_KERNEL, tf.THREEFRY)
     out = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:

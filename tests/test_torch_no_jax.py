@@ -281,6 +281,47 @@ def test_sphere_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
     assert skmod.SPHERE_KERNEL.launches == 0
 
 
+def test_sphere_scan_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """The dense sphere scan on tensors off the CPU, called directly and
+    through intersect_spheres, intersect_scene (the default route) and a
+    transformed sphere instance: when the sphere_scan kernel cannot be
+    built the call raises; its plain version never takes over."""
+    from hobbyraytracer_tpu_torch.core.types import Rays
+    from hobbyraytracer_tpu_torch.kernels import sphere_scan as scmod
+    from hobbyraytracer_tpu_torch.ops import intersect as pisect
+    from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
+    from hobbyraytracer_tpu_torch.scene import ir as pir
+    from _torch_parity import BALLS
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def other(*args, **kwargs):
+        raise AssertionError("fell back from the kernel")
+
+    monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(scmod, "SCAN_KERNEL",
+                        kbuild.KernelLibrary("sphere_scan"))
+    monkeypatch.setattr(scmod, "scan_spheres_plain", other)
+    scene = build_scene(load_scene_desc(BALLS)).scene.to("meta")
+    sp = scene.spheres
+    rays = Rays(o=torch.empty((256, 3), device="meta"),
+                d=torch.empty((256, 3), device="meta"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        scmod.scan_spheres(rays, sp.center, sp.radius, 1e-3, 1e30)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pisect.intersect_spheres(rays, sp.center, sp.radius, sp.mat_id, 1e-3,
+                                 1e30)
+    assert pir.sphere_route(scene) == "dense"
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pir.intersect_scene(scene, rays)
+    inst = pir.Instance("sphere", spheres=sp)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pir._intersect_instance(inst, rays, 1e-3)
+    assert scmod.SCAN_KERNEL.launches == 0
+
+
 def test_mesh_find_never_moves_to_the_lockstep_find(monkeypatch, tmp_path):
     """A mesh scene on tensors off the CPU, through intersect_scene (by
     the "kernel" and the fit's "kernel_replay" backend), a wavefront

@@ -3,7 +3,10 @@ inputs: the sphere cluster build (byte for byte), the dense scan (sphere_t,
 sphere_uv, intersect_spheres), the clustered find's plain version against
 the Pallas sphere kernel in interpret mode, intersect_spheres_clustered with
 its differentiable replay, a transformed sphere instance, and the routing on
-SPHERE_KERNEL.
+SPHERE_KERNEL; and, with no JAX, the order of the sphere_scan kernel (one
+sphere at a time, strict <) against the chunked scan, the scan's wrapper on
+the CPU, and the dense route's gradient replay against the scan's own
+gradients.
 
 Tolerances. XLA's CPU build contracts a*b+c into FMAs where PyTorch rounds
 each op, and the sphere discriminant hb*hb - a*c cancels: on a random pool
@@ -27,13 +30,15 @@ from hobbyraytracer_tpu.ops import intersect as jisect
 from hobbyraytracer_tpu.scene import bvh as jbvh
 from hobbyraytracer_tpu.scene import ir as jir
 from hobbyraytracer_tpu_torch.core.types import Rays
+from hobbyraytracer_tpu_torch.kernels import sphere_scan as sc
 from hobbyraytracer_tpu_torch.kernels import sphere_traverse as sk
 from hobbyraytracer_tpu_torch.ops import intersect as pisect
 from hobbyraytracer_tpu_torch.scene import bvh as pbvh
 from hobbyraytracer_tpu_torch.scene import ir as pir
 
 from _torch_parity import (ROOT, aimed_rays, balls_pool, pack_rays8,
-                           random_rays, sphere_pool)
+                           random_rays, scan_by_sphere, sphere_pool,
+                           tied_sphere_pool)
 
 torch.set_num_threads(2)
 
@@ -427,3 +432,103 @@ def test_routing_follows_sphere_kernel(monkeypatch):
             text=True, timeout=120,
             env=dict(os.environ, HRT_SPHERE_KERNEL=val, PYTHONPATH=ROOT))
         assert f"KNOB {want}" in proc.stdout, proc.stdout + proc.stderr
+
+
+def _scan_case(pool):
+    """(center, radius, mat_id, o, d) of a sphere_scan test pool: the balls
+    scene's 485 spheres with rays aimed into it, or 485 random spheres with
+    repeated ones (exact ties) and rays aimed at them."""
+    if pool == "balls":
+        center, radius, mat = balls_pool()[:3]
+        return (center, radius, mat, *_balls_rays(3000)[:2])
+    return tied_sphere_pool(31)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 128, "n"])
+@pytest.mark.parametrize("pool", ["balls", "random-ties"])
+def test_sphere_by_sphere_order_equals_the_scan(pool, chunk):
+    """The sphere_scan kernel's order written in PyTorch (each sphere in
+    index order, folded in with a strict <) equals the chunked scan bit for
+    bit, t and winner, for chunks of 1, 7, 128 and the whole pool: the
+    lowest index at the smallest t wins either way. On the random pool,
+    with spheres repeated in the same chunk and in later ones, a counted
+    number of rays meets an exact tie."""
+    center, radius, mat, o, d = _scan_case(pool)
+    rays = Rays(o=T(o), d=T(d))
+    n = len(center) if chunk == "n" else chunk
+    t_k, i_k = scan_by_sphere(rays, T(center), T(radius), T_MIN, BIG)
+    t_s, i_s = sc.scan_spheres_plain(rays, T(center), T(radius), T_MIN, BIG,
+                                     n)
+    assert torch.equal(t_k, t_s) and torch.equal(i_k, i_s)
+    hit = i_k >= 0
+    assert 0.2 < hit.float().mean() < 1.0
+    assert (t_k[~hit] == BIG).all() and (t_k[hit] < BIG).all()
+    if pool != "balls":
+        t_all = sc.sphere_t(rays, T(center), T(radius), T_MIN, BIG)
+        ties = hit & ((t_all == t_k[:, None]).sum(dim=1) > 1)
+        assert ties.sum() >= 100
+    h = pisect.intersect_spheres(rays, T(center), T(radius), T(mat), T_MIN,
+                                 BIG, chunk=n)
+    assert torch.equal(h.t, t_k) and torch.equal(h.hit, hit)
+    assert torch.equal(h.mat_id[hit], T(mat)[i_k[hit]])
+
+
+def test_scan_wrapper_runs_the_plain_version_on_the_cpu():
+    """scan_spheres on CPU tensors is the plain version: the same bits, no
+    launch counted; it refuses an empty pool."""
+    center, radius, _, o, d = _scan_case("balls")
+    rays = Rays(o=T(o), d=T(d))
+    before = sc.SCAN_KERNEL.launches
+    t, i = sc.scan_spheres(rays, T(center), T(radius), T_MIN, BIG)
+    t_p, i_p = sc.scan_spheres_plain(rays, T(center), T(radius), T_MIN, BIG)
+    assert torch.equal(t, t_p) and torch.equal(i, i_p)
+    assert i.dtype == torch.int64 and t.dtype == torch.float32
+    t0, i0 = sc.scan_spheres(Rays(o=T(o)[:0], d=T(d)[:0]), T(center),
+                             T(radius), T_MIN, BIG)
+    assert t0.shape == i0.shape == (0,)
+    assert sc.SCAN_KERNEL.launches == before == 0
+    with pytest.raises(ValueError, match="S >= 1"):
+        sc.scan_spheres(rays, T(center)[:0], T(radius)[:0], T_MIN, BIG)
+
+
+@pytest.mark.parametrize("chunk", [128, "n"])
+@pytest.mark.parametrize("pool", ["balls", "random-384"])
+def test_dense_route_replays_the_scan_gradient(pool, chunk):
+    """With gradients wanted, intersect_spheres finds the winner without
+    them and replays its quadratic: t equals the scan's bit for bit, and
+    the gradients of a loss over t, p and the normal with respect to the
+    rays' origins and directions, the centers and the radii are the scan's
+    own (autograd through the chunked scan over the whole pool) within
+    float32 rounding of a sum's order (1e-5 of the largest). The replay
+    never sees the scan's pad spheres, whose 0 * inf makes the padded
+    scan's direction gradient NaN, so a 128-chunk find of 485 spheres gives
+    finite gradients too."""
+    if pool == "balls":
+        center, radius, mat = balls_pool()[:3]
+        o, d = _balls_rays(3000)[:2]
+    else:
+        center, radius, mat = sphere_pool(9, 384, spread=10.0)
+        o, d, _ = random_rays(10, 3000, spread=15.0)
+    n = len(center) if chunk == "n" else chunk
+    w = torch.linspace(0.1, 1.0, len(o))
+
+    def grads(find):
+        leaves = [T(x).clone().requires_grad_() for x in (o, d, center,
+                                                          radius)]
+        rays = Rays(o=leaves[0], d=leaves[1])
+        h = find(rays, leaves[2], leaves[3])
+        loss = ((torch.where(h.hit, h.t, 0.0) * w).sum()
+                + (h.p * w[:, None]).sum() + (h.normal * w[:, None]).sum())
+        return h, torch.autograd.grad(loss, leaves)
+
+    h_r, g_r = grads(lambda r, c, rad: pisect.intersect_spheres(
+        r, c, rad, T(mat), T_MIN, BIG, chunk=n))
+    h_s, g_s = grads(lambda r, c, rad: pisect._sphere_attribs(
+        r, c, rad, T(mat), *sc.scan_spheres_plain(r, c, rad, T_MIN, BIG,
+                                                  len(center))))
+    assert h_r.t.requires_grad and torch.equal(h_r.t, h_s.t)
+    assert h_r.hit.float().mean() > 0.2
+    for name, a, b in zip(("o", "d", "center", "radius"), g_r, g_s):
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), name
+        assert b.abs().max() > 0, name
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name

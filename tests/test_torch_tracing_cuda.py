@@ -286,7 +286,8 @@ def test_sphere_find_phase_reads_on_the_replay_route(balls, card):
     replayed block reads hrt.segment.find.spheres above 0 ms and at most
     its find; the traced block graph holds two events a segment more than
     the four phases' five; the render names the dense route, counts
-    sphere hits among its active lanes, and launches no K4."""
+    sphere hits among its active lanes, launches the sphere_scan kernel
+    once a segment (its counter `sphere_scan.launches`) and no K4."""
     from hobbyraytracer_tpu_torch.kernels import sphere_traverse as skmod
     launches = skmod.SPHERE_KERNEL.launches
     with tracing.recording() as rec:
@@ -310,3 +311,4 @@ def test_sphere_find_phase_reads_on_the_replay_route(balls, card):
     assert 0 < counted["lanes.sphere_hit"] <= counted["lanes.active"]
     assert 0 < counted["lanes.dielectric"] < counted["lanes.sphere_hit"]
     assert skmod.SPHERE_KERNEL.launches == launches
+    assert counted["sphere_scan.launches"] == counted["segments"] > 0
