@@ -184,7 +184,7 @@ dd. (run after m) the graph route: threefry.cu against its plain version
    longest draw (slot words, 5 folds, 409,600 lanes); teapot,
    teapot_hires (and again with HRT_KEY_MODE "pallas": K3), scattered_balls
    through K4 and two_teapots rendered at 640x640 @ 16 spp eagerly
-   (eager=True) and through the CUDA graph under
+   (kernels/build.py:eager) and through the CUDA graph under
    torch.use_deterministic_algorithms: framebuffers, `it` and every
    kernel's launch count equal, and over five replayed blocks, a
    profiler each, each kernel's launches as torch.profiler saw them run
@@ -195,7 +195,7 @@ dd. (run after m) the graph route: threefry.cu against its plain version
    share of one render each way.
 ee. (run after v) the fit through its CUDA graph (diff/fit.py:
    fit_materials on a card: step 0 eager, step 1 captured and replayed,
-   every later step replayed) against eager=True under
+   every later step replayed) against eager() under
    torch.use_deterministic_algorithms: the CLI's fit at its defaults (30
    steps; losses, fitted materials and every kernel's launches equal, and
    over the replayed steps 2-11, a profiler each, each kernel's launches
@@ -713,6 +713,16 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def under(switch, on, fn, *args, **kwargs):
+    """fn(*args, **kwargs), under kernels/build.py's comparison switch
+    `switch` ("plain_versions" or "eager") when `on`."""
+    import contextlib
+
+    from hobbyraytracer_tpu_torch.kernels import build as kbuild
+    with getattr(kbuild, switch)() if on else contextlib.nullcontext():
+        return fn(*args, **kwargs)
+
+
 def check(ok, msg):
     if not ok:
         raise RuntimeError(msg)
@@ -1016,7 +1026,6 @@ def phase_fit_grads(dev, card, scene, camera, width, height, k1, hires,
     from hobbyraytracer_tpu_torch.cli.main import perturb_materials
     from hobbyraytracer_tpu_torch.core.rng import Sampler
     from hobbyraytracer_tpu_torch.diff import fit as fit_mod
-    from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
     spp, depth = FIT_SPP, FIT_DEPTH
     sampler = Sampler(SEED, dev)
     with torch.no_grad():
@@ -1043,19 +1052,16 @@ def phase_fit_grads(dev, card, scene, camera, width, height, k1, hires,
           f"{ms:.1f} ms, K1 launches {k1_step} (predicted {want}) on {card}")
 
     torch.use_deterministic_algorithms(True, warn_only=True)
-    real = kmod.traverse_clusters
     try:
         runs = {}
         for label in ("K1", "K1's plain version"):
-            if label != "K1":
-                kmod.traverse_clusters = kmod.traverse_clusters_plain
             k1.launches = 0
-            runs[label] = loss_grads(start, camera, width, height, sampler,
-                                     spp, depth, target)
+            runs[label] = under("plain_versions", label != "K1", loss_grads,
+                                start, camera, width, height, sampler, spp,
+                                depth, target)
             sync(dev)
             print(f"  {label}: loss {float(runs[label][0]):.8f}, K1 "
                   f"launches {k1.launches}")
-        kmod.traverse_clusters = real
         (la, ga), (lb, gb) = runs.values()
         check(bool(torch.equal(la, lb)), f"kernel vs plain: loss {la} {lb}")
         for name in ga:
@@ -1090,7 +1096,6 @@ def phase_fit_grads(dev, card, scene, camera, width, height, k1, hires,
               f"{bool(torch.equal(gv, gl))}; tolerance rtol {VERTEX_RTOL}, "
               f"atol {VERTEX_ATOL} x max)")
     finally:
-        kmod.traverse_clusters = real
         torch.use_deterministic_algorithms(False)
 
     hscene, hcamera = hires
@@ -1408,8 +1413,8 @@ def phase_fit_graph(dev, card, libs, scene, camera, width, height, hires,
             check(bool(torch.equal(va, vb)), f"{label}: vertices differ")
 
     def cli_fit(eager, steps=FIT_STEPS):
-        return lambda: fit_demo(FIT_SCENE, dev, steps=steps, verbose=False,
-                                eager=eager)
+        return lambda: under("eager", eager, fit_demo, FIT_SCENE, dev,
+                             steps=steps, verbose=False)
 
     out = {"card": card}
     kbuild.GraphReplay = Timed
@@ -1452,10 +1457,11 @@ def phase_fit_graph(dev, card, libs, scene, camera, width, height, hires,
         with torch.no_grad():
             htarget = fit_mod.render_linear(hscene, hcamera, hw, hh, sampler,
                                             hspp, hdepth) * 0.5
-        hruns = [run(lambda: fit_mod.fit_materials(
-            hscene, hcamera, htarget, hw, hh, steps=3, n_samples=hspp,
-            max_depth=hdepth, sampler=sampler, fit_vertices=True,
-            verbose=False, eager=eager)) for eager in (True, False)]
+        hruns = [run(lambda: under(
+            "eager", eager, fit_mod.fit_materials, hscene, hcamera, htarget,
+            hw, hh, steps=3, n_samples=hspp, max_depth=hdepth,
+            sampler=sampler, fit_vertices=True, verbose=False))
+            for eager in (True, False)]
         same("teapot_hires vertex fit", hruns[0][0], hruns[1][0])
         check(hruns[0][1] == hruns[1][1]
               and hruns[1][1]["mesh_traverse_stream"] == (
@@ -1477,10 +1483,10 @@ def phase_fit_graph(dev, card, libs, scene, camera, width, height, hires,
             ftarget = fit_mod.render_linear(scene, camera, fw, fh, sampler,
                                             1, FIT_DEPTH)
         start = perturb_materials(scene)
-        fruns = [run(lambda: fit_mod.fit_materials(
-            start, camera, ftarget, fw, fh, steps=2, n_samples=1,
-            max_depth=FIT_DEPTH, sampler=sampler, verbose=False,
-            eager=eager)) for eager in (True, False)]
+        fruns = [run(lambda: under(
+            "eager", eager, fit_mod.fit_materials, start, camera, ftarget,
+            fw, fh, steps=2, n_samples=1, max_depth=FIT_DEPTH,
+            sampler=sampler, verbose=False)) for eager in (True, False)]
         same("full film", fruns[0][0], fruns[1][0])
         check(fruns[0][1] == fruns[1][1] and fruns[1][2] == 1,
               f"full film: launches {fruns[0][1]} / {fruns[1][1]}")
@@ -2415,10 +2421,9 @@ def phase_graph(dev, card, libs, scenes):
             elif not eager and blocks[0] == 2 + PROFILED_BLOCKS:
                 windows.stop()
 
-        st = wavefront.render_state(scene, camera, WIDTH, HEIGHT, SPP,
-                                    Sampler(SEED, dev), max_depth=50,
-                                    pool=POOL, pool_sort=0, eager=eager,
-                                    checkpoint_cb=block_done)
+        st = under("eager", eager, wavefront.render_state, scene, camera,
+                   WIDTH, HEIGHT, SPP, Sampler(SEED, dev), max_depth=50,
+                   pool=POOL, pool_sort=0, checkpoint_cb=block_done)
         if windows.prof is not None:
             windows.stop()
         launches = {lib.name: lib.launches for lib in libs}
@@ -2476,9 +2481,9 @@ def phase_graph(dev, card, libs, scenes):
     def render_teapot(eager, checkpoint_cb=None):
         iterations[0] = 0
         t0 = time.perf_counter()
-        wavefront.render_state(scene, camera, WIDTH, HEIGHT, SPP,
-                               Sampler(SEED, dev), max_depth=50, pool=POOL,
-                               eager=eager, checkpoint_cb=checkpoint_cb)
+        under("eager", eager, wavefront.render_state, scene, camera, WIDTH,
+              HEIGHT, SPP, Sampler(SEED, dev), max_depth=50, pool=POOL,
+              checkpoint_cb=checkpoint_cb)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, iterations[0]
 
@@ -2542,9 +2547,10 @@ def phase_graph(dev, card, libs, scenes):
 def phase_batch(dev, card, libs, scenes):
     """q: the batch integrator by both routes (integrator/path.py:
     radiance_sum, what render_image, render_sharded, the CLI's
-    `--integrator batch` and `bench` call; eager=True runs BatchRun's steps
-    without graphs). scenes {label: (scene, camera)}: the teapot, then
-    cornell_smoke, scattered_balls (through K4) and teapot_hires.
+    `--integrator batch` and `bench` call; under kernels/build.py:eager()
+    BatchRun's steps run without graphs). scenes {label: (scene,
+    camera)}: the teapot, then cornell_smoke, scattered_balls (through K4)
+    and teapot_hires.
 
     First K1 against its plain version on the 409,600 rays of a teapot
     sample's second bounce, as the batch route's find passes them. Then
@@ -2629,9 +2635,9 @@ def phase_batch(dev, card, libs, scenes):
             hook[0] = at
         t0 = time.perf_counter()
         try:
-            total = path_mod.radiance_sum(scene, camera, size, size, spp,
-                                          Sampler(seed, dev), max_depth=50,
-                                          sample_chunk=chunk, eager=eager)
+            total = under("eager", eager, path_mod.radiance_sum, scene,
+                          camera, size, size, spp, Sampler(seed, dev),
+                          max_depth=50, sample_chunk=chunk)
             torch.cuda.synchronize()
         finally:
             hook[0] = None
@@ -2777,9 +2783,10 @@ def phase_batch(dev, card, libs, scenes):
                 for eager in (False, True):
                     runs.clear()
                     capture_ms.clear()
-                    imgs.append(shard.render_sharded(
-                        sc, cam, size, size, spp, Sampler(SEED, dev), mesh,
-                        max_depth=50, sample_chunk=chunk, eager=eager))
+                    imgs.append(under(
+                        "eager", eager, shard.render_sharded, sc, cam, size,
+                        size, spp, Sampler(SEED, dev), mesh, max_depth=50,
+                        sample_chunk=chunk))
                     check(len(runs) == 2 and len(capture_ms) == (
                         0 if eager else 2 * per_render),
                           f"render_sharded: {len(runs)} runs, "
@@ -2963,9 +2970,8 @@ def main():
 
     stamp("5")
     # 5. the whole render through the kernel vs through the plain version
-    imgs = [wavefront.render_image(scene, camera, 64, 64, 8,
-                                   Sampler(SEED + 1, dev), pool=POOL,
-                                   plain=plain)
+    imgs = [under("plain_versions", plain, wavefront.render_image, scene,
+                  camera, 64, 64, 8, Sampler(SEED + 1, dev), pool=POOL)
             for plain in (False, True)]
     diff = (imgs[0] - imgs[1]).abs().amax(dim=2)
     agree = (diff < 1e-3).float().mean().item()
@@ -3282,9 +3288,8 @@ def main():
 
     stamp("j")
     # j. the whole render through K4 vs through its plain version
-    imgs = [wavefront.render_image(bscene, bcamera, 64, 64, 8,
-                                   Sampler(SEED + 3, dev), pool=POOL,
-                                   plain=plain)
+    imgs = [under("plain_versions", plain, wavefront.render_image, bscene,
+                  bcamera, 64, 64, 8, Sampler(SEED + 3, dev), pool=POOL)
             for plain in (False, True)]
     isect.SPHERE_KERNEL = False
     diff = (imgs[0] - imgs[1]).abs().amax(dim=2)
@@ -3443,8 +3448,9 @@ def main():
         check((k1.launches, k3.launches) == (1, 0),
               f"cohsort=False launched K1 {k1.launches} and K3 "
               f"{k3.launches} times")
-        plain = isect.intersect_mesh_clustered_fused(**find, cohsort=False,
-                                                     plain=True)
+        plain = under("plain_versions", True,
+                      isect.intersect_mesh_clustered_fused, **find,
+                      cohsort=False)
         by_mesh = isect.intersect_mesh_clustered_fused(**find, cohsort=True)
         torch.cuda.synchronize()
         n_hit = int(got[2].sum())

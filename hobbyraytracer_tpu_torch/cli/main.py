@@ -334,15 +334,15 @@ def perturb_materials(scene):
 def fit_demo(scene_path: str, device, width=None, height=None, spp: int = 4,
              max_depth: int = 6, seed: int = 0, steps: int = 30,
              fit_vertices: bool = False, boundary: bool = False,
-             verbose: bool = True, mesh=None, eager: bool = False):
+             verbose: bool = True, mesh=None):
     """The fit of `fit` as a function: build the scene on `device`, render
     the target at width x height (default the film / 8, at least 16 each
     way), perturb the materials and fit them back. With a mesh of more
     than one worker (counting every process's) and a material fit whose
     pixels divide over the workers, each step is the sharded step of
     parallel/shard.py, run eagerly; otherwise fit_materials's, through a
-    CUDA graph on a card (diff/fit.py:fit_route) unless eager=True (a
-    comparison switch). -> diff/fit.py's FitResult."""
+    CUDA graph on a card (diff/fit.py:fit_route). -> diff/fit.py's
+    FitResult."""
     import numpy as np
     import torch
 
@@ -366,15 +366,15 @@ def fit_demo(scene_path: str, device, width=None, height=None, spp: int = 4,
     n = len(mesh or [device]) * shard._process()[1]
     sharded = not (n == 1 or fit_vertices or boundary or (w * h) % n)
     if verbose:
-        graph = not eager and fit_route(start, device, boundary,
-                                        workers=n if sharded else 1)
+        graph = fit_route(start, device, boundary,
+                          workers=n if sharded else 1)
         print(f"fit: {steps} steps on {n if sharded else 1} worker(s), "
               f"{'through a CUDA graph' if graph else 'eagerly'}")
     if not sharded:
         return fit_materials(start, camera, target, w, h, steps=steps,
                              n_samples=spp, max_depth=max_depth,
                              sampler=sampler, fit_vertices=fit_vertices,
-                             boundary=boundary, verbose=verbose, eager=eager)
+                             boundary=boundary, verbose=verbose)
     params, rebuild = select_params(start)
     opt = torch.optim.Adam(shard._leaves(params), lr=2e-2,
                            betas=(0.9, 0.999), eps=1e-8)

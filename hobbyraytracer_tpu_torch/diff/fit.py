@@ -49,7 +49,6 @@ from .. import tracing
 from ..core.rng import KeySlot, Sampler
 from ..integrator import path as path_mod
 from ..kernels import build as kbuild
-from ..kernels import mesh_traverse as kmod
 from ..ops import film
 from ..ops import intersect as isect
 from ..ops.camera import get_rays
@@ -190,21 +189,17 @@ class FitResult(NamedTuple):
 
 def fit_route(scene: scene_ir.SceneIR, device, boundary: bool = False,
               correlated: bool = True, workers: int = 1) -> bool:
-    """Does a fit replay its steps from a CUDA graph? Yes on a CUDA device,
-    unless a step reads the host or draws from other keys than the last:
-    boundary=True (the edge-sampled terms run the batch integrator and the
-    lockstep find, which read the host), correlated=False (step i draws
-    from sampler.fold_in(i): a replay would draw step 1's numbers again),
-    the mesh find forced to K1 / K2's plain version (kernels/
-    mesh_traverse.traverse_clusters swapped for traverse_clusters_plain,
-    as a comparison does: it reads a count a visit round), a scene whose
-    finds read the host (scene/ir.py:finds_read_host) and more than one
-    worker (parallel/shard.py's sharded step). Those run eagerly. The
-    route follows from the configuration alone, never from a failure."""
-    return (torch.device(device).type == "cuda" and not boundary
-            and correlated and workers == 1
-            and kmod.traverse_clusters is not kmod.traverse_clusters_plain
-            and not scene_ir.finds_read_host(scene))
+    """Does a fit replay its steps from a CUDA graph? Where graphs are on
+    (kernels/build.py:graphs_on), unless a step reads the host or draws
+    from other keys than the last: boundary=True (the edge-sampled terms
+    run the batch integrator and the lockstep find, which read the host),
+    correlated=False (step i draws from sampler.fold_in(i): a replay would
+    draw step 1's numbers again), a scene whose finds read the host
+    (scene/ir.py:finds_read_host) and more than one worker
+    (parallel/shard.py's sharded step). Those run eagerly. The route
+    follows from the configuration alone, never from a failure."""
+    return (kbuild.graphs_on(device) and not boundary and correlated
+            and workers == 1 and not scene_ir.finds_read_host(scene))
 
 
 def _run_step(step, graph):
@@ -329,10 +324,9 @@ def _held(value, tensors: list):
 
 def _switches() -> tuple:
     """The module-level switches that a fit step's finds read as it is
-    recorded (ops/intersect.py's HRT_* settings, the mesh find a
-    comparison may swap in)."""
+    recorded (ops/intersect.py's HRT_* settings)."""
     return (isect.KEY_MODE, isect.CORRIDOR_MIN_K, isect.SPHERE_KERNEL,
-            isect.NO_COHSORT, kmod.traverse_clusters)
+            isect.NO_COHSORT)
 
 
 def _new_fit(scene, camera, target, width, height, lr, n_samples,
@@ -449,7 +443,7 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
                   fit_vertices: bool = False, verbose: bool = True,
                   correlated: bool = True, boundary: bool = False,
                   boundary_samples: int = 4096,
-                  shadow_light=None, eager: bool = False) -> FitResult:
+                  shadow_light=None) -> FitResult:
     """Adam fit of the material parameters (and the mesh vertices with
     fit_vertices) to a target image, target (W*H, 3) linear radiance on the
     scene's device. losses[i] is the loss at the parameters step i started
@@ -481,14 +475,14 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
     lr, fit_vertices, the target's shape and dtype, the device and whether
     the fit is traced. A later fit of the same key resets the kept buffers
     in place (_Fit.reset) and replays every step, step 0 included, drawing
-    under its own sampler's key (host words) from the key slot. With
-    eager=True (a comparison switch), or off fit_route's graph route,
-    every step runs eagerly. All routes give the same losses and
-    parameters bit for bit where the device's sums are deterministic."""
+    under its own sampler's key (host words) from the key slot. Off
+    fit_route's graph route every step runs eagerly. All routes give the
+    same losses and parameters bit for bit where the device's sums are
+    deterministic."""
     if sampler is None:
         sampler = Sampler(0, target.device)
     device = scene.materials.albedo.device
-    on_graph = not eager and fit_route(scene, device, boundary, correlated)
+    on_graph = fit_route(scene, device, boundary, correlated)
     losses = []
     with tracing.job("fit", device, width=width, height=height,
                      spp=n_samples, steps=steps) as job:

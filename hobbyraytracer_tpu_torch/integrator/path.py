@@ -180,8 +180,8 @@ def batch_route(scene: scene_ir.SceneIR, device,
 
 class BatchRun:
     """The batch route of one render (or one worker's pixels
-    pix0 .. pix0 + n_pix - 1): its static buffers and, with graphs=True,
-    its CUDA graphs.
+    pix0 .. pix0 + n_pix - 1): its static buffers and, where graphs are on
+    (kernels/build.py:graphs_on), its CUDA graphs.
 
     A sample is three kinds of step on the static buffers, each a function
     of no argument that reads no host value (what a graph captures):
@@ -197,18 +197,16 @@ class BatchRun:
     that ended ride along masked, so the radiance is `trace`'s bit for bit
     whatever B is.
 
-    graphs=True (a CUDA device): the run's first sample runs eagerly (the
-    warm-up), its second captures the start, every block and the add, in
-    that order, into CUDA graphs that share one capture stream and one
-    memory pool (kernels/build.py:GraphReplay), and every sample from then
-    on replays them. graphs=False runs the same steps eagerly (the
-    comparison route, and the CPU tests). A capture or replay that fails
-    raises."""
+    With graphs the run's first sample runs eagerly (the warm-up), its
+    second captures the start, every block and the add, in that order,
+    into CUDA graphs that share one capture stream and one memory pool
+    (kernels/build.py:GraphReplay), and every sample from then on replays
+    them. Without, the same steps run eagerly. A capture or replay that
+    fails raises."""
 
     def __init__(self, scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, sampler, max_depth: int = MAX_DEPTH,
-                 mesh_backend: str = "kernel", pix0: int = 0, n_pix=None,
-                 graphs: bool = False):
+                 mesh_backend: str = "kernel", pix0: int = 0, n_pix=None):
         self.scene, self.camera, self.mesh_backend = scene, camera, mesh_backend
         self.width, self.height = width, height
         self.device = torch.device(sampler.device)
@@ -226,7 +224,7 @@ class BatchRun:
         self.blocks = [range(b, min(b + BOUNCE_BLOCK, max_depth))
                        for b in range(0, max_depth, BOUNCE_BLOCK)]
         self.graphs = None
-        if graphs:
+        if kbuild.graphs_on(self.device):
             stream = torch.cuda.Stream(self.device)
             pool = torch.cuda.graph_pool_handle()
             self.graphs = [kbuild.GraphReplay(self.device, stream, pool)
@@ -306,13 +304,13 @@ class BatchRun:
 
 
 def _batch_run(scene, camera, width, height, sampler, max_depth,
-               mesh_backend, pix0, n_pix, eager):
-    """The render's BatchRun on the batch route (graphs unless eager), or
-    None for the per-bounce loop."""
+               mesh_backend, pix0, n_pix):
+    """The render's BatchRun on the batch route, or None for the
+    per-bounce loop."""
     if not batch_route(scene, sampler.device, mesh_backend):
         return None
     return BatchRun(scene, camera, width, height, sampler, max_depth,
-                    mesh_backend, pix0, n_pix, graphs=not eager)
+                    mesh_backend, pix0, n_pix)
 
 
 def _sample_loop(scene: scene_ir.SceneIR, camera: Camera, width: int,
@@ -341,7 +339,7 @@ def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
                     height: int, sampler, n_samples: int,
                     max_depth: int = MAX_DEPTH,
                     mesh_backend: str = "kernel", pix0: int = 0,
-                    n_pix=None, eager: bool = False) -> torch.Tensor:
+                    n_pix=None) -> torch.Tensor:
     """Sum of radiance (n_pix, 3) over n_samples jittered samples a pixel
     for the pixels pix0 .. pix0 + n_pix - 1 (default the whole W*H image):
     u = (x + U) / (W - 1), v = (y + U) / (H - 1) (main.cpp:120-121).
@@ -351,12 +349,11 @@ def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
     pixels, so a slice equals the same rows of the whole image bit for bit
     (the batch render of parallel/shard.py).
 
-    On batch_route's CUDA route the samples run through a BatchRun's CUDA
-    graphs (eager=True, a comparison switch: its steps eagerly); otherwise
-    through `trace`'s per-bounce loop. All give the same sum bit for
-    bit."""
+    On batch_route's CUDA route the samples run through a BatchRun;
+    otherwise through `trace`'s per-bounce loop. All give the same sum bit
+    for bit."""
     run = _batch_run(scene, camera, width, height, sampler, max_depth,
-                     mesh_backend, pix0, n_pix, eager)
+                     mesh_backend, pix0, n_pix)
     if run is None:
         return _sample_loop(scene, camera, width, height, sampler,
                             n_samples, max_depth, mesh_backend, pix0, n_pix)
@@ -366,15 +363,15 @@ def sample_radiance(scene: scene_ir.SceneIR, camera: Camera, width: int,
 def radiance_sum(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, sample_chunk: int = 0,
-                 progress_cb=None, pix0: int = 0, n_pix=None,
-                 eager: bool = False) -> torch.Tensor:
+                 progress_cb=None, pix0: int = 0,
+                 n_pix=None) -> torch.Tensor:
     """The radiance sum (n_pix, 3) of render_image before its film, for the
     pixels pix0 .. pix0 + n_pix - 1 (default the whole image), equal to
     those rows of the whole image's bit for bit. One BatchRun (one set of
-    graphs) serves every chunk; eager as in sample_radiance."""
+    graphs) serves every chunk."""
     n = width * height - pix0 if n_pix is None else n_pix
     run = _batch_run(scene, camera, width, height, sampler, max_depth,
-                     "kernel", pix0, n, eager)
+                     "kernel", pix0, n)
 
     def chunk_sum(chunk_sampler, c):
         if run is None:
@@ -403,14 +400,14 @@ def radiance_sum(scene: scene_ir.SceneIR, camera: Camera, width: int,
 def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  height: int, samples: int, sampler,
                  max_depth: int = MAX_DEPTH, sample_chunk: int = 0,
-                 progress_cb=None, eager: bool = False) -> torch.Tensor:
+                 progress_cb=None) -> torch.Tensor:
     """Full render on `sampler.device` -> tonemapped (H, W, 3) float image
     in [0, 1] (average -> ACES -> gamma).
 
     sample_chunk > 0 splits the samples into chunks of that many, chunk i
     drawing from sampler.fold_in(1000003 + i); progress_cb(done_samples,
     total_samples) fires after each chunk (a render in one chunk reports
-    its completion only). eager as in sample_radiance."""
+    its completion only)."""
     total = radiance_sum(scene, camera, width, height, samples, sampler,
-                         max_depth, sample_chunk, progress_cb, eager=eager)
+                         max_depth, sample_chunk, progress_cb)
     return film_ops.tonemap(total / float(samples)).reshape(height, width, 3)

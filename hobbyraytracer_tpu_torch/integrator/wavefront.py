@@ -31,8 +31,9 @@ torch.cuda.CUDAGraph and replayed for every later block. The state's
 tensors are the graph's static buffers and `it` a 0-d int32 device tensor
 that the captured draws read (core/rng.py), so each replay draws new
 numbers. A configuration whose segment reads the host runs every block
-eagerly, by rule (`graph_route`): the CPU, plain=True, a pool sort, and a
-scene whose finds read the host. A failed capture or replay raises.
+eagerly, by rule (`graph_route`): the CPU, a pool sort, and a scene whose
+finds read the host (and either comparison switch of kernels/build.py).
+A failed capture or replay raises.
 
 Pool sort (pool_sort=N, default POOL_SORT from HRT_POOL_SORT, 0 = off):
 every N segments the whole pool is permuted by
@@ -58,10 +59,8 @@ hrt.block, hrt.host_read and hrt.film, times each segment's phases
 events that a block's CUDA graph captures, and counts the lanes active,
 hit and deferred and the rows retired a segment on the device (and where
 the scene has them, the lanes whose closest hit is a pooled sphere and
-those the dielectric lobe scattered, and the sphere_scan kernel's
-launches in the render where the dense scan finds its pooled spheres:
-`sphere_scan.launches`, one a segment on the card). Untraced, the same
-sites do nothing.
+those the dielectric lobe scattered). Untraced, the same sites do
+nothing.
 The sharded render (parallel/shard.py) is never traced.
 """
 from __future__ import annotations
@@ -77,7 +76,6 @@ from .. import tracing
 from ..core import rng as rng_mod
 from ..core.types import Rays
 from ..kernels import build as kbuild
-from ..kernels import sphere_scan
 from ..ops import film as film_ops
 from ..ops import shade as shade_ops
 from ..ops.camera import Camera, get_rays
@@ -230,7 +228,6 @@ def _pool_permute(state: PoolState, scene: scene_ir.SceneIR) -> PoolState:
 def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
              height: int, sampler, max_depth: int, samples: int,
              sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-             plain: bool = False,
              pool_sort: Optional[int] = None) -> PoolState:
     """Trace one path segment for every active lane, roll finished samples
     into the next sample of their chunk, and retire finished chunks into
@@ -254,8 +251,7 @@ def _segment(state: PoolState, scene: scene_ir.SceneIR, width: int,
         active = _active(state)
         r = Rays(o=state.o, d=state.d)
         hits = scene_ir.intersect_scene(scene, r, ray_valid=active,
-                                        plain=plain, sampler=sampler,
-                                        bounce=state.it,
+                                        sampler=sampler, bounce=state.it,
                                         mesh_cohsort=mesh_cohsort)
 
     with tracing.phase("segment.shade"):
@@ -346,7 +342,7 @@ def _samples_of(items: range, wh: int, samples: int,
 
 def _issue_block(state: PoolState, scene, camera, width: int, height: int,
                  samples: int, sampler, items: range, steps: int,
-                 max_depth: int, sample_chunk: int, rr: bool, plain: bool,
+                 max_depth: int, sample_chunk: int, rr: bool,
                  pool_sort: Optional[int]) -> list:
     """Advance one worker's pool by `steps` iterations over its work items
     `items` (in place; no host read on a configuration of `graph_route`)
@@ -358,7 +354,7 @@ def _issue_block(state: PoolState, scene, camera, width: int, height: int,
             _regenerate(state, camera, width, height, len(items), sampler,
                         item0=items.start)
         _segment(state, scene, width, height, sampler, max_depth, samples,
-                 sample_chunk, rr, plain, pool_sort)
+                 sample_chunk, rr, pool_sort)
         counts.append(state.retired)
     return counts
 
@@ -375,18 +371,17 @@ def _close_block(state: PoolState, counts: list, need: int) -> int:
     return retired
 
 
-def graph_route(scene: scene_ir.SceneIR, device, plain: bool = False,
+def graph_route(scene: scene_ir.SceneIR, device,
                 pool_sort: Optional[int] = None) -> bool:
-    """Does render_state replay its blocks from a CUDA graph? Yes on a
-    CUDA device, unless the configuration's segment reads the host:
-    plain=True (the kernels' plain versions read a count a visit round), a
-    pool sort (a period > 0, from pool_sort or POOL_SORT, on a scene with a
-    kernel mesh: _segment picks the permuting iterations by the host `it`)
-    or a scene whose finds read the host (scene/ir.py:finds_read_host).
-    Those run eagerly. The route follows from the configuration alone,
-    never from a failure."""
+    """Does render_state replay its blocks from a CUDA graph? Where graphs
+    are on (kernels/build.py:graphs_on), unless the configuration's segment
+    reads the host: a pool sort (a period > 0, from pool_sort or POOL_SORT,
+    on a scene with a kernel mesh: _segment picks the permuting iterations
+    by the host `it`) or a scene whose finds read the host
+    (scene/ir.py:finds_read_host). Those run eagerly. The route follows
+    from the configuration alone, never from a failure."""
     period = int(POOL_SORT if pool_sort is None else pool_sort)
-    return (torch.device(device).type == "cuda" and not plain
+    return (kbuild.graphs_on(device)
             and not (period > 0 and scene_ir.has_wavefront_sort_key(scene))
             and not scene_ir.finds_read_host(scene))
 
@@ -441,8 +436,7 @@ class _BlockGraph(kbuild.GraphReplay):
 
 def _pool_run(state: PoolState, scene, camera, width: int, height: int,
               samples: int, sampler, steps: int, max_depth: int,
-              sample_chunk: int, rr: bool, plain: bool,
-              pool_sort: Optional[int],
+              sample_chunk: int, rr: bool, pool_sort: Optional[int],
               graph: Optional[_BlockGraph]) -> list:
     """Advance the pool by one block of `steps` iterations (in place) ->
     each iteration's retired count, a () tensor each. graph: None runs the
@@ -453,8 +447,7 @@ def _pool_run(state: PoolState, scene, camera, width: int, height: int,
     def block(st: PoolState) -> list:
         return _issue_block(st, scene, camera, width, height, samples,
                             sampler, range(width * height * n_chunks),
-                            steps, max_depth, sample_chunk, rr, plain,
-                            pool_sort)
+                            steps, max_depth, sample_chunk, rr, pool_sort)
 
     return block(state) if graph is None else graph.run(state, block)
 
@@ -467,19 +460,16 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  state: Optional[PoolState] = None,
                  checkpoint_cb: Optional[Callable[[PoolState], None]] = None,
                  sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-                 plain: bool = False,
-                 pool_sort: Optional[int] = None,
-                 eager: bool = False) -> PoolState:
+                 pool_sort: Optional[int] = None) -> PoolState:
     """Run the pool to completion on `sampler.device` (scene and camera
     must already be there); fb holds the radiance SUM over `samples`.
 
     Each block of `steps_per_call` iterations goes through _pool_run: on
     the graph route (graph_route: a CUDA device and a segment that reads
     no host value) the first block runs eagerly and every later one is
-    replayed from a CUDA graph captured for this call; otherwise, or with
-    eager=True (a comparison switch), every block runs eagerly. Both
-    routes give the same state bit for bit where the device's sums are
-    deterministic.
+    replayed from a CUDA graph captured for this call; otherwise every
+    block runs eagerly. Both routes give the same state bit for bit where
+    the device's sums are deterministic.
 
     Completion (retired == W*H*samples) is read on the host after every
     block of `steps_per_call` iterations, where progress_cb(retired, total)
@@ -493,10 +483,7 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
     render, on `sampler.device`; it goes on from its own `it`, and one
     whose pool is dry already comes back at once. A stacked multi-worker
     state belongs to parallel/shard.py:render_wavefront_sharded and is
-    refused.
-    plain=True runs the mesh find and the clustered sphere find through the
-    kernels' plain PyTorch versions (a comparison switch). pool_sort: the
-    pool sort's period, see _segment."""
+    refused. pool_sort: the pool sort's period, see _segment."""
     wh = width * height
     _, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
     total_items = wh * n_chunks
@@ -508,23 +495,22 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
         raise ValueError(
             f"checkpoint holds {state.retired.shape[0]} stacked worker "
             "states; resume it on a mesh of that size, not single-device")
-    graph = (_BlockGraph(state.fb.device) if not eager and graph_route(
-        scene, state.fb.device, plain, pool_sort) else None)
+    graph = (_BlockGraph(state.fb.device) if graph_route(
+        scene, state.fb.device, pool_sort) else None)
     pool = state.item.shape[0]
     with tracing.job("render", state.fb.device, width=width, height=height,
                      spp=samples, pool=pool, cap=retire_cap(pool),
-                     steps=steps_per_call, **_sphere_attrs(scene)) as job:
+                     steps=steps_per_call, **_sphere_attrs(scene)):
         tracing.lane_counters(state.fb.device, pool, retire_cap(pool),
                               _lane_kinds(scene))
-        scans = sphere_scan.SCAN_KERNEL.launches
         retired = int(state.retired)
         block = 0
         while retired < total_samples:
             with tracing.span("block", index=block):
                 counts = _pool_run(state, scene, camera, width, height,
                                    samples, sampler, steps_per_call,
-                                   max_depth, sample_chunk, rr, plain,
-                                   pool_sort, graph)
+                                   max_depth, sample_chunk, rr, pool_sort,
+                                   graph)
                 with tracing.span("host_read"):
                     retired = _close_block(state, counts, total_samples)
                 tracing.read_phases(len(counts))
@@ -533,9 +519,6 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                 progress_cb(retired, total_samples)
             if checkpoint_cb is not None:
                 checkpoint_cb(state)
-        if job is not None and scene_ir.sphere_route(scene) == "dense":
-            tracing._counter(job, "sphere_scan.launches",
-                             sphere_scan.SCAN_KERNEL.launches - scans)
     return state
 
 
@@ -559,19 +542,18 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
                  max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
                  progress_cb=None, state: Optional[PoolState] = None,
                  checkpoint_cb=None, sample_chunk: int = SAMPLE_CHUNK,
-                 rr: bool = True, plain: bool = False,
-                 pool_sort: Optional[int] = None,
-                 eager: bool = False) -> torch.Tensor:
+                 rr: bool = True,
+                 pool_sort: Optional[int] = None) -> torch.Tensor:
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
-    -> ACES -> gamma, as the reference); state / checkpoint_cb / eager as
-    in render_state."""
+    -> ACES -> gamma, as the reference); state / checkpoint_cb as in
+    render_state."""
     with tracing.job("render", sampler.device):
         state = render_state(scene, camera, width, height, samples, sampler,
                              max_depth=max_depth, pool=pool,
                              progress_cb=progress_cb, state=state,
                              checkpoint_cb=checkpoint_cb,
-                             sample_chunk=sample_chunk, rr=rr, plain=plain,
-                             pool_sort=pool_sort, eager=eager)
+                             sample_chunk=sample_chunk, rr=rr,
+                             pool_sort=pool_sort)
         with tracing.span("film"):
             return film_image(state.fb, width, height, samples)
 

@@ -16,9 +16,18 @@ integrator/path.py:BatchRun). While tracing is on (tracing.py) it records
 the spans hrt.graph.record, hrt.graph.instantiate and hrt.graph.replay,
 tells the traced job which pass runs (eager, capture, replay), and counts
 the captured graph's nodes by type before instantiating it.
+
+Every wrapper picks its version by `runs_plain` (the plain PyTorch one for
+CPU tensors) and launches through `KernelLibrary.launch`. Comparisons
+(tests, chip_smoke.py) switch in one place, by context managers that
+restore what they found: inside `plain_versions()` the finds' wrappers
+(K1-K4, the sphere scan; not threefry's draws) run their plain versions
+on CUDA tensors too; inside either that or `eager()` nothing is captured
+(`graphs_on`, the rule that the routes share).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import glob
@@ -30,6 +39,7 @@ import threading
 import time
 import weakref
 
+import numpy as np
 import torch
 
 from .. import tracing
@@ -49,6 +59,61 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every KernelLibrary alive, so that a replayed CUDA graph can add the
 # launches it captured to each (GraphReplay)
 LIBRARIES = weakref.WeakSet()
+# the ctypes types of the kernels' C arguments
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the comparison switches (plain_versions, eager)
+SWITCHES = {"plain": False, "eager": False}
+
+
+@contextlib.contextmanager
+def _switched(name: str):
+    before, SWITCHES[name] = SWITCHES[name], True
+    try:
+        yield
+    finally:
+        SWITCHES[name] = before
+
+
+def plain_versions():
+    """Inside: the finds run their plain versions on CUDA tensors too."""
+    return _switched("plain")
+
+
+def eager():
+    """Inside: nothing is captured into a CUDA graph."""
+    return _switched("eager")
+
+
+def graphs_on(device) -> bool:
+    """May a step on `device` be captured into a CUDA graph? On a CUDA
+    device outside both switches; each route adds its own rules."""
+    return (torch.device(device).type == "cuda"
+            and not (SWITCHES["plain"] or SWITCHES["eager"]))
+
+
+def runs_plain(device, find: bool = True) -> bool:
+    """Does a kernel wrapper run its plain version for tensors on `device`?
+    On the CPU; on a card inside plain_versions(), for a `find`."""
+    return torch.device(device).type == "cpu" or (find and SWITCHES["plain"])
+
+
+def check(name, x, dtype, shape, device) -> None:
+    """A kernel argument's checks: on `device`, of `dtype` and `shape`,
+    contiguous."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the launch on {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def f32(x: float) -> float:
+    """x rounded to float32, as a kernel receives a float argument."""
+    return float(np.float32(x))
 
 
 def find_nvcc() -> str:
@@ -63,10 +128,11 @@ def find_nvcc() -> str:
 
 class KernelLibrary:
     """One kernel's shared library, built at first `load()`, and the count
-    of its launches (the wrapper adds one per launch). `csrc` and
-    `build_dir` default to the package's sources and build directory; a
-    timing script gives others to build the same kernel from another tree
-    (scripts/time_mesh_kernels.py)."""
+    of its launches (`launch` adds one each). The library exports one C
+    function, hrt_<name>, whose last argument is the stream and which
+    returns a CUDA error code. `csrc` and `build_dir` default to the
+    package's sources and build directory; a timing script gives others to
+    build the same kernel from another tree (scripts/time_mesh_kernels.py)."""
 
     def __init__(self, name: str, csrc: str | None = None,
                  build_dir: str | None = None):
@@ -77,6 +143,7 @@ class KernelLibrary:
         self.build_seconds = 0.0
         self.build_log = ""
         self._lib = None
+        self._fn = None
         self._lock = threading.Lock()
         LIBRARIES.add(self)
 
@@ -142,6 +209,34 @@ class KernelLibrary:
                     self.build()
                 self._lib = ctypes.CDLL(self.path)
             return self._lib
+
+    def device_for(self, device) -> torch.device:
+        """`device`, checked as a CUDA one, once the library is loaded (a
+        kernel that cannot be built raises first, on any device)."""
+        self.load()
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"the {self.name} kernel needs CUDA tensors, "
+                             f"got {device}")
+        return device
+
+    def launch(self, argtypes, device, *args) -> None:
+        """hrt_<name>(*args, stream) on `device` and its current stream (C
+        argument types `argtypes`, bound at the first launch); raise on a
+        CUDA error; count the launch. No allocation, no host read: a CUDA
+        graph may capture it."""
+        if self._fn is None:
+            fn = getattr(self.load(), f"hrt_{self.name}")
+            fn.argtypes = [*argtypes, PTR]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):   # the launch goes to its card
+            err = self._fn(*args,
+                           torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
 
 
 class GraphReplay:

@@ -41,18 +41,17 @@ nearest slab entry over all clusters and the lowest cluster index at it.
 
 `traverse_clusters` and `coherence_keys` launch the CUDA kernels
 (csrc/mesh_traverse.cu, csrc/mesh_traverse_stream.cu, csrc/
-coherence_keys.cu) for CUDA tensors, and run the plain versions only for
-tensors on the CPU. Each kernel counts its launches on its KernelLibrary.
+coherence_keys.cu) for CUDA tensors, and run the plain versions for
+tensors on the CPU (kernels/build.py:runs_plain). Each kernel counts its
+launches on its KernelLibrary.
 """
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from ..core.mathx import BIG
-from .build import KernelLibrary
+from .build import FLOAT, INT, PTR, KernelLibrary, check, runs_plain
 
 SOA_ROWS = 24        # v0, e1, e2 (9) + n0, n1, n2 (9) + uv0, uv1, uv2 (6)
 STREAM_ROWS = 32     # the reference's streaming layout (kernel K2)
@@ -267,39 +266,15 @@ def traverse_clusters_plain(rays8: torch.Tensor, bounds8: torch.Tensor,
             torch.cat(ids).reshape(lead))
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, rays8 on {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _bind(library: KernelLibrary, symbol: str, argtypes):
-    """The library's C function `symbol`, its argument types declared."""
-    fn = getattr(library.load(), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _check_rays(rays8: torch.Tensor, kernel: str) -> torch.Tensor:
-    dev = rays8.device
-    if dev.type != "cuda":
-        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got {dev}")
+def flat_rays8(rays8: torch.Tensor, library: KernelLibrary) -> torch.Tensor:
+    """rays8 (..., 8) as the (N, 8) rows that `library`'s kernel takes,
+    checked (K1-K4)."""
+    dev = library.device_for(rays8.device)
     rays = rays8.reshape(-1, 8)
     n = rays.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
-    _check("rays8", rays, torch.float32, (n, 8), dev)
+    check("rays8", rays, torch.float32, (n, 8), dev)
     return rays
 
 
@@ -307,37 +282,27 @@ def _traverse_cuda(rays8, bounds8, tri_soa, tri_id, t_max, need_uv):
     """Launch K1 (24-row table, ids from tri_id) or K2 (32-row table, ids
     from row 24)."""
     resident = _rows(tri_soa) == SOA_ROWS
-    if resident:
-        library = KERNEL
-        fn = _bind(library, "hrt_mesh_traverse",
-                   [_P, _I, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P])
-    else:
-        library = KERNEL_STREAM
-        fn = _bind(library, "hrt_mesh_traverse_stream",
-                   [_P, _I, _P, _I, _P, _I, _F, _I, _P, _P, _P])
-    rays = _check_rays(rays8, "mesh traversal")
+    library = KERNEL if resident else KERNEL_STREAM
+    rays = flat_rays8(rays8, library)
     dev = rays.device
     k_clusters, rows, leaf = tri_soa.shape
     if k_clusters == 0 or leaf == 0:
         raise ValueError(f"empty mesh table {tuple(tri_soa.shape)}")
-    _check("bounds8", bounds8, torch.float32, (8, k_clusters), dev)
-    _check("tri_soa", tri_soa, torch.float32, (k_clusters, rows, leaf), dev)
+    check("bounds8", bounds8, torch.float32, (8, k_clusters), dev)
+    check("tri_soa", tri_soa, torch.float32, (k_clusters, rows, leaf), dev)
     if resident:
-        _check("tri_id", tri_id, torch.int32, (k_clusters, leaf), dev)
+        check("tri_id", tri_id, torch.int32, (k_clusters, leaf), dev)
     n = rays.shape[0]
     out = torch.empty((n, 8), dtype=torch.float32, device=dev)
     out_id = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        ids = (tri_id.data_ptr(),) if resident else ()
-        with torch.cuda.device(dev):   # the launch goes to its card
-            err = fn(rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
-                     tri_soa.data_ptr(), *ids, leaf, float(t_max),
-                     int(bool(need_uv)), out.data_ptr(), out_id.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{library.name} kernel launch failed: CUDA "
-                               f"error {err}")
-        library.launches += 1
+        table = ((tri_soa.data_ptr(), tri_id.data_ptr()) if resident
+                 else (tri_soa.data_ptr(),))
+        library.launch(
+            [PTR, INT, PTR, INT, *[PTR] * len(table), INT, FLOAT, INT, PTR,
+             PTR], dev, rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
+            *table, leaf, float(t_max), int(bool(need_uv)), out.data_ptr(),
+            out_id.data_ptr())
     lead = rays8.shape[:-1]
     return out.reshape(lead + (8,)), out_id.reshape(lead)
 
@@ -349,7 +314,7 @@ def traverse_clusters(rays8: torch.Tensor, bounds8: torch.Tensor,
     module docstring). CUDA tensors launch K1 for a 24-row table and K2 for
     a 32-row one, built at first use; the wrapper raises if the kernel
     cannot be built or launched. CPU tensors run the plain version."""
-    if rays8.device.type == "cpu":
+    if runs_plain(rays8.device):
         return traverse_clusters_plain(rays8, bounds8, tri_soa, tri_id,
                                        t_max, need_uv)
     return _traverse_cuda(rays8, bounds8, tri_soa, tri_id, t_max, need_uv)
@@ -383,28 +348,20 @@ def coherence_keys_plain(rays8: torch.Tensor, bounds8: torch.Tensor,
 
 
 def _keys_cuda(rays8, bounds8, t_max):
-    fn = _bind(KEY_KERNEL, "hrt_coherence_keys",
-               [_P, _I, _P, _I, _F, _P, _P, _P])
-    rays = _check_rays(rays8, "coherence key")
+    rays = flat_rays8(rays8, KEY_KERNEL)
     dev = rays.device
     k_clusters = bounds8.shape[1] if bounds8.dim() == 2 else 0
     if k_clusters == 0:
         raise ValueError(f"bounds8 must be (8, K) with K >= 1, got "
                          f"{tuple(bounds8.shape)}")
-    _check("bounds8", bounds8, torch.float32, (8, k_clusters), dev)
+    check("bounds8", bounds8, torch.float32, (8, k_clusters), dev)
     n = rays.shape[0]
     e_min = torch.empty((n,), dtype=torch.float32, device=dev)
     first = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        with torch.cuda.device(dev):   # the launch goes to its card
-            err = fn(
-                rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
-                float(t_max), e_min.data_ptr(), first.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"coherence_keys kernel launch failed: CUDA "
-                               f"error {err}")
-        KEY_KERNEL.launches += 1
+        KEY_KERNEL.launch([PTR, INT, PTR, INT, FLOAT, PTR, PTR], dev,
+                          rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
+                          float(t_max), e_min.data_ptr(), first.data_ptr())
     lead = rays8.shape[:-1]
     return e_min.reshape(lead), first.reshape(lead)
 
@@ -414,6 +371,6 @@ def coherence_keys(rays8: torch.Tensor, bounds8: torch.Tensor,
     """Per ray (e_min, first) for the coherence sort (see
     coherence_keys_plain). CUDA tensors launch K3, built at first use, or
     raise; CPU tensors run the plain version."""
-    if rays8.device.type == "cpu":
+    if runs_plain(rays8.device):
         return coherence_keys_plain(rays8, bounds8, t_max)
     return _keys_cuda(rays8, bounds8, t_max)

@@ -19,10 +19,10 @@ index (the lowest at the smallest t), -1 on a miss.
 
 `scan_spheres` launches the kernel for CUDA tensors (built at first use;
 it raises if the kernel cannot be built or launched) and runs the plain
-version only for tensors on the CPU. The kernel counts its launches on its
-KernelLibrary. `winner_t` replays the winner's quadratic with sphere_t's
-operations, so the t it gives equals the scan's bit for bit and carries
-the scan's gradients.
+version for tensors on the CPU (kernels/build.py:runs_plain). The kernel
+counts its launches on its KernelLibrary. `winner_t` replays the winner's
+quadratic with sphere_t's operations, so the t it gives equals the scan's
+bit for bit and carries the scan's gradients.
 """
 from __future__ import annotations
 
@@ -30,9 +30,7 @@ import torch
 
 from ..core.mathx import BIG, first_min
 from ..core.types import Rays
-from .build import KernelLibrary
-from .mesh_traverse import _F, _I, _P, _bind, _check
-from .sphere_traverse import _f32
+from .build import FLOAT, INT, PTR, KernelLibrary, check, f32, runs_plain
 
 # spheres a step of the plain version (bounds its (N, CHUNK) intermediates)
 CHUNK = 128
@@ -109,32 +107,23 @@ def scan_spheres_plain(rays: Rays, center, radius, t_min, t_max,
 
 
 def _scan_cuda(rays: Rays, center, radius, t_min, t_max):
-    fn = _bind(SCAN_KERNEL, "hrt_sphere_scan",
-               [_P, _P, _I, _P, _P, _I, _F, _F, _P, _P, _P])
-    dev = rays.o.device
-    if dev.type != "cuda":
-        raise ValueError(f"the sphere_scan kernel needs CUDA tensors, got "
-                         f"{dev}")
+    dev = SCAN_KERNEL.device_for(rays.o.device)
     n = rays.o.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
-    _check("rays.o", rays.o, torch.float32, (n, 3), dev)
-    _check("rays.d", rays.d, torch.float32, (n, 3), dev)
+    check("rays.o", rays.o, torch.float32, (n, 3), dev)
+    check("rays.d", rays.d, torch.float32, (n, 3), dev)
     s = center.shape[0]
-    _check("center", center, torch.float32, (s, 3), dev)
-    _check("radius", radius, torch.float32, (s,), dev)
+    check("center", center, torch.float32, (s, 3), dev)
+    check("radius", radius, torch.float32, (s,), dev)
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_id = torch.empty((n,), dtype=torch.int64, device=dev)
     if n:
-        with torch.cuda.device(dev):   # the launch goes to its card
-            err = fn(rays.o.data_ptr(), rays.d.data_ptr(), n,
-                     center.data_ptr(), radius.data_ptr(), s, _f32(t_min),
-                     _f32(t_max), out_t.data_ptr(), out_id.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"sphere_scan kernel launch failed: CUDA "
-                               f"error {err}")
-        SCAN_KERNEL.launches += 1
+        SCAN_KERNEL.launch(
+            [PTR, PTR, INT, PTR, PTR, INT, FLOAT, FLOAT, PTR, PTR], dev,
+            rays.o.data_ptr(), rays.d.data_ptr(), n, center.data_ptr(),
+            radius.data_ptr(), s, f32(t_min), f32(t_max), out_t.data_ptr(),
+            out_id.data_ptr())
     return out_t, out_id
 
 
@@ -148,6 +137,6 @@ def scan_spheres(rays: Rays, center, radius, t_min, t_max,
     if center.dim() != 2 or center.shape[0] == 0:
         raise ValueError(f"the sphere pool must be (S, 3) with S >= 1, got "
                          f"{tuple(center.shape)}")
-    if rays.o.device.type == "cpu":
+    if runs_plain(rays.o.device):
         return scan_spheres_plain(rays, center, radius, t_min, t_max, chunk)
     return _scan_cuda(rays, center, radius, t_min, t_max)

@@ -27,19 +27,18 @@ recomputes the hit record from the winner, which is also the
 differentiable replay.
 
 `intersect_spheres_kernel` launches the CUDA kernel
-(csrc/sphere_traverse.cu) for CUDA tensors and runs the plain version only
-for tensors on the CPU. The kernel counts its launches on its
-KernelLibrary.
+(csrc/sphere_traverse.cu) for CUDA tensors and runs the plain version for
+tensors on the CPU (kernels/build.py:runs_plain). The kernel counts its
+launches on its KernelLibrary.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.mathx import BIG
-from .build import KernelLibrary
-from .mesh_traverse import (_F, _I, _P, _bind, _check, _check_rays,
-                            slab_entries)
+from .build import (FLOAT, INT, PTR, KernelLibrary, check, f32,
+                    runs_plain)
+from .mesh_traverse import flat_rays8, slab_entries
 
 SPHERE_ROWS = 8
 # rays per chunk of the plain version: bounds its (chunk, 4, L) gathered
@@ -47,11 +46,6 @@ SPHERE_ROWS = 8
 PLAIN_CHUNK = 16384
 
 SPHERE_KERNEL = KernelLibrary("sphere_traverse")       # K4
-
-
-def _f32(x: float) -> float:
-    """x rounded to float32, as the kernel receives its window."""
-    return float(np.float32(x))
 
 
 def _spheres_chunk(rays, bounds8, table, ids, t_min, t_max):
@@ -108,7 +102,7 @@ def intersect_spheres_plain(rays8: torch.Tensor, bounds8: torch.Tensor,
     rays."""
     lead = rays8.shape[:-1]
     rays = rays8.reshape(-1, 8)
-    t_min, t_max = _f32(t_min), _f32(t_max)
+    t_min, t_max = f32(t_min), f32(t_max)
     ts, out_ids = [], []
     for s in range(0, rays.shape[0], chunk):
         t, i = _spheres_chunk(rays[s:s + chunk], bounds8, table, ids, t_min,
@@ -122,9 +116,7 @@ def intersect_spheres_plain(rays8: torch.Tensor, bounds8: torch.Tensor,
 
 
 def _spheres_cuda(rays8, bounds8, table, ids, t_min, t_max):
-    fn = _bind(SPHERE_KERNEL, "hrt_sphere_traverse",
-               [_P, _I, _P, _I, _P, _P, _I, _F, _F, _P, _P, _P])
-    rays = _check_rays(rays8, "sphere")
+    rays = flat_rays8(rays8, SPHERE_KERNEL)
     dev = rays.device
     if table.dim() != 3 or table.shape[1] != SPHERE_ROWS:
         raise ValueError(f"the sphere table must be (K, {SPHERE_ROWS}, L), "
@@ -132,22 +124,18 @@ def _spheres_cuda(rays8, bounds8, table, ids, t_min, t_max):
     k_clusters, rows, leaf = table.shape
     if k_clusters == 0 or leaf == 0:
         raise ValueError(f"empty sphere table {tuple(table.shape)}")
-    _check("bounds8", bounds8, torch.float32, (8, k_clusters), dev)
-    _check("table", table, torch.float32, (k_clusters, rows, leaf), dev)
-    _check("ids", ids, torch.int32, (k_clusters, leaf), dev)
+    check("bounds8", bounds8, torch.float32, (8, k_clusters), dev)
+    check("table", table, torch.float32, (k_clusters, rows, leaf), dev)
+    check("ids", ids, torch.int32, (k_clusters, leaf), dev)
     n = rays.shape[0]
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_id = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        with torch.cuda.device(dev):   # the launch goes to its card
-            err = fn(rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
-                     table.data_ptr(), ids.data_ptr(), leaf, float(t_min),
-                     float(t_max), out_t.data_ptr(), out_id.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"sphere_traverse kernel launch failed: CUDA "
-                               f"error {err}")
-        SPHERE_KERNEL.launches += 1
+        SPHERE_KERNEL.launch(
+            [PTR, INT, PTR, INT, PTR, PTR, INT, FLOAT, FLOAT, PTR, PTR], dev,
+            rays.data_ptr(), n, bounds8.data_ptr(), k_clusters,
+            table.data_ptr(), ids.data_ptr(), leaf, float(t_min),
+            float(t_max), out_t.data_ptr(), out_id.data_ptr())
     lead = rays8.shape[:-1]
     return out_t.reshape(lead), out_id.reshape(lead)
 
@@ -159,7 +147,7 @@ def intersect_spheres_kernel(rays8: torch.Tensor, bounds8: torch.Tensor,
     module docstring). CUDA tensors launch K4, built at first use; the
     wrapper raises if the kernel cannot be built or launched. CPU tensors
     run the plain version."""
-    if rays8.device.type == "cpu":
+    if runs_plain(rays8.device):
         return intersect_spheres_plain(rays8, bounds8, table, ids, t_min,
                                        t_max)
     return _spheres_cuda(rays8, bounds8, table, ids, t_min, t_max)

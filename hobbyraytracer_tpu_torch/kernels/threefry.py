@@ -32,8 +32,7 @@ import functools
 
 import torch
 
-from .build import KernelLibrary
-from .mesh_traverse import _P, _I, _bind
+from .build import INT, PTR, KernelLibrary, check, runs_plain
 
 THREEFRY = KernelLibrary("threefry")
 MAX_PATH = 6            # folds after the device iteration (csrc: kTfMaxPath)
@@ -93,45 +92,29 @@ def threefry_plain(words, it, path, n: int, offset: int, floats: bool,
     return torch.clamp(f - 1.0, min=0.0)
 
 
-def _check_device_int32(name, t, shape, device):
-    if (t.device != device or t.dtype != torch.int32
-            or tuple(t.shape) != shape or not t.is_contiguous()):
-        raise ValueError(f"the {name} must be a contiguous {shape} int32 "
-                         f"tensor on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-
-
 def _threefry_cuda(words, it, path, n, offset, floats, device):
-    fn = _bind(THREEFRY, "hrt_threefry",
-               [ctypes.c_uint, ctypes.c_uint, _P, _P, _I, _P,
-                ctypes.c_longlong, _I, _I, _P, _P])
-    if device.type != "cuda":
-        raise ValueError(f"the threefry kernel needs a CUDA device, got "
-                         f"{device}")
+    device = THREEFRY.device_for(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     slot = isinstance(words, torch.Tensor)
     if slot:
-        _check_device_int32("key slot", words, (2,), device)
+        check("key slot", words, torch.int32, (2,), device)
     if it is not None:
-        _check_device_int32("iteration", it, (), device)
+        check("iteration", it, torch.int32, (), device)
     if n >= 2 ** 31:
         raise ValueError(f"{n} elements exceed the kernel's int32 indexing")
     out = torch.empty((n,), dtype=torch.float32 if floats else torch.int32,
                       device=device)
     if n:
         path_arr = (ctypes.c_uint * MAX_PATH)(*path)
-        with torch.cuda.device(device):   # the launch goes to its card
-            err = fn(0 if slot else words[0], 0 if slot else words[1],
-                     words.data_ptr() if slot else None,
-                     None if it is None else it.data_ptr(),
-                     len(path), ctypes.addressof(path_arr), offset, n,
-                     int(bool(floats)), out.data_ptr(),
-                     torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"threefry kernel launch failed: CUDA error "
-                               f"{err}")
-        THREEFRY.launches += 1
+        THREEFRY.launch(
+            [ctypes.c_uint, ctypes.c_uint, PTR, PTR, INT, PTR,
+             ctypes.c_longlong, INT, INT, PTR], device,
+            0 if slot else words[0], 0 if slot else words[1],
+            words.data_ptr() if slot else None,
+            None if it is None else it.data_ptr(), len(path),
+            ctypes.addressof(path_arr), offset, n, int(bool(floats)),
+            out.data_ptr())
     return out if floats else out.to(torch.int64) & _M32
 
 
@@ -147,6 +130,6 @@ def threefry_draw(words, it, path, n: int, offset: int, floats: bool,
                          f"kernel takes at most {MAX_PATH}")
     if offset < 0:
         raise ValueError(f"negative counter offset {offset}")
-    if device.type == "cpu":
+    if runs_plain(device, find=False):
         return threefry_plain(words, it, path, n, offset, floats, device)
     return _threefry_cuda(words, it, path, n, offset, floats, device)

@@ -101,13 +101,12 @@ def _sphere_attribs(rays: Rays, center, radius, mat_id, t, idx) -> Hits:
 
 
 def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
-                      chunk: int = DEFAULT_CHUNK,
-                      plain: bool = False) -> Hits:
+                      chunk: int = DEFAULT_CHUNK) -> Hits:
     """Closest sphere per ray by the dense scan (kernels/sphere_scan.py):
-    on CUDA tensors one launch of the sphere_scan kernel, on the CPU (or
-    with plain=True, a comparison switch) its plain version, a running
-    strict-< minimum over chunks of `chunk` spheres; then the winner's hit
-    record. The two give the same (t, winner) bit for bit.
+    on CUDA tensors one launch of the sphere_scan kernel, on the CPU its
+    plain version, a running strict-< minimum over chunks of `chunk`
+    spheres; then the winner's hit record. The two give the same (t,
+    winner) bit for bit.
 
     The find runs without gradients. Where a gradient is wanted (grad mode
     on and the rays, center or radius requiring grad), t is replayed from
@@ -118,11 +117,10 @@ def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
     dev = rays.o.device
     if n == 0:
         return Hits.none(n_rays, dev)
-    find = scmod.scan_spheres_plain if plain else scmod.scan_spheres
     with torch.no_grad():
-        t, idx = find(Rays(o=rays.o.contiguous(), d=rays.d.contiguous()),
-                      center.contiguous(), radius.contiguous(), t_min, t_max,
-                      chunk)
+        t, idx = scmod.scan_spheres(
+            Rays(o=rays.o.contiguous(), d=rays.d.contiguous()),
+            center.contiguous(), radius.contiguous(), t_min, t_max, chunk)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (rays.o, rays.d, center, radius)):
         t = scmod.winner_t(rays, center, radius, idx, t_min, t_max)
@@ -131,11 +129,9 @@ def intersect_spheres(rays: Rays, center, radius, mat_id, t_min, t_max,
 
 def intersect_spheres_clustered(rays: Rays, center, radius, mat_id,
                                 kernel_table, kernel_bounds, kernel_ids,
-                                t_min, t_max, ray_valid=None,
-                                plain: bool = False) -> Hits:
+                                t_min, t_max, ray_valid=None) -> Hits:
     """Closest sphere per ray through the clustered find of kernel K4
-    (kernels/sphere_traverse.py; its plain PyTorch version when plain=True,
-    a comparison switch).
+    (kernels/sphere_traverse.py).
 
     The find runs without gradients on detached rays and gives (t, winning
     id). The winner's quadratic is then replayed from center and radius
@@ -152,10 +148,9 @@ def intersect_spheres_clustered(rays: Rays, center, radius, mat_id,
                            ray_valid.to(torch.float32)[:, None],
                            torch.zeros((n_rays, 1), dtype=torch.float32,
                                        device=dev)], dim=1)
-        find = (skmod.intersect_spheres_plain if plain
-                else skmod.intersect_spheres_kernel)
-        t_nd, idx = find(rays8, kernel_bounds, kernel_table, kernel_ids,
-                         float(t_min), float(t_max))
+        t_nd, idx = skmod.intersect_spheres_kernel(
+            rays8, kernel_bounds, kernel_table, kernel_ids, float(t_min),
+            float(t_max))
     found = idx >= 0
     safe = torch.clamp(idx, 0, center.shape[0] - 1).long()
     c = center[safe]
@@ -537,13 +532,11 @@ def pack_coherence_key(e_min, first, k_clusters: int) -> torch.Tensor:
     return key.to(torch.int32)
 
 
-def coherence_key(o, d, valid, bounds8, t_max,
-                  plain: bool = False) -> torch.Tensor:
+def coherence_key(o, d, valid, bounds8, t_max) -> torch.Tensor:
     """The coherence-sort key for a wavefront, resolved by KEY_MODE at call
     time: "auto", "cheap" and "corridor" key against the root box
     (cheap_coherence_key); "pallas" packs the per-ray (nearest entry, first
-    cluster) of kernel K3 (kernels/mesh_traverse.py:coherence_keys), or of
-    its plain version when plain=True."""
+    cluster) of kernel K3 (kernels/mesh_traverse.py:coherence_keys)."""
     if KEY_MODE in ("auto", "cheap", "corridor"):
         return cheap_coherence_key(o, d, valid, bounds8, t_max)
     if KEY_MODE != "pallas":
@@ -551,21 +544,18 @@ def coherence_key(o, d, valid, bounds8, t_max,
                          f"{KEY_MODES}")
     rays8 = torch.cat([o, d, valid.to(torch.float32)[:, None],
                        torch.zeros_like(o[:, :1])], dim=1)
-    keys = kmod.coherence_keys_plain if plain else kmod.coherence_keys
-    e_min, first = keys(rays8, bounds8, t_max=float(t_max))
+    e_min, first = kmod.coherence_keys(rays8, bounds8, t_max=float(t_max))
     return pack_coherence_key(e_min, first, bounds8.shape[1])
 
 
 def intersect_mesh_clustered_fused(rays: Rays, tri_id, tri_soa, bounds8,
                                    t_max, ray_valid=None,
-                                   need_uv: bool = True,
-                                   plain: bool = False, cohsort=None):
+                                   need_uv: bool = True, cohsort=None):
     """Nearest triangle through the fused traversal kernel
     (kernels/mesh_traverse.py: K1 for a 24-row table, K2 for the 32-row
     streaming table). The wavefront is coherence-sorted first (stable
-    argsort of `coherence_key`), traversed, and the sort undone. plain=True
-    runs the kernels' plain PyTorch versions instead (a comparison switch;
-    the traversal's output does not depend on the ray order).
+    argsort of `coherence_key`), traversed, and the sort undone (the
+    traversal's output does not depend on the ray order).
 
     cohsort: None reads NO_COHSORT (HRT_NO_COHSORT); False skips the key,
     the argsort, the gather and the undo, for a caller whose rays are
@@ -581,30 +571,29 @@ def intersect_mesh_clustered_fused(rays: Rays, tri_id, tri_soa, bounds8,
                        torch.zeros_like(rays.o[:, :1])], dim=1)
     if cohsort is None:
         cohsort = not NO_COHSORT
-    traverse = kmod.traverse_clusters_plain if plain else kmod.traverse_clusters
     if cohsort:
-        key = coherence_key(rays.o, rays.d, ray_valid, bounds8, float(t_max),
-                            plain=plain)
+        key = coherence_key(rays.o, rays.d, ray_valid, bounds8, float(t_max))
         perm = torch.argsort(key, stable=True)
-        out_s, id_s = traverse(rays8[perm], bounds8, tri_soa, tri_id,
-                               t_max=float(t_max), need_uv=need_uv)
+        out_s, id_s = kmod.traverse_clusters(
+            rays8[perm], bounds8, tri_soa, tri_id, t_max=float(t_max),
+            need_uv=need_uv)
         out = torch.empty_like(out_s)
         out[perm] = out_s
         gid = torch.empty_like(id_s)
         gid[perm] = id_s
     else:
-        out, gid = traverse(rays8, bounds8, tri_soa, tri_id,
-                            t_max=float(t_max), need_uv=need_uv)
+        out, gid = kmod.traverse_clusters(rays8, bounds8, tri_soa, tri_id,
+                                          t_max=float(t_max), need_uv=need_uv)
     t = out[:, 0]
     return t, gid, t < BIG, out[:, 1:4], out[:, 4:6]
 
 
 def intersect_triangles_bvh(rays: Rays, tri_id, tri_soa, bounds8, mat_id,
                             t_max, ray_valid=None, need_uv: bool = True,
-                            plain: bool = False, cohsort=None,
-                            backend: str = "kernel", *, verts=None,
-                            normals=None, uvs=None, indices=None,
-                            tri_verts=None, bmin=None, bmax=None) -> Hits:
+                            cohsort=None, backend: str = "kernel", *,
+                            verts=None, normals=None, uvs=None,
+                            indices=None, tri_verts=None, bmin=None,
+                            bmax=None) -> Hits:
     """Full mesh hit through the cluster BVH, by one of three backends.
 
     "kernel" (the reference's backend="pallas"): the fused kernel over the
@@ -620,16 +609,16 @@ def intersect_triangles_bvh(rays: Rays, tri_id, tri_soa, bounds8, mat_id,
 
     - "kernel_replay" (the reference's backend="pallas_replay"): the fused
       kernel over tri_soa / bounds8 with need_uv off, K1 or K2 on a CUDA
-      tensor (or raise), the plain version on a CPU one (plain=True forces
-      it). The tables must hold the live vertices: the build's, or those
-      of scene/ir.py:refresh_kernel_tables;
+      tensor (or raise), the plain version on a CPU one. The tables must
+      hold the live vertices: the build's, or those of
+      scene/ir.py:refresh_kernel_tables;
     - "lockstep" (the reference's backend="xla"): intersect_mesh_clustered
       over the live leaf vertices tri_verts (K, L, 3, 3) and bounds
       bmin/bmax (K, 3); tri_soa and bounds8 are not read."""
     if backend == "kernel":
         t, _, hit, normal, uv = intersect_mesh_clustered_fused(
             rays, tri_id, tri_soa, bounds8, t_max, ray_valid,
-            need_uv=need_uv, plain=plain, cohsort=cohsort)
+            need_uv=need_uv, cohsort=cohsort)
         front = (rays.d * normal).sum(dim=-1) < 0.0
         return Hits(hit=hit, t=torch.where(hit, t, BIG),
                     p=ray_at(rays.o, rays.d, torch.where(hit, t, 1.0)),
@@ -643,7 +632,7 @@ def intersect_triangles_bvh(rays: Rays, tri_id, tri_soa, bounds8, mat_id,
         if backend == "kernel_replay":
             t_nd, gid, hit, _, _ = intersect_mesh_clustered_fused(
                 found, tri_id, tri_soa, bounds8, t_max, ray_valid,
-                need_uv=False, plain=plain, cohsort=cohsort)
+                need_uv=False, cohsort=cohsort)
         else:
             t_nd, gid, hit = intersect_mesh_clustered(
                 found, tri_verts.detach(), tri_id, bmin.detach(),

@@ -171,15 +171,14 @@ def shard_rays(rays: Rays, mesh: Sequence) -> list:
 def render_sharded(scene, camera, width: int, height: int, samples: int,
                    sampler, mesh: Sequence,
                    max_depth: int = path_mod.MAX_DEPTH,
-                   sample_chunk: int = 0, eager: bool = False) -> torch.Tensor:
+                   sample_chunk: int = 0) -> torch.Tensor:
     """The batch integrator's render (integrator/path.py:render_image) with
     the pixels split over the mesh's workers: the tonemapped (H, W, 3)
     image on worker 0's device, equal to the single-worker render's.
     On a card each worker's radiance_sum runs a BatchRun of its own: its
     graphs (their span draws fixed at its pixel offset), capture stream
     and memory pool are its own, also for two workers on one card; the
-    processes' sum (all_reduce) follows the replays, outside any graph.
-    eager as in path.render_image."""
+    processes' sum (all_reduce) follows the replays, outside any graph."""
     scenes = replicate_scene(scene, mesh)
     cameras = replicate_scene(camera, mesh)
     dev0 = torch.device(mesh[0])
@@ -191,7 +190,7 @@ def render_sharded(scene, camera, width: int, height: int, samples: int,
         part = path_mod.radiance_sum(
             scenes[i], cameras[i], width, height, samples,
             _sampler_on(sampler, mesh[i]), max_depth, sample_chunk,
-            pix0=a, n_pix=b - a, eager=eager)
+            pix0=a, n_pix=b - a)
         total[a:b] = part.to(dev0)
     if _process()[1] > 1:
         _all_reduce_(total)
@@ -219,7 +218,7 @@ def render_wavefront_sharded(
         progress_cb: Optional[Callable[[int, int], None]] = None,
         checkpoint_cb: Optional[Callable[[wf.PoolState], None]] = None,
         state: Optional[wf.PoolState] = None, rr: bool = True,
-        sample_chunk: int = wf.SAMPLE_CHUNK, plain: bool = False,
+        sample_chunk: int = wf.SAMPLE_CHUNK,
         pool_sort: Optional[int] = None) -> torch.Tensor:
     """The wavefront render with the work items split over the mesh's
     workers -> the tonemapped (H, W, 3) image on worker 0's device.
@@ -283,7 +282,7 @@ def render_wavefront_sharded(
                 blocks[i] = wf._issue_block(
                     s, scenes[i], cameras[i], width, height, samples,
                     samplers[i], items[i], steps_per_call, max_depth,
-                    sample_chunk, rr, plain, pool_sort)
+                    sample_chunk, rr, pool_sort)
         for i, counts in blocks.items():
             done[i] = wf._close_block(states[i], counts, need[i])
         retired = retired_all(done)

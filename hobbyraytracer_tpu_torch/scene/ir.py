@@ -367,14 +367,14 @@ def wavefront_sort_key(scene: SceneIR, rays: Rays, ray_valid=None):
 
 def _intersect_instance(inst: Instance, rays: Rays, t_min,
                         ray_valid=None, need_uv: bool = True,
-                        plain: bool = False, mesh_backend: str = "kernel",
+                        mesh_backend: str = "kernel",
                         mesh_cohsort=None) -> Hits:
     r = inst.transform.ray_to_object(rays) if inst.transform else rays
     if inst.kind == "sphere":
         # a transformed sphere takes the dense scan, as in the reference
         sp = inst.spheres
         h = isect.intersect_spheres(r, sp.center, sp.radius, sp.mat_id,
-                                    t_min, BIG, plain=plain)
+                                    t_min, BIG)
     elif inst.kind == "rect":
         rt = inst.rects
         h = isect.intersect_rects(r, rt.axis, rt.a0, rt.a1, rt.b0, rt.b1,
@@ -387,12 +387,11 @@ def _intersect_instance(inst: Instance, rays: Rays, t_min,
         elif mesh_backend == "kernel":
             h = isect.intersect_triangles_bvh(
                 r, m.cluster_id, m.tri_soa, m.bounds8, m.mat_id, BIG,
-                ray_valid=ray_valid, need_uv=need_uv, plain=plain,
-                cohsort=mesh_cohsort)
+                ray_valid=ray_valid, need_uv=need_uv, cohsort=mesh_cohsort)
         elif mesh_backend == "kernel_replay":
             h = isect.intersect_triangles_bvh(
                 r, m.cluster_id, m.tri_soa, m.bounds8, m.mat_id, BIG,
-                ray_valid=ray_valid, plain=plain, cohsort=mesh_cohsort,
+                ray_valid=ray_valid, cohsort=mesh_cohsort,
                 backend="kernel_replay", verts=m.verts, normals=m.normals,
                 uvs=m.uvs, indices=m.indices)
         elif mesh_backend == "lockstep":
@@ -516,7 +515,7 @@ def sphere_route(scene: SceneIR, mesh_backend: str = "kernel"):
 
 
 def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
-                    ray_valid=None, plain: bool = False, sampler=None,
+                    ray_valid=None, sampler=None,
                     bounce: int = 0, mesh_backend: str = "kernel",
                     mesh_cohsort=None, rng_span=None) -> Hits:
     """Closest hit against the whole scene (vectorized HittableList::hit):
@@ -524,10 +523,8 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
     last, each with the closest hit so far as the far end of its window.
 
     ray_valid: optional (N,) bool of live wavefront lanes; dead lanes open
-    no mesh or sphere clusters and report no hit there. plain=True runs the
-    mesh find and both sphere finds through the kernels' plain PyTorch
-    versions (a comparison switch). sampler and bounce (the
-    sampler's stream index: the wavefront's iteration, or the batch
+    no mesh or sphere clusters and report no hit there. sampler and bounce
+    (the sampler's stream index: the wavefront's iteration, or the batch
     integrator's bounce) feed the media's free-flight draws; a scene with
     media and no sampler raises. mesh_backend: "kernel", "kernel_replay"
     or "lockstep", see the module docstring. mesh_cohsort=False tells
@@ -549,11 +546,10 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
                 sph = isect.intersect_spheres_clustered(
                     rays, sp.center, sp.radius, sp.mat_id, sp.kernel_table,
                     sp.kernel_bounds, sp.kernel_ids, t_min, BIG,
-                    ray_valid=ray_valid, plain=plain)
+                    ray_valid=ray_valid)
             else:
                 sph = isect.intersect_spheres(
-                    rays, sp.center, sp.radius, sp.mat_id, t_min, BIG,
-                    plain=plain)
+                    rays, sp.center, sp.radius, sp.mat_id, t_min, BIG)
         # the closest hit is a sphere where nothing later is strictly closer
         tracing.note_lanes("lanes.sphere_hit",
                            lambda final: sph.hit & (final.t == sph.t))
@@ -569,8 +565,7 @@ def intersect_scene(scene: SceneIR, rays: Rays, t_min: float = T_MIN,
     for inst in scene.instances:
         best = closer(best, _intersect_instance(
             inst, rays, t_min, ray_valid=ray_valid, need_uv=need_uv,
-            plain=plain, mesh_backend=mesh_backend,
-            mesh_cohsort=mesh_cohsort))
+            mesh_backend=mesh_backend, mesh_cohsort=mesh_cohsort))
     for i, med in enumerate(scene.media):
         best = closer(best, _intersect_medium(med, rays, sampler, bounce, i,
                                               t_min, best.t, rng_span))

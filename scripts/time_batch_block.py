@@ -77,8 +77,7 @@ def main() -> int:
         """radiance_sum's chunks through one BatchRun with this block."""
         sampler = Sampler(args.seed, dev)
         path.BOUNCE_BLOCK = block
-        run = path.BatchRun(scene, camera, size, size, sampler, 50,
-                            graphs=True)
+        run = path.BatchRun(scene, camera, size, size, sampler, 50)
         sample_ms = []
         sample = run.sample
 
@@ -107,8 +106,9 @@ def main() -> int:
                        "bounces": run.bounces,
                        "blocks_a_sample": len(run.blocks)}
 
-    path.BatchRun(scene, camera, 32, 32, Sampler(0, dev)).sample_sum(
-        Sampler(0, dev), 1)
+    with kbuild.eager():
+        path.BatchRun(scene, camera, 32, 32, Sampler(0, dev)).sample_sum(
+            Sampler(0, dev), 1)
     out = {b: [] for b in args.blocks}
     ref = None
     torch.use_deterministic_algorithms(True, warn_only=True)

@@ -6,6 +6,8 @@ host (what a capture needs); the key slot (core/rng.py:KeySlot) draws
 under the key last written into it; and the route's draws and radiance
 equal the JAX package's sample_radiance. The card's cases (graphs against
 eager, bit for bit) are in tests/test_torch_cuda.py."""
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from hobbyraytracer_tpu.scene import load_scene_desc as jax_load_scene_desc
 from hobbyraytracer_tpu_torch.core import rng as prng
 from hobbyraytracer_tpu_torch.core.rng import KeySlot, Sampler
 from hobbyraytracer_tpu_torch.integrator import path as ppath
+from hobbyraytracer_tpu_torch.kernels import build as kbuild
 from hobbyraytracer_tpu_torch.kernels import threefry as tf
 from hobbyraytracer_tpu_torch.scene import build_scene, convert
 from hobbyraytracer_tpu_torch.scene import ir as pir
@@ -62,13 +65,16 @@ def _bounces_of_loop(monkeypatch, fn):
     return out, calls
 
 
-@pytest.mark.parametrize("rule", ["cuda", "cpu", "lockstep", "fog"])
+@pytest.mark.parametrize("rule", ["cuda", "cpu", "lockstep", "fog",
+                                  "plain_versions", "eager"])
 def test_batch_route_is_chosen_by_rule(monkeypatch, tmp_path, teapot, smoke,
                                        rule):
     """batch_route: a CUDA device, unless a bounce reads the host. The CPU,
     mesh_backend "lockstep" and a medium bounded by a clustered mesh run
     the per-bounce loop; on the CPU radiance_sum and sample_radiance build
-    no BatchRun, eager=True or not."""
+    no BatchRun, under eager() or not. Either comparison switch
+    (kernels/build.py:plain_versions, eager) keeps the batch route and
+    turns its graphs off (graphs_on), and gives the same sum."""
     balls = _job(BALLS)[0]
     if rule == "cuda":
         for scene in (teapot[0], smoke[0], balls):
@@ -83,11 +89,26 @@ def test_batch_route_is_chosen_by_rule(monkeypatch, tmp_path, teapot, smoke,
 
         monkeypatch.setattr(ppath, "BatchRun", no_run)
         scene, camera = teapot
-        for eager in (False, True):
-            ppath.radiance_sum(scene, camera, 4, 4, 2, Sampler(0, "cpu"),
-                               max_depth=2, sample_chunk=1, eager=eager)
-            ppath.sample_radiance(scene, camera, 4, 4, Sampler(0, "cpu"), 1,
-                                  max_depth=2, eager=eager)
+        for switch in (contextlib.nullcontext, kbuild.eager):
+            with switch():
+                ppath.radiance_sum(scene, camera, 4, 4, 2, Sampler(0, "cpu"),
+                                   max_depth=2, sample_chunk=1)
+                ppath.sample_radiance(scene, camera, 4, 4, Sampler(0, "cpu"),
+                                      1, max_depth=2)
+    elif rule in ("plain_versions", "eager"):
+        scene, camera = teapot
+
+        def render():
+            return ppath.radiance_sum(scene, camera, 4, 4, 2,
+                                      Sampler(0, "cpu"), max_depth=2)
+
+        want = render()
+        with getattr(kbuild, rule)():
+            for s in (teapot[0], smoke[0], balls):
+                assert ppath.batch_route(s, CUDA)
+            assert not kbuild.graphs_on(CUDA)
+            got = render()
+        assert kbuild.graphs_on(CUDA) and torch.equal(got, want)
     elif rule == "lockstep":
         assert not ppath.batch_route(teapot[0], CUDA, "lockstep")
     else:
@@ -145,7 +166,7 @@ def test_blocks_over_chunks_and_slices(monkeypatch, smoke):
         out = ppath.radiance_sum(scene, camera, 8, 8, 3, Sampler(6, "cpu"),
                                  max_depth=5, sample_chunk=2,
                                  progress_cb=lambda d, t: seen.append((d, t)),
-                                 eager=True, **kw)
+                                 **kw)
         return out, seen
 
     loop = [render(), render(pix0=32, n_pix=32)]

@@ -13,6 +13,8 @@ the JAX package, so it also runs where JAX is not installed:
 
 (tests/conftest.py imports JAX, hence --noconftest there; it also
 registers the `cuda` marker, hence -o markers=cuda.)"""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import torch
 from hobbyraytracer_tpu_torch.core.rng import Sampler
 from hobbyraytracer_tpu_torch.core.types import Rays
 from hobbyraytracer_tpu_torch.integrator import wavefront
+from hobbyraytracer_tpu_torch.kernels import build as kbuild
 from hobbyraytracer_tpu_torch.kernels import mesh_traverse as pk
 from hobbyraytracer_tpu_torch.kernels import sphere_scan as sc
 from hobbyraytracer_tpu_torch.kernels import sphere_traverse as sk
@@ -62,6 +65,16 @@ def _count_iterations(monkeypatch):
 
     monkeypatch.setattr(wavefront, "_pool_run", counted)
     return n
+
+
+def _plain(on: bool):
+    """kernels/build.py:plain_versions() when `on`, else no switch."""
+    return kbuild.plain_versions() if on else contextlib.nullcontext()
+
+
+def _eager(on: bool):
+    """kernels/build.py:eager() when `on`, else no switch."""
+    return kbuild.eager() if on else contextlib.nullcontext()
 
 
 @pytest.fixture
@@ -311,10 +324,11 @@ def test_render_through_kernel_matches_plain(dev):
     job = build_scene(load_scene_desc(TEAPOT))
     scene, camera = job.scene.to(dev), job.camera.to(dev)
     pk.KERNEL.launches = 0
-    imgs = [wavefront.render_image(scene, camera, 32, 32, 4,
-                                   Sampler(3, dev), pool=2048,
-                                   plain=plain)
-            for plain in (False, True)]
+    imgs = []
+    for plain in (False, True):
+        with _plain(plain):
+            imgs.append(wavefront.render_image(scene, camera, 32, 32, 4,
+                                               Sampler(3, dev), pool=2048))
     assert pk.KERNEL.launches > 0
     assert torch.isfinite(imgs[0]).all()
     torch.testing.assert_close(imgs[0], imgs[1], rtol=1e-5, atol=1e-5)
@@ -332,9 +346,9 @@ def test_hires_render_goes_through_k2(dev, monkeypatch):
         monkeypatch.setattr(pisect, "KEY_MODE", mode)
         pk.KERNEL.launches = pk.KERNEL_STREAM.launches = 0
         pk.KEY_KERNEL.launches = 0
-        imgs.append(wavefront.render_image(scene, camera, 16, 16, 4,
-                                           Sampler(5, dev), pool=1024,
-                                           plain=plain))
+        with _plain(plain):
+            imgs.append(wavefront.render_image(scene, camera, 16, 16, 4,
+                                               Sampler(5, dev), pool=1024))
         assert pk.KERNEL.launches == 0
         assert (pk.KERNEL_STREAM.launches > 0) == (not plain)
         assert (pk.KEY_KERNEL.launches > 0) == (mode == "pallas"
@@ -475,9 +489,9 @@ def test_balls_render_routes(dev, monkeypatch):
                             ("plain", True, True)):
         monkeypatch.setattr(pisect, "SPHERE_KERNEL", on)
         sk.SPHERE_KERNEL.launches = 0
-        imgs[name] = wavefront.render_image(scene, camera, 32, 24, 4,
-                                            Sampler(7, dev), pool=2048,
-                                            plain=plain)
+        with _plain(plain):
+            imgs[name] = wavefront.render_image(scene, camera, 32, 24, 4,
+                                                Sampler(7, dev), pool=2048)
         assert (sk.SPHERE_KERNEL.launches > 0) == (name == "k4")
         assert torch.isfinite(imgs[name]).all()
     near = (imgs["k4"] - imgs["plain"]).abs().amax(dim=2) < 1e-3
@@ -663,10 +677,11 @@ def test_sphere_scan_argument_checks(dev):
 
 def test_balls_render_through_the_scan_kernel_equals_plain(dev, monkeypatch):
     """A small scattered_balls render by the default route (the scan
-    kernel, blocks replayed from a CUDA graph) against plain=True (the
-    chunked scan, eager), under deterministic algorithms: the framebuffers
-    bit for bit; the kernel launched once a segment on the default route
-    and never under plain=True."""
+    kernel, blocks replayed from a CUDA graph) against the plain versions
+    (kernels/build.py:plain_versions: the chunked scan, eager), under
+    deterministic algorithms: the framebuffers bit for bit; the kernel
+    launched once a segment on the default route and never under the
+    switch."""
     segments = _count_iterations(monkeypatch)
     job = build_scene(load_scene_desc(BALLS))
     scene, camera = job.scene.to(dev), job.camera.to(dev)
@@ -675,9 +690,9 @@ def test_balls_render_through_the_scan_kernel_equals_plain(dev, monkeypatch):
     try:
         for plain in (False, True):
             before, segments[0] = sc.SCAN_KERNEL.launches, 0
-            st = wavefront.render_state(scene, camera, 48, 27, 4,
-                                        Sampler(7, dev), pool=2048,
-                                        plain=plain)
+            with _plain(plain):
+                st = wavefront.render_state(scene, camera, 48, 27, 4,
+                                            Sampler(7, dev), pool=2048)
             out[plain] = (st.fb, sc.SCAN_KERNEL.launches - before,
                           segments[0])
     finally:
@@ -778,9 +793,10 @@ def test_kernel_on_pool_permuted_rays_without_cohsort(dev):
             r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
             cohsort=False)
         assert pk.KERNEL.launches == before + 1
-        plain = isect.intersect_mesh_clustered_fused(
-            r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
-            cohsort=False, plain=True)
+        with kbuild.plain_versions():
+            plain = isect.intersect_mesh_clustered_fused(
+                r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
+                cohsort=False)
         sorted_ = isect.intersect_mesh_clustered_fused(
             r, m.cluster_id, m.tri_soa, m.bounds8, 1e30, active,
             cohsort=True)
@@ -898,8 +914,8 @@ def test_refreshed_tables_on_card_equal_cpu(dev, scene_path, rows, moved):
 
 
 def test_kernel_replay_grads_kernel_equal_plain(dev):
-    """"kernel_replay" through K1 and with plain=True (the find by K1's
-    plain version) on the card: hits, and the gradients of the hit t and
+    """"kernel_replay" through K1 and under plain_versions() (the find by
+    K1's plain version) on the card: hits, and the gradients of the hit t and
     normal to the vertices, bitwise equal; K1 launched once, by the kernel
     call only."""
     from hobbyraytracer_tpu_torch.ops import intersect as pisect
@@ -913,12 +929,13 @@ def test_kernel_replay_grads_kernel_equal_plain(dev):
     for plain in (False, True):
         v = verts.clone().requires_grad_(True)
         pk.KERNEL.launches = 0
-        h = pisect.intersect_triangles_bvh(
-            rays, *_on(dev, tri_id, soa, bounds8),
-            torch.tensor(0, dtype=torch.int32, device=dev), 1e30,
-            ray_valid=torch.from_numpy(valid).to(dev), plain=plain,
-            backend="kernel_replay", verts=v, normals=normals, uvs=uvs,
-            indices=idx)
+        with _plain(plain):
+            h = pisect.intersect_triangles_bvh(
+                rays, *_on(dev, tri_id, soa, bounds8),
+                torch.tensor(0, dtype=torch.int32, device=dev), 1e30,
+                ray_valid=torch.from_numpy(valid).to(dev),
+                backend="kernel_replay", verts=v, normals=normals, uvs=uvs,
+                indices=idx)
         loss = (torch.where(h.hit, h.t, 0.0).sum()
                 + (h.normal * h.hit[:, None]).sum())
         (g,) = torch.autograd.grad(loss, v)
@@ -1119,7 +1136,7 @@ def test_sampler_draws_on_card_equal_cpu(dev):
 def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
                                    sphere_kernel, key_mode):
     """A 64x64 @ 4 spp render (pool 2048, 3 iterations a block, so that
-    blocks replay several times) through the CUDA graph against eager=True
+    blocks replay several times) through the CUDA graph against eager()
     under deterministic algorithms: framebuffer, `it` and retired equal,
     every kernel's launches equal (the replays add the captured launches),
     one graph captured. key_mode "pallas" takes the coherence keys from K3,
@@ -1149,10 +1166,10 @@ def test_graph_render_equals_eager(dev, monkeypatch, scene_path,
             for lib in libs:
                 lib.launches = 0
             captured.clear()
-            st = wavefront.render_state(scene, camera, 64, 64, 4,
-                                        Sampler(1, dev), pool=2048,
-                                        steps_per_call=3, pool_sort=0,
-                                        eager=eager)
+            with _eager(eager):
+                st = wavefront.render_state(scene, camera, 64, 64, 4,
+                                            Sampler(1, dev), pool=2048,
+                                            steps_per_call=3, pool_sort=0)
             out[eager] = (st, [lib.launches for lib in libs], len(captured))
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1183,9 +1200,10 @@ def test_graph_render_on_a_card_that_is_not_current(dev):
             for eager in (True, False):
                 for lib in (pk.KERNEL, tf.THREEFRY):
                     lib.launches = 0
-                st = wavefront.render_state(scene, camera, 48, 48, 4,
-                                            Sampler(5, card), pool=1024,
-                                            steps_per_call=3, eager=eager)
+                with _eager(eager):
+                    st = wavefront.render_state(scene, camera, 48, 48, 4,
+                                                Sampler(5, card), pool=1024,
+                                                steps_per_call=3)
                 assert torch.cuda.current_device() == 0
                 out[eager] = (st, pk.KERNEL.launches, tf.THREEFRY.launches)
     finally:
@@ -1321,7 +1339,7 @@ def _fit_job(dev, path, size, spp, depth, fit_vertices):
 def test_graph_fit_equals_eager(dev, monkeypatch, path, size, spp, depth,
                                 steps, fit_vertices):
     """fit_materials through its CUDA graph (step 0 eager, step 1 captured
-    and replayed, the rest replayed) against eager=True under
+    and replayed, the rest replayed) against eager() under
     deterministic algorithms: the losses, the fitted parameters (the
     vertices of teapot_hires's fit, whose 32-row tables are refreshed
     inside every step, through K2) and every kernel's launches equal; one
@@ -1340,10 +1358,11 @@ def test_graph_fit_equals_eager(dev, monkeypatch, path, size, spp, depth,
             for lib in libs:
                 lib.launches = 0
             captured.clear()
-            res = fit_mod.fit_materials(
-                scene, camera, target, *size, steps=steps, n_samples=spp,
-                max_depth=depth, sampler=Sampler(0, dev),
-                fit_vertices=fit_vertices, verbose=False, eager=eager)
+            with _eager(eager):
+                res = fit_mod.fit_materials(
+                    scene, camera, target, *size, steps=steps,
+                    n_samples=spp, max_depth=depth, sampler=Sampler(0, dev),
+                    fit_vertices=fit_vertices, verbose=False)
             out[eager] = (res, [lib.launches for lib in libs], len(captured))
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1405,7 +1424,7 @@ def test_kept_fit_graph_equals_eager_fits(dev, monkeypatch, path, size, spp,
     (diff/fit.py:FIT_GRAPHS): shiny_teapot's materials, and teapot_hires's
     vertices, whose 32-row tables the graph refreshes every step (K2).
     One graph captured, by the first, and 2 hits; under deterministic
-    algorithms each fit's losses and parameters equal an eager=True fit's
+    algorithms each fit's losses and parameters equal an eager() fit's
     of its seed bit for bit, so a replayed first step after the reset
     reads the reset state, and its launches equal the eager fit's. The
     first fit's result is unaltered by the later fits, and no result
@@ -1421,10 +1440,11 @@ def test_kept_fit_graph_equals_eager_fits(dev, monkeypatch, path, size, spp,
     def run(seed, eager):
         for lib in libs:
             lib.launches = 0
-        res = fit_mod.fit_materials(
-            scene, camera, target, *size, steps=steps, n_samples=spp,
-            max_depth=depth, sampler=Sampler(seed, dev), verbose=False,
-            fit_vertices=fit_vertices, eager=eager)
+        with _eager(eager):
+            res = fit_mod.fit_materials(
+                scene, camera, target, *size, steps=steps, n_samples=spp,
+                max_depth=depth, sampler=Sampler(seed, dev), verbose=False,
+                fit_vertices=fit_vertices)
         return res, [lib.launches for lib in libs]
 
     seeds = (11, 12, 2 ** 31 + 13)
@@ -1472,7 +1492,7 @@ def test_kept_fit_graph_misses_when_the_camera_takes_its_lens(dev,
     same camera object's use_lens set in place (its lens radius 0.05 from
     the start, which only the lens reads), then a second fit: the second
     misses the pinhole graph and captures its own (2 captures, no hit),
-    and each fit equals an eager=True fit of its camera bit for bit; the
+    and each fit equals an eager() fit of its camera bit for bit; the
     lens moved the losses."""
     from hobbyraytracer_tpu_torch.diff import fit as fit_mod
     captured = _counted_graphs(monkeypatch)
@@ -1483,9 +1503,10 @@ def test_kept_fit_graph_misses_when_the_camera_takes_its_lens(dev,
     camera.lens_radius.fill_(0.05)
 
     def run(eager):
-        return fit_mod.fit_materials(
-            scene, camera, target, *size, steps=4, n_samples=2, max_depth=4,
-            sampler=Sampler(21, dev), verbose=False, eager=eager)
+        with _eager(eager):
+            return fit_mod.fit_materials(
+                scene, camera, target, *size, steps=4, n_samples=2,
+                max_depth=4, sampler=Sampler(21, dev), verbose=False)
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1601,9 +1622,10 @@ def _batch_renders(dev, monkeypatch, scene, camera, runs, w=64, h=64, spp=3,
             for lib in libs:
                 lib.launches = 0
             captured.clear()
-            total = ppath.radiance_sum(scene, camera, w, h, spp,
-                                       Sampler(1, dev), sample_chunk=chunk,
-                                       eager=eager)
+            with _eager(eager):
+                total = ppath.radiance_sum(scene, camera, w, h, spp,
+                                           Sampler(1, dev),
+                                           sample_chunk=chunk)
             torch.cuda.synchronize()
             out[label] = (total, [lib.launches for lib in libs],
                           len(captured))
@@ -1619,7 +1641,7 @@ def _batch_renders(dev, monkeypatch, scene, camera, runs, w=64, h=64, spp=3,
 def test_batch_graph_render_equals_eager(dev, monkeypatch, scene_path,
                                          sphere_kernel):
     """radiance_sum at 64x64 @ 3 spp in chunks of 2, depth 50, through
-    BatchRun's CUDA graphs against eager=True (its steps eagerly) and
+    BatchRun's CUDA graphs against eager() (its steps eagerly) and
     against `trace`'s per-bounce loop, under deterministic algorithms: the
     sums bit for bit equal; the graphs and the eager steps launch every
     kernel alike (the replays add the captured launches), the loop no
@@ -1648,8 +1670,8 @@ def test_batch_graph_render_equals_eager(dev, monkeypatch, scene_path,
 def test_batch_render_sharded_on_one_card(dev, monkeypatch):
     """parallel/shard.py:render_sharded of the teapot (64x64 @ 3 spp in
     chunks of 2) over two workers on the one card, each with graphs of its
-    own, against the one-worker render through the graphs and against its
-    own eager=True: the images bit for bit equal (deterministic
+    own, against the one-worker render through the graphs and against
+    itself under eager(): the images bit for bit equal (deterministic
     algorithms); a worker captures a run's graphs."""
     from hobbyraytracer_tpu_torch.integrator import path as ppath
     from hobbyraytracer_tpu_torch.parallel import shard
@@ -1658,17 +1680,21 @@ def test_batch_render_sharded_on_one_card(dev, monkeypatch):
     scene, camera = job.scene.to(dev), job.camera.to(dev)
     mesh = [torch.device("cuda", 0)] * 2
     imgs, graphs = [], []
+
+    def sharded():
+        return shard.render_sharded(scene, camera, 64, 64, 3,
+                                    Sampler(4, dev), mesh, sample_chunk=2)
+
+    def sharded_eager():
+        with kbuild.eager():
+            return sharded()
+
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for fn in (
                 lambda: ppath.render_image(scene, camera, 64, 64, 3,
                                            Sampler(4, dev), sample_chunk=2),
-                lambda: shard.render_sharded(scene, camera, 64, 64, 3,
-                                             Sampler(4, dev), mesh,
-                                             sample_chunk=2),
-                lambda: shard.render_sharded(scene, camera, 64, 64, 3,
-                                             Sampler(4, dev), mesh,
-                                             sample_chunk=2, eager=True)):
+                sharded, sharded_eager):
             captured.clear()
             imgs.append(fn())
             graphs.append(len(captured))
@@ -1687,13 +1713,13 @@ def test_batch_run_replays_under_each_render_s_keys(dev):
     scene, camera = job.scene.to(dev), job.camera.to(dev)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        run = ppath.BatchRun(scene, camera, 48, 48, Sampler(0, dev), 50,
-                             graphs=True)
+        run = ppath.BatchRun(scene, camera, 48, 48, Sampler(0, dev), 50)
         got = [run.sample_sum(Sampler(seed, dev), 3).clone()
                for seed in (1, 2)]
-        want = [ppath.BatchRun(scene, camera, 48, 48, Sampler(0, dev),
-                               50).sample_sum(Sampler(seed, dev), 3)
-                for seed in (1, 2)]
+        with kbuild.eager():
+            want = [ppath.BatchRun(scene, camera, 48, 48, Sampler(0, dev),
+                                   50).sample_sum(Sampler(seed, dev), 3)
+                    for seed in (1, 2)]
     finally:
         torch.use_deterministic_algorithms(False)
     assert run.samples == 6

@@ -27,7 +27,6 @@ from hobbyraytracer_tpu_torch.core.rng import KeySlot, Sampler
 from hobbyraytracer_tpu_torch.diff import fit as pfit
 from hobbyraytracer_tpu_torch.integrator import path as ppath
 from hobbyraytracer_tpu_torch.kernels import build as kbuild
-from hobbyraytracer_tpu_torch.kernels import mesh_traverse as kmod
 from hobbyraytracer_tpu_torch.ops import intersect as isect
 from hobbyraytracer_tpu_torch.ops import shade
 from hobbyraytracer_tpu_torch.scene import build_scene, convert
@@ -67,14 +66,15 @@ def _fit(scene, camera, steps=2, size=12, **kwargs):
 
 
 @pytest.mark.parametrize("rule", ["cuda", "cpu", "boundary", "uncorrelated",
-                                  "plain find", "finds read the host",
-                                  "sharded step"])
+                                  "plain find", "eager",
+                                  "finds read the host", "sharded step"])
 def test_fit_route_is_chosen_by_rule(monkeypatch, tmp_path, shiny, rule):
     """fit_route: a CUDA device replays the step from a graph; the CPU,
-    boundary=True, correlated=False, the mesh find forced to its plain
-    version, a scene whose finds read the host and the sharded step (more
-    than one worker) run eagerly. On the CPU fit_materials never makes a
-    graph, and eager=True gives the same fit bit for bit."""
+    boundary=True, correlated=False, either comparison switch
+    (kernels/build.py:plain_versions, eager), a scene whose finds read the
+    host and the sharded step (more than one worker) run eagerly. On the
+    CPU fit_materials never makes a graph, and under eager() gives the
+    same fit bit for bit."""
     scene, camera = shiny
     assert pfit.fit_route(scene, CUDA)
     if rule == "cuda":
@@ -86,7 +86,9 @@ def test_fit_route_is_chosen_by_rule(monkeypatch, tmp_path, shiny, rule):
             raise AssertionError("made a graph on the CPU")
 
         monkeypatch.setattr(kbuild, "GraphReplay", no_graph)
-        a, b = (_fit(scene, camera, eager=eager) for eager in (False, True))
+        a = _fit(scene, camera)
+        with kbuild.eager():
+            b = _fit(scene, camera)
         assert np.array_equal(a.losses, b.losses)
         for f in pfit.MAT_FIELDS:
             assert torch.equal(a.params["materials"][f],
@@ -96,9 +98,13 @@ def test_fit_route_is_chosen_by_rule(monkeypatch, tmp_path, shiny, rule):
     elif rule == "uncorrelated":
         assert not pfit.fit_route(scene, CUDA, correlated=False)
     elif rule == "plain find":
-        monkeypatch.setattr(kmod, "traverse_clusters",
-                            kmod.traverse_clusters_plain)
-        assert not pfit.fit_route(scene, CUDA)
+        with kbuild.plain_versions():
+            assert not pfit.fit_route(scene, CUDA)
+        assert pfit.fit_route(scene, CUDA)
+    elif rule == "eager":
+        with kbuild.eager():
+            assert not pfit.fit_route(scene, CUDA)
+        assert pfit.fit_route(scene, CUDA)
     elif rule == "finds read the host":
         path = tmp_path / "fog.yaml"
         path.write_text(FOG_YAML % TEAPOT.replace(
@@ -274,7 +280,8 @@ def test_material_rows_match_indexing_and_jax(shape):
 
 @pytest.fixture
 def kept(monkeypatch):
-    """The graph route on the CPU: fit_route says yes, GraphReplay is a
+    """The graph route on the CPU: graphs are on for it as for a card
+    (kernels/build.py:graphs_on, outside its switches), GraphReplay is a
     stand-in that runs the step eagerly every time, and FIT_GRAPHS a cache
     of its own -> the list of stand-ins made (one a captured graph)."""
     made = []
@@ -287,7 +294,8 @@ def kept(monkeypatch):
         def __call__(self, fn):
             return fn()
 
-    monkeypatch.setattr(pfit, "fit_route", lambda *args, **kwargs: True)
+    graphs_on = kbuild.graphs_on
+    monkeypatch.setattr(kbuild, "graphs_on", lambda device: graphs_on(CUDA))
     monkeypatch.setattr(kbuild, "GraphReplay", EagerGraph)
     monkeypatch.setattr(pfit, "FIT_GRAPHS", pfit.FitGraphs())
     return made
@@ -318,6 +326,12 @@ def _run(start, camera, target, seed, size=12, spp=2, depth=3, steps=2,
                               **kwargs)
 
 
+def _eager_run(*args, **kwargs):
+    """_run with nothing captured (kernels/build.py:eager)."""
+    with kbuild.eager():
+        return _run(*args, **kwargs)
+
+
 def _tensors(res) -> list:
     return pfit._leaves(res.params)
 
@@ -337,7 +351,7 @@ def _assert_same_fit(a, b):
 def test_kept_fit_equals_fresh_fits(kept, shiny, fit_vertices):
     """Three fits of one scene and camera with three seeds: the first
     captures, the other two reset the kept buffers and replay (1 capture,
-    2 hits), and each equals a fresh eager=True fit of its seed bit for
+    2 hits), and each equals a fresh eager fit of its seed bit for
     bit: the losses, every material field and, in a vertex fit, the
     vertices. The first fit's result is as it was after the third, and no
     result (params, gradients, the fitted scene's materials) shares
@@ -356,8 +370,8 @@ def test_kept_fit_equals_fresh_fits(kept, shiny, fit_vertices):
     graphs = pfit.FIT_GRAPHS
     assert (len(kept), graphs.captures, graphs.hits) == (1, 1, 2)
     for seed, res in zip((1, 2, 3), runs):
-        _assert_same_fit(res, _run(start, camera, target, seed,
-                                   fit_vertices=fit_vertices, eager=True))
+        _assert_same_fit(res, _eager_run(start, camera, target, seed,
+                                         fit_vertices=fit_vertices))
     assert all(torch.equal(a, b) for a, b in zip(_tensors(runs[0]), first))
     assert len(runs[0].losses) == 2 and len(set(map(tuple, (
         r.losses for r in runs)))) == 3
@@ -413,8 +427,7 @@ def test_each_key_field_tells_fits_apart(kept, shiny, field_):
     graphs = pfit.FIT_GRAPHS
     assert (len(kept), graphs.captures, graphs.hits) == (2, 2, 0)
     assert len(graphs.kept) == (2 if traced else 1)
-    _assert_same_fit(res, _run(start2, camera2, target2, 2, eager=True,
-                               **change))
+    _assert_same_fit(res, _eager_run(start2, camera2, target2, 2, **change))
     second()
     assert (len(kept), graphs.hits) == (2, 1)
     _run(start, camera, target, 3)
@@ -472,7 +485,7 @@ def test_a_change_in_place_tells_fits_apart(kept, shiny, change):
         res = _run(start, camera, target, 2)
         graphs = pfit.FIT_GRAPHS
         assert (len(kept), graphs.captures, graphs.hits) == (2, 2, 0)
-        _assert_same_fit(res, _run(start, camera, target, 2, eager=True))
+        _assert_same_fit(res, _eager_run(start, camera, target, 2))
     _run(start, camera, target, 3)
     assert (len(kept), graphs.captures, graphs.hits) == (3, 3, 0)
 
@@ -503,8 +516,8 @@ def test_fit_span_says_how_its_graph_ran(kept, shiny):
     start, target = _fit_job(scene, camera)
     tracing.RECORDER.drain()
     with tracing.recording() as rec:
-        for eager in (False, False, True):
-            _run(start, camera, target, 1, eager=eager)
+        for run in (_run, _run, _eager_run):
+            run(start, camera, target, 1)
     roots = [s for s in rec.drain() if s["type"] == "span"
              and s["name"] == "hrt.fit"]
     assert [r["attrs"]["graph"] for r in roots] == ["capture", "hit",

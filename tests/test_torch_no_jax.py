@@ -194,6 +194,28 @@ def test_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
     assert kmod.KERNEL.launches == 0
 
 
+@pytest.mark.parametrize("switch", ["plain_versions", "eager"])
+def test_comparison_switch_is_restored_after_a_raise(switch):
+    """Each comparison switch of kernels/build.py holds inside its block
+    (graphs off; under plain_versions the finds' wrappers pick their plain
+    versions on a card, the draws' never) and is off again after a block
+    that raises, an inner block of the same switch leaving it on."""
+    cuda = torch.device("cuda")
+    enter = getattr(kbuild, switch)
+    assert kbuild.graphs_on(cuda) and not kbuild.runs_plain(cuda)
+    with pytest.raises(RuntimeError, match="inside"):
+        with enter():
+            assert not kbuild.graphs_on(cuda)
+            assert kbuild.runs_plain(cuda) == (switch == "plain_versions")
+            assert not kbuild.runs_plain(cuda, find=False)
+            with enter():
+                pass
+            assert not kbuild.graphs_on(cuda)
+            raise RuntimeError("inside")
+    assert kbuild.graphs_on(cuda) and not kbuild.runs_plain(cuda)
+    assert kbuild.SWITCHES == {"plain": False, "eager": False}
+
+
 def test_failed_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such intrinsic' >&2\nexit 2\n")

@@ -428,7 +428,7 @@ def _site_chunk_fold_in(as_tensor):
             try:
                 return ppath.render_image(scene, camera, 4, 4, 3,
                                           Sampler(6, "cpu"), max_depth=1,
-                                          sample_chunk=2, eager=True)
+                                          sample_chunk=2)
             finally:
                 ppath.batch_route = route
         return ppath.render_image(scene, camera, 4, 4, 3, Sampler(6, "cpu"),

@@ -30,6 +30,7 @@ from hobbyraytracer_tpu.ops import intersect as jisect
 from hobbyraytracer_tpu.scene import bvh as jbvh
 from hobbyraytracer_tpu.scene import ir as jir
 from hobbyraytracer_tpu_torch.core.types import Rays
+from hobbyraytracer_tpu_torch.kernels import build as kbuild
 from hobbyraytracer_tpu_torch.kernels import sphere_scan as sc
 from hobbyraytracer_tpu_torch.kernels import sphere_traverse as sk
 from hobbyraytracer_tpu_torch.ops import intersect as pisect
@@ -406,14 +407,16 @@ def test_routing_follows_sphere_kernel(monkeypatch):
     calls = []
     real_c, real_d = pisect.intersect_spheres_clustered, pisect.intersect_spheres
     monkeypatch.setattr(pisect, "intersect_spheres_clustered", lambda *a, **k: (
-        calls.append(("clustered", k.get("plain"))), real_c(*a, **k))[1])
+        calls.append(("clustered", kbuild.SWITCHES["plain"])),
+        real_c(*a, **k))[1])
     monkeypatch.setattr(pisect, "intersect_spheres", lambda *a, **k: (
         calls.append(("dense", None)), real_d(*a, **k))[1])
     assert pisect.SPHERE_KERNEL is False
     h_dense = pir.intersect_scene(scene, rays)
     monkeypatch.setattr(pisect, "SPHERE_KERNEL", True)
     h_clus = pir.intersect_scene(scene, rays)
-    pir.intersect_scene(scene, rays, plain=True)
+    with kbuild.plain_versions():
+        pir.intersect_scene(scene, rays)
     small = pir.SceneIR(scene.rects, [], scene.materials, scene.textures, 0,
                         spheres=pir.SphereTable(scene.spheres.center[:100],
                                                 scene.spheres.radius[:100],

@@ -30,6 +30,7 @@ from hobbyraytracer_tpu.scene import load_scene_desc as jax_load_scene_desc
 from hobbyraytracer_tpu_torch.core.rng import Sampler
 from hobbyraytracer_tpu_torch.core.types import Rays
 from hobbyraytracer_tpu_torch.integrator import wavefront as pwf
+from hobbyraytracer_tpu_torch.kernels import build as kbuild
 from hobbyraytracer_tpu_torch.ops import intersect as pisect
 from hobbyraytracer_tpu_torch.scene import convert
 from hobbyraytracer_tpu_torch.scene import ir as pir
@@ -719,7 +720,7 @@ def _block_args(scene, camera, spp, steps, pool_sort=0):
     _, n_chunks, _ = pwf._chunk_geometry(spp, pwf.SAMPLE_CHUNK)
     return (scene, camera, w, h, spp, Sampler(3, "cpu"),
             range(w * h * n_chunks), steps, 50, pwf.SAMPLE_CHUNK, True,
-            False, pool_sort)
+            pool_sort)
 
 
 @pytest.mark.parametrize("name", ["teapot", "two_teapots"])
@@ -773,17 +774,21 @@ def test_static_block_keeps_the_state_s_buffers(teapot):
 def test_graph_route_is_chosen_by_rule(monkeypatch, tmp_path, teapot,
                                        two_teapots, balls, smoke):
     """graph_route: a CUDA device and a segment that reads no host value.
-    The CPU, plain=True, a pool sort on a scene with a kernel mesh (by the
-    argument or POOL_SORT) and a medium bounded by a clustered mesh (the
-    lockstep find) run eagerly; a period on a scene without a kernel mesh
-    sorts nothing and keeps the graph. On the CPU render_state never
-    captures, eager=True or not."""
+    The CPU, either comparison switch (kernels/build.py:plain_versions,
+    eager), a pool sort on a scene with a kernel mesh (by the argument or
+    POOL_SORT) and a medium bounded by a clustered mesh (the lockstep
+    find) run eagerly; a period on a scene without a kernel mesh sorts
+    nothing and keeps the graph. On the CPU render_state never captures,
+    under eager() or not."""
     from hobbyraytracer_tpu_torch.scene import build_scene, load_scene_desc
     cuda = torch.device("cuda")
     for job in (teapot, two_teapots, balls, smoke):
         assert pwf.graph_route(job[1], cuda)
         assert not pwf.graph_route(job[1], "cpu")
-        assert not pwf.graph_route(job[1], cuda, plain=True)
+        for switch in (kbuild.plain_versions, kbuild.eager):
+            with switch():
+                assert not pwf.graph_route(job[1], cuda)
+        assert pwf.graph_route(job[1], cuda)
     assert not pwf.graph_route(two_teapots[1], cuda, pool_sort=2)
     assert pwf.graph_route(two_teapots[1], cuda, pool_sort=0)
     assert pwf.graph_route(balls[1], cuda, pool_sort=2)
@@ -804,8 +809,13 @@ def test_graph_route_is_chosen_by_rule(monkeypatch, tmp_path, teapot,
 
     monkeypatch.setattr(pwf, "_BlockGraph", no_graph)
     _, scene, camera = teapot
-    states = [pwf.render_state(scene, camera, 8, 8, 2, Sampler(0, "cpu"),
-                               max_depth=4, pool=64, steps_per_call=2,
-                               eager=eager) for eager in (False, True)]
+
+    def render():
+        return pwf.render_state(scene, camera, 8, 8, 2, Sampler(0, "cpu"),
+                                max_depth=4, pool=64, steps_per_call=2)
+
+    states = [render()]
+    with kbuild.eager():
+        states.append(render())
     for f in _STATE_FIELDS:
         assert torch.equal(getattr(states[0], f), getattr(states[1], f))
