@@ -2411,6 +2411,7 @@ def phase_graph(dev, card, libs, scenes):
         for lib in libs:
             lib.launches = 0
         captured[0] = 0
+        wavefront.RENDER_GRAPHS.clear()   # the graph render captures its own
         windows = ProfiledWindows(libs)
         blocks = [0]
 

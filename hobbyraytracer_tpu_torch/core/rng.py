@@ -30,7 +30,12 @@ buffer that the host fills with a key's words, and `Sampler.slotted(slot)`
 draws from it. Its folds, splits and streams are carried as the path of
 host folds after the slot's words, so a graph captured once draws under
 whatever key the host wrote into the slot before each replay (the batch
-integrator's samples, integrator/path.py).
+integrator's samples, integrator/path.py). A slot made with `folds=n`
+also holds the key's folds by 0 .. n-1, which the host writes beside the
+words: a slotted key's first fold by such a value reads its words from
+there, so a stream (purpose, iteration) may fold by a device iteration
+after the purpose (the wavefront render's kept block graph,
+integrator/wavefront.py).
 
 span=(offset, total) on a draw (reference core/rng.py:33-55): the rows
 offset:offset+n of the full (total, ...) draw, n the leading size of
@@ -61,6 +66,7 @@ DIELECTRIC_CHOICE = 4
 MEDIUM_FLIGHT = 5
 LENS = 6
 RUSSIAN_ROULETTE = 7
+STREAM_TAGS = 8      # the render's streams take the purposes 0 .. 7
 # edge sampling (diff/edges.py; the reference's tags, diff/edges.py:55-58)
 EDGE_PICK = 201
 EDGE_S = 202
@@ -76,10 +82,12 @@ class Key:
     tensor of a KeySlot), folded by `it` when it is a 0-d int32 tensor,
     then by each value of `path`. With host words and no `it` the path is
     empty (host folds fold the words); otherwise each draw derives the key
-    on the device."""
+    on the device. `folds`: the (n, 2) device words of the slot's key
+    folded by 0 .. n-1 (KeySlot(folds=n)), for the key's first fold."""
     words: Union[tuple, torch.Tensor]
     it: Optional[torch.Tensor] = None
     path: tuple = ()
+    folds: Optional[torch.Tensor] = None
 
     @property
     def on_device(self) -> bool:
@@ -97,9 +105,13 @@ class Key:
                 raise ValueError(f"a device fold takes a 0-d tensor, got "
                                  f"shape {tuple(data.shape)}")
             return Key(self.words, data, self.path)
+        data = int(data) & _M32
         if not self.on_device:
-            return Key(tf.fold(self.words, int(data) & _M32))
-        return Key(self.words, self.it, self.path + (int(data) & _M32,))
+            return Key(tf.fold(self.words, data))
+        if (self.folds is not None and self.it is None and not self.path
+                and data < self.folds.shape[0]):
+            return Key(self.folds[data])
+        return Key(self.words, self.it, self.path + (data,))
 
     def split(self, n: int) -> list:
         """jax.random.split(key, n): key i is fold_in(key, i)."""
@@ -125,18 +137,27 @@ class KeySlot:
     that `fill` writes a host key's words into. Draws from
     Sampler.slotted(slot) (and from its folds, splits and streams) read the
     words there when they run, so a CUDA graph that captured them draws
-    under the key of the last fill before each replay. `fill` writes on the
-    device's current stream, outside any graph."""
+    under the key of the last fill before each replay. With `folds` = n the
+    slot also holds the key folded by each of 0 .. n-1 (`folds`, (n, 2)),
+    which a slotted key's first fold reads. `fill` writes on the device's
+    current stream, outside any graph."""
 
-    def __init__(self, device):
-        self.words = torch.zeros((2,), dtype=torch.int32, device=device)
+    def __init__(self, device, folds: int = 0):
+        table = torch.zeros((1 + folds, 2), dtype=torch.int32, device=device)
+        self.words = table[0]
+        self.folds = table[1:] if folds else None
 
     def fill(self, key: Key) -> None:
-        """Write the host words of `key` into the slot."""
+        """Write the host words of `key` (and its folds) into the slot."""
         if key.on_device:
             raise ValueError("a key slot takes a key of host words")
-        for i, w in enumerate(key.words):
-            self.words[i].fill_(w - (w >> 31 << 32))   # as int32
+        rows = [(self.words, key.words)]
+        if self.folds is not None:
+            rows += [(self.folds[d], tf.fold(key.words, d))
+                     for d in range(self.folds.shape[0])]
+        for row, words in rows:
+            for i, w in enumerate(words):
+                row[i].fill_(w - (w >> 31 << 32))   # as int32
 
 
 class Sampler:
@@ -166,7 +187,7 @@ class Sampler:
 
     def slotted(self, slot: KeySlot) -> "Sampler":
         """This sampler drawing under the key held in `slot`."""
-        return self._with_key(Key(slot.words))
+        return self._with_key(Key(slot.words, folds=slot.folds))
 
     def split(self, n: int) -> list:
         """The Samplers of jax.random.split(key, n)."""

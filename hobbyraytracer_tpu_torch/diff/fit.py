@@ -294,41 +294,6 @@ class FitGraphs:
 FIT_GRAPHS = FitGraphs()
 
 
-def _held(value, tensors: list):
-    """What a step graph recorded over `value` (a scene or a camera, or a
-    part of one) takes as fixed, as a hashable value: each module's type,
-    its plain attributes (flags such as Camera.use_lens and TextureTable.
-    bilinear, which the step branches on as it is recorded) and its parts;
-    each tensor's address, shape, strides, dtype and device (the graph
-    reads it in place). Appends each tensor met to `tensors`, and each
-    object that is told apart only by its identity."""
-    if isinstance(value, torch.Tensor):
-        tensors.append(value)
-        return ("tensor", value.data_ptr(), tuple(value.shape),
-                value.stride(), value.dtype, value.device)
-    if isinstance(value, nn.Module):
-        parts = {**value._parameters, **value._buffers, **value._modules}
-        parts.update((k, v) for k, v in vars(value).items()
-                     if not k.startswith("_") and k != "training")
-        return (type(value),) + tuple((k, _held(parts[k], tensors))
-                                      for k in sorted(parts))
-    if isinstance(value, (tuple, list)):
-        return (type(value),) + tuple(_held(v, tensors) for v in value)
-    try:
-        hash(value)
-    except TypeError:   # no value to compare: the object itself, held
-        tensors.append(value)
-        return ("object", id(value))
-    return value
-
-
-def _switches() -> tuple:
-    """The module-level switches that a fit step's finds read as it is
-    recorded (ops/intersect.py's HRT_* settings)."""
-    return (isect.KEY_MODE, isect.CORRIDOR_MIN_K, isect.SPHERE_KERNEL,
-            isect.NO_COHSORT)
-
-
 def _new_fit(scene, camera, target, width, height, lr, n_samples,
              max_depth, sampler, fit_vertices, boundary, boundary_samples,
              shadow_light, graph, key=None, held=()) -> _Fit:
@@ -489,8 +454,9 @@ def fit_materials(scene: scene_ir.SceneIR, camera, target, width, height,
         fit = key = None
         held = []
         if on_graph:
-            key = (device, job is not None, _switches(), id(scene),
-                   id(camera), _held(scene, held), _held(camera, held),
+            key = (device, job is not None, isect.switches(), id(scene),
+                   id(camera), kbuild.held(scene, held),
+                   kbuild.held(camera, held),
                    width, height, n_samples, max_depth, lr, fit_vertices,
                    tuple(target.shape), target.dtype)
             fit = FIT_GRAPHS.take(key)

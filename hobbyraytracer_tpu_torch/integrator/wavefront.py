@@ -30,10 +30,15 @@ allocator and the sorts' scratch settled); the next is captured into a
 torch.cuda.CUDAGraph and replayed for every later block. The state's
 tensors are the graph's static buffers and `it` a 0-d int32 device tensor
 that the captured draws read (core/rng.py), so each replay draws new
-numbers. A configuration whose segment reads the host runs every block
-eagerly, by rule (`graph_route`): the CPU, a pool sort, and a scene whose
-finds read the host (and either comparison switch of kernels/build.py).
-A failed capture or replay raises.
+numbers. The graph outlives its render (`RENDER_GRAPHS`): a later render
+of the same configuration (the same scene and camera objects, their
+buffers and flags as they were, the same film, spp, depth, pool and
+knobs) resets the kept state in place and replays every block from the
+first, its draws under its own key, which the graph reads from a key slot
+(core/rng.py:KeySlot). A configuration whose segment reads the host runs
+every block eagerly, by rule (`graph_route`): the CPU, a pool sort, and a
+scene whose finds read the host (and either comparison switch of
+kernels/build.py). A failed capture or replay raises.
 
 Pool sort (pool_sort=N, default POOL_SORT from HRT_POOL_SORT, 0 = off):
 every N segments the whole pool is permuted by
@@ -53,8 +58,9 @@ otherwise adds in the order its atomics land). A multi-worker render
 `_regenerate(item0=)`.
 
 Tracing (tracing.py): a render traced as a whole (a profiler recording, or
-tracing.recording(), at its start) records the spans hrt.render,
-hrt.block, hrt.host_read and hrt.film, times each segment's phases
+tracing.recording(), at its start) records the spans hrt.render (its
+attribute `graph`: "hit", "capture" or "eager"), hrt.block, hrt.host_read
+and hrt.film, times each segment's phases
 (regenerate, find, shade, retire; the sphere find nested in the find) by
 events that a block's CUDA graph captures, and counts the lanes active,
 hit and deferred and the rows retired a segment on the device (and where
@@ -65,9 +71,10 @@ The sharded render (parallel/shard.py) is never traced.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
@@ -77,6 +84,7 @@ from ..core import rng as rng_mod
 from ..core.types import Rays
 from ..kernels import build as kbuild
 from ..ops import film as film_ops
+from ..ops import intersect as isect
 from ..ops import shade as shade_ops
 from ..ops.camera import Camera, get_rays
 from ..scene import ir as scene_ir
@@ -92,6 +100,7 @@ if RETIRE_DIV < 1:
     raise ValueError(
         f"HRT_RETIRE_DIV={RETIRE_DIV}: the retirement-cap divisor must be "
         ">= 1 (cap = pool // HRT_RETIRE_DIV rows scattered per segment)")
+STEPS_PER_CALL = 8       # segments a block (completion read after each)
 RR_START = 4             # bounces before Russian roulette begins
 RR_MIN_P = 0.05          # survival-probability floor
 _BIGI = 2 ** 30          # sort key of lanes with nothing to retire
@@ -139,19 +148,32 @@ def init_state(width: int, height: int, pool: int, device) -> PoolState:
     """An empty pool of `pool` idle lanes on `device`."""
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    return PoolState(
-        fb=torch.zeros((3, width * height), **f32),
-        o=torch.zeros((pool, 3), **f32),
-        d=torch.ones((pool, 3), **f32),
-        thr=torch.zeros((pool, 3), **f32),
-        rad=torch.zeros((pool, 3), **f32),
-        item=torch.full((pool,), -1, **i32),
-        depth=torch.zeros((pool,), **i32),
-        sub=torch.zeros((pool,), **i32),
-        defer=torch.zeros((pool,), dtype=torch.bool, device=device),
-        counter=torch.zeros((), **i32),
-        retired=torch.zeros((), **i32),
-        it=0)
+    return reset_state(PoolState(
+        fb=torch.empty((3, width * height), **f32),
+        o=torch.empty((pool, 3), **f32),
+        d=torch.empty((pool, 3), **f32),
+        thr=torch.empty((pool, 3), **f32),
+        rad=torch.empty((pool, 3), **f32),
+        item=torch.empty((pool,), **i32),
+        depth=torch.empty((pool,), **i32),
+        sub=torch.empty((pool,), **i32),
+        defer=torch.empty((pool,), dtype=torch.bool, device=device),
+        counter=torch.empty((), **i32),
+        retired=torch.empty((), **i32)))
+
+
+# init_state's value of each tensor field: every lane idle, nothing issued
+_EMPTY = {"fb": 0, "o": 0, "d": 1, "thr": 0, "rad": 0, "item": -1,
+          "depth": 0, "sub": 0, "defer": False, "counter": 0, "retired": 0}
+
+
+def reset_state(state: PoolState) -> PoolState:
+    """Make `state` an empty pool, in place: every tensor at init_state's
+    value, `it` 0."""
+    for f, v in _EMPTY.items():
+        getattr(state, f).fill_(v)
+    state.it = 0
+    return state
 
 
 def _chunk_geometry(samples: int, chunk: int):
@@ -452,56 +474,151 @@ def _pool_run(state: PoolState, scene, camera, width: int, height: int,
     return block(state) if graph is None else graph.run(state, block)
 
 
-def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
-                 height: int, samples: int, sampler,
-                 max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
-                 steps_per_call: int = 8,
-                 progress_cb: Optional[Callable[[int, int], None]] = None,
-                 state: Optional[PoolState] = None,
-                 checkpoint_cb: Optional[Callable[[PoolState], None]] = None,
-                 sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
-                 pool_sort: Optional[int] = None) -> PoolState:
-    """Run the pool to completion on `sampler.device` (scene and camera
-    must already be there); fb holds the radiance SUM over `samples`.
+@dataclass(eq=False)
+class _KeptRender:
+    """A render's block graph kept across renders (RenderGraphs): its cache
+    key, the pool state whose tensors are the graph's static buffers, the
+    _BlockGraph, the key slot that its draws read, the scene and camera
+    that the key names and the tensors whose addresses it holds (`held`,
+    kept alive so that no other tensor takes an address the graph reads),
+    and for a traced graph the phase marks of its capture and the lane
+    counters it adds to (tracing.py)."""
+    key: tuple
+    state: PoolState
+    graph: _BlockGraph
+    slot: rng_mod.KeySlot
+    scene: scene_ir.SceneIR
+    camera: Camera
+    held: list
+    marks: list = field(default_factory=list)
+    lanes: Optional[tuple] = None
+    kinds: dict = field(default_factory=dict)
 
-    Each block of `steps_per_call` iterations goes through _pool_run: on
-    the graph route (graph_route: a CUDA device and a segment that reads
-    no host value) the first block runs eagerly and every later one is
-    replayed from a CUDA graph captured for this call; otherwise every
-    block runs eagerly. Both routes give the same state bit for bit where
-    the device's sums are deterministic.
 
-    Completion (retired == W*H*samples) is read on the host after every
-    block of `steps_per_call` iterations, where progress_cb(retired, total)
-    and then checkpoint_cb(state) fire, the latter with the live state
-    (the next block updates it in place: copy what must outlive the call).
-    The iterations of the last block that ran after the pool went dry (no
-    item left to issue, none in a lane) are no-ops, and the state comes
-    back with `it` set to the first of them, the iteration at which the
-    reference's loop stops.
-    state: resume from a saved state (io/checkpoint.py:load_state) of this
-    render, on `sampler.device`; it goes on from its own `it`, and one
-    whose pool is dry already comes back at once. A stacked multi-worker
-    state belongs to parallel/shard.py:render_wavefront_sharded and is
-    refused. pool_sort: the pool sort's period, see _segment."""
+class RenderGraphs:
+    """The block graphs kept across renders, in one process
+    (RENDER_GRAPHS): at most one for each (device, traced) pair, since a
+    traced graph holds timing events and lane counters that an untraced
+    one lacks. A render takes the kept graph of its cache key out (`take`)
+    and gives it back when it has completed (`give`); a render that raises
+    never gives it back, so no half-run state is kept. `hits` counts the
+    renders that replayed a kept graph, `captures` those that made one to
+    keep. A kept graph holds its memory pool, its state and its scene and
+    camera until a miss replaces it or `clear` drops it."""
+
+    def __init__(self):
+        self.kept = {}
+        self.hits = 0
+        self.captures = 0
+
+    def clear(self) -> None:
+        """Drop every kept graph, with its state, scene and camera (the
+        counts stay): the next render captures again."""
+        self.kept.clear()
+
+    def take(self, key: tuple) -> Optional[_KeptRender]:
+        """The kept graph of `key`, taken out, or None. A kept graph of
+        another key on the same (device, traced) pair is dropped (a miss
+        replaces it), so its memory is free before the new capture."""
+        entry = self.kept.pop(key[:2], None)
+        return entry if entry is not None and entry.key == key else None
+
+    def give(self, entry: _KeptRender) -> None:
+        self.kept[entry.key[:2]] = entry
+
+
+RENDER_GRAPHS = RenderGraphs()
+
+
+def _cuda_index(device) -> torch.device:
+    """`device` with the current card's index where a CUDA device names
+    none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _kept_render(scene, camera, width: int, height: int, samples: int,
+                 max_depth: int, pool: int, steps_per_call: int,
+                 sample_chunk: int, rr: bool, pool_sort: Optional[int],
+                 device: torch.device, traced: bool):
+    """The kept graph of this render's configuration, reset to an empty
+    pool, or a new one to keep -> (entry, "hit" or "capture"). The key is
+    everything the graph's capture holds fixed: the scene and camera
+    objects, each tensor's address and layout and each plain attribute in
+    them, ops/intersect.py's switches, the film, spp, depth, pool, block
+    length, sample chunk, RR, the pool sort's period, RETIRE_DIV, the
+    device and whether the render is traced."""
+    held = []
+    period = int(POOL_SORT if pool_sort is None else pool_sort)
+    key = (device, traced, isect.switches(), id(scene), id(camera),
+           kbuild.held(scene, held), kbuild.held(camera, held), width,
+           height, samples, max_depth, pool, steps_per_call, sample_chunk,
+           rr, period, RETIRE_DIV)
+    entry = RENDER_GRAPHS.take(key)
+    if entry is not None:
+        RENDER_GRAPHS.hits += 1
+        reset_state(entry.state)
+        return entry, "hit"
+    RENDER_GRAPHS.captures += 1
+    return _KeptRender(key, init_state(width, height, pool, device),
+                       _BlockGraph(device),
+                       rng_mod.KeySlot(device, rng_mod.STREAM_TAGS), scene,
+                       camera, held), "capture"
+
+
+@contextlib.contextmanager
+def _rendering(scene, camera, width: int, height: int, samples: int,
+               sampler, max_depth: int, pool: int, steps_per_call: int,
+               progress_cb, state: Optional[PoolState], checkpoint_cb,
+               sample_chunk: int, rr: bool, pool_sort: Optional[int]):
+    """Run the render (render_state's arguments) -> (its finished state,
+    kept): with kept true the state is a kept graph's buffers, which the
+    next render writes into, and the graph is given back for that render
+    when the with-block ends without an exception."""
     wh = width * height
     _, n_chunks, _ = _chunk_geometry(samples, sample_chunk)
     total_items = wh * n_chunks
     total_samples = wh * samples
     if state is None:
-        state = init_state(width, height, min(pool, total_items),
-                           device=sampler.device)
+        device, pool = _cuda_index(sampler.device), min(pool, total_items)
     elif state.retired.ndim != 0:
         raise ValueError(
             f"checkpoint holds {state.retired.shape[0]} stacked worker "
             "states; resume it on a mesh of that size, not single-device")
-    graph = (_BlockGraph(state.fb.device) if graph_route(
-        scene, state.fb.device, pool_sort) else None)
-    pool = state.item.shape[0]
-    with tracing.job("render", state.fb.device, width=width, height=height,
+    else:
+        device, pool = state.fb.device, state.item.shape[0]
+    on_graph = graph_route(scene, device, pool_sort)
+    kept = None
+    with tracing.job("render", device, width=width, height=height,
                      spp=samples, pool=pool, cap=retire_cap(pool),
-                     steps=steps_per_call, **_sphere_attrs(scene)):
-        tracing.lane_counters(state.fb.device, pool, retire_cap(pool),
+                     steps=steps_per_call, **_sphere_attrs(scene)) as job:
+        if on_graph and state is None:
+            kept, how = _kept_render(
+                scene, camera, width, height, samples, max_depth, pool,
+                steps_per_call, sample_chunk, rr, pool_sort, device,
+                job is not None)
+            state, graph = kept.state, kept.graph
+            kept.slot.fill(sampler.key)
+            sampler = sampler.slotted(kept.slot)
+        else:
+            # a resumed render on the graph route captures a graph of its
+            # own, as every render did before graphs were kept
+            how = "capture" if on_graph else "eager"
+            if state is None:
+                state = init_state(width, height, pool, device)
+            graph = _BlockGraph(device) if on_graph else None
+        if job is not None:
+            job.root.attrs["graph"] = how
+            if how == "hit":
+                # replays read the marks of the graph's capture and add to
+                # its lane counters, zeroed
+                job.captured = kept.marks
+                job.lanes, job.kinds = kept.lanes, kept.kinds
+                for counts in (*kept.lanes, *kept.kinds.values()):
+                    counts.zero_()
+        tracing.lane_counters(device, pool, retire_cap(pool),
                               _lane_kinds(scene))
         retired = int(state.retired)
         block = 0
@@ -519,7 +636,64 @@ def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
                 progress_cb(retired, total_samples)
             if checkpoint_cb is not None:
                 checkpoint_cb(state)
-    return state
+        if kept is not None and job is not None:
+            kept.marks, kept.lanes, kept.kinds = (job.captured, job.lanes,
+                                                  job.kinds)
+    yield state, kept is not None
+    if kept is not None:
+        RENDER_GRAPHS.give(kept)
+
+
+def render_state(scene: scene_ir.SceneIR, camera: Camera, width: int,
+                 height: int, samples: int, sampler,
+                 max_depth: int = MAX_DEPTH, pool: int = DEFAULT_POOL,
+                 steps_per_call: int = STEPS_PER_CALL,
+                 progress_cb: Optional[Callable[[int, int], None]] = None,
+                 state: Optional[PoolState] = None,
+                 checkpoint_cb: Optional[Callable[[PoolState], None]] = None,
+                 sample_chunk: int = SAMPLE_CHUNK, rr: bool = True,
+                 pool_sort: Optional[int] = None) -> PoolState:
+    """Run the pool to completion on `sampler.device` (scene and camera
+    must already be there); fb holds the radiance SUM over `samples`.
+
+    Each block of `steps_per_call` iterations goes through _pool_run: on
+    the graph route (graph_route: a CUDA device and a segment that reads
+    no host value) from a CUDA graph, otherwise eagerly. The graph is kept
+    across renders (RENDER_GRAPHS) under a key of everything its capture
+    holds fixed (_kept_render). The first render of a key runs its first
+    block eagerly, captures the second and replays every later one; a
+    later render of the key resets the kept state in place (reset_state)
+    and replays every block, the first included, drawing under its own
+    sampler's key (host words) from the graph's key slot. Every route
+    gives the same state bit for bit where the device's sums are
+    deterministic, and the state returned is the caller's own (on the
+    graph route a copy of the kept one).
+
+    Completion (retired == W*H*samples) is read on the host after every
+    block of `steps_per_call` iterations, where progress_cb(retired, total)
+    and then checkpoint_cb(state) fire, the latter with the live state
+    (the next block updates it in place: copy what must outlive the call).
+    The iterations of the last block that ran after the pool went dry (no
+    item left to issue, none in a lane) are no-ops, and the state comes
+    back with `it` set to the first of them, the iteration at which the
+    reference's loop stops.
+    state: resume from a saved state (io/checkpoint.py:load_state) of this
+    render, on `sampler.device`; it goes on from its own `it` (updated in
+    place and returned; on the graph route through a graph made for the
+    call, never a kept one), and one whose pool is dry already comes back
+    at once. A stacked multi-worker state belongs to
+    parallel/shard.py:render_wavefront_sharded and is refused. pool_sort:
+    the pool sort's period, see _segment."""
+    with _rendering(scene, camera, width, height, samples, sampler,
+                    max_depth, pool, steps_per_call, progress_cb, state,
+                    checkpoint_cb, sample_chunk, rr, pool_sort) as (st, kept):
+        return _copy_state(st) if kept else st
+
+
+def _copy_state(state: PoolState) -> PoolState:
+    """A copy of `state` that shares no tensor with it."""
+    return dataclasses.replace(state, **{
+        f: getattr(state, f).clone() for f in _EMPTY})
 
 
 def _sphere_attrs(scene: scene_ir.SceneIR) -> dict:
@@ -547,15 +721,12 @@ def render_image(scene: scene_ir.SceneIR, camera: Camera, width: int,
     """Full render -> tonemapped (H, W, 3) float image in [0, 1] (average
     -> ACES -> gamma, as the reference); state / checkpoint_cb as in
     render_state."""
-    with tracing.job("render", sampler.device):
-        state = render_state(scene, camera, width, height, samples, sampler,
-                             max_depth=max_depth, pool=pool,
-                             progress_cb=progress_cb, state=state,
-                             checkpoint_cb=checkpoint_cb,
-                             sample_chunk=sample_chunk, rr=rr,
-                             pool_sort=pool_sort)
+    with tracing.job("render", sampler.device), _rendering(
+            scene, camera, width, height, samples, sampler, max_depth, pool,
+            STEPS_PER_CALL, progress_cb, state, checkpoint_cb, sample_chunk,
+            rr, pool_sort) as (st, _):
         with tracing.span("film"):
-            return film_image(state.fb, width, height, samples)
+            return film_image(st.fb, width, height, samples)
 
 
 def film_image(fb: torch.Tensor, width: int, height: int,

@@ -41,6 +41,7 @@ import weakref
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import tracing
 
@@ -237,6 +238,34 @@ class KernelLibrary:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
+
+
+def held(value, tensors: list):
+    """What a CUDA graph recorded over `value` (a scene or a camera, or a
+    part of one) takes as fixed, as a hashable value: each module's type,
+    its plain attributes (flags such as Camera.use_lens and TextureTable.
+    bilinear, which the recorded work branches on) and its parts; each
+    tensor's address, shape, strides, dtype and device (the graph reads it
+    in place). Appends each tensor met to `tensors`, and each object that
+    is told apart only by its identity."""
+    if isinstance(value, torch.Tensor):
+        tensors.append(value)
+        return ("tensor", value.data_ptr(), tuple(value.shape),
+                value.stride(), value.dtype, value.device)
+    if isinstance(value, nn.Module):
+        parts = {**value._parameters, **value._buffers, **value._modules}
+        parts.update((k, v) for k, v in vars(value).items()
+                     if not k.startswith("_") and k != "training")
+        return (type(value),) + tuple((k, held(parts[k], tensors))
+                                      for k in sorted(parts))
+    if isinstance(value, (tuple, list)):
+        return (type(value),) + tuple(held(v, tensors) for v in value)
+    try:
+        hash(value)
+    except TypeError:   # no value to compare: the object itself, held
+        tensors.append(value)
+        return ("object", id(value))
+    return value
 
 
 class GraphReplay:

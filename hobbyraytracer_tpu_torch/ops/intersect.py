@@ -67,6 +67,13 @@ SPHERE_KERNEL = os.environ.get("HRT_SPHERE_KERNEL", "0") != "0"
 # skips its per-mesh coherence sort. Read at import, switchable in-process.
 NO_COHSORT = bool(os.environ.get("HRT_NO_COHSORT"))
 
+
+def switches() -> tuple:
+    """The module-level switches above that a find reads as a CUDA graph
+    records it (the kept graphs' keys: diff/fit.py, integrator/
+    wavefront.py)."""
+    return (KEY_MODE, CORRIDOR_MIN_K, SPHERE_KERNEL, NO_COHSORT)
+
 # rect normal axis n -> in-plane axes (a, b): yz_rect n=0 (a=y, b=z),
 # xz_rect n=1 (a=x, b=z), xy_rect n=2 (a=x, b=y)
 _AXIS_A = (1, 0, 0)

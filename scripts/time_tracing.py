@@ -17,13 +17,13 @@ fill) and each traced job's host split: the eager first block or step,
 the capture (graph record, instantiate, the first replay) and the
 replays; both modes' host ms a job in each pass of the
 graph (eager, capture, replay) and device ms of its replays (CUDA events
-around each); for fits, how many of each mode's fits replayed the step
-graph kept across fits (diff/fit.py:FIT_GRAPHS: "hits") and how many
-captured one ("captures"). A traced fit's graph is kept apart from an
-untraced one's, so the first fit of the first "on" turn captures and
-every later fit of a mode hits: the "on" turns carry one capture that
-the "off" turns, whose graph the warm-up captured, do not. Then one JSON
-line (also written to --out).
+around each); how many of each mode's jobs replayed the graph kept across
+jobs (diff/fit.py:FIT_GRAPHS, integrator/wavefront.py:RENDER_GRAPHS:
+"hits") and how many captured one ("captures"). A traced job's graph is
+kept apart from an untraced one's, so the first job of the first "on"
+turn captures and every later job of a mode hits: the "on" turns carry
+one capture that the "off" turns, whose graph the warm-up captured, do
+not. Then one JSON line (also written to --out).
 """
 import argparse
 import contextlib
@@ -137,6 +137,7 @@ def main() -> int:
 
     from hobbyraytracer_tpu_torch import tracing
     from hobbyraytracer_tpu_torch.diff import fit as fit_mod
+    from hobbyraytracer_tpu_torch.integrator import wavefront
     from hobbyraytracer_tpu_torch.kernels import build as kbuild
     from perfbench import jobs, manifest
     graph_times = _GraphTimes(kbuild)
@@ -159,8 +160,9 @@ def main() -> int:
         j = 0
         for mode in ("off", "on", "on", "off"):
             for _ in range(args.jobs):
-                before = (fit_mod.FIT_GRAPHS.hits,
-                          fit_mod.FIT_GRAPHS.captures)
+                cache = (fit_mod.FIT_GRAPHS if kind == "fit"
+                         else wavefront.RENDER_GRAPHS)
+                before = (cache.hits, cache.captures)
                 with (tracing.recording() if mode == "on"
                       else contextlib.nullcontext()) as rec:
                     t0 = time.perf_counter()
@@ -168,9 +170,8 @@ def main() -> int:
                     torch.cuda.synchronize(device)
                     times[mode].append(time.perf_counter() - t0)
                 graphs[mode].append(graph_times.take())
-                kept[mode]["hits"] += fit_mod.FIT_GRAPHS.hits - before[0]
-                kept[mode]["captures"] += (fit_mod.FIT_GRAPHS.captures
-                                           - before[1])
+                kept[mode]["hits"] += cache.hits - before[0]
+                kept[mode]["captures"] += cache.captures - before[1]
                 if rec is not None:
                     records.extend(rec.drain())
                 j += 1
@@ -188,16 +189,14 @@ def main() -> int:
                "graph_ms": {m: {k: statistics.mean(g.get(k, 0.0)
                                                    for g in graphs[m])
                                 for k in graphs[m][0]} for m in graphs}}
-        if kind == "fit":
-            got["fit_graphs"] = kept
+        got["kept_graphs"] = kept
         result["cells"][name] = got
         print(f"{name}: traced / untraced job time "
               f"{got['on_over_off']:.4f}")
         print(f"{name}: readings {json.dumps(got['readings'])}")
         print(f"{name}: graph ms a job (host by pass, replays' device) "
               f"{json.dumps(got['graph_ms'])}")
-        if kind == "fit":
-            print(f"{name}: kept step graphs by mode {json.dumps(kept)}")
+        print(f"{name}: kept graphs by mode {json.dumps(kept)}")
         for row in split:
             print(f"{name}: split ms " + json.dumps(
                 {k: round(v, 3) for k, v in row.items()}))

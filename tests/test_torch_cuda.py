@@ -3,7 +3,8 @@
 sphere_scan (the dense sphere scan) and threefry (the draws), each against
 its plain PyTorch version, and K2 against K1; the wavefront render, the
 fit's steps and the batch integrator's samples replayed from CUDA graphs
-against the eager render and fit. All are built with -fmad=false and
+against the eager render and fit, and the render's block graph kept
+across renders against a cleared cache. All are built with -fmad=false and
 round op for op as PyTorch does, so kernel and plain version are equal
 (tolerance 0), not only within the parity tolerances. Every test here
 needs a CUDA card and skips without one; the file imports neither JAX nor
@@ -75,6 +76,14 @@ def _plain(on: bool):
 def _eager(on: bool):
     """kernels/build.py:eager() when `on`, else no switch."""
     return kbuild.eager() if on else contextlib.nullcontext()
+
+
+@pytest.fixture(autouse=True)
+def own_render_graphs(monkeypatch):
+    """Each test starts with no kept block graph (integrator/wavefront.py:
+    RENDER_GRAPHS), so its first graph render of a configuration captures
+    one, and leaves none behind."""
+    monkeypatch.setattr(wavefront, "RENDER_GRAPHS", wavefront.RenderGraphs())
 
 
 @pytest.fixture
@@ -1291,6 +1300,81 @@ def test_graph_route_resume_and_checkpoints(dev, tmp_path):
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(out.fb, ref.fb) and out.it == ref.it
+
+
+# --- the render's block graph kept across renders (RENDER_GRAPHS) -----------
+
+@pytest.mark.parametrize("scene_path", [TEAPOT, BALLS],
+                         ids=["teapot", "balls"])
+def test_kept_render_graph_equals_a_cleared_cache(dev, scene_path):
+    """Three renders of one scene and camera at chip_smoke.py's size
+    (640x640 @ 16 spp, pool 196,608) with three seeds through the kept
+    block graph (1 capture, then 2 hits that reset the pool in place and
+    replay every block) against the same renders with the cache cleared
+    before each (each its own capture), under deterministic algorithms:
+    framebuffer, `it` and retired equal bit for bit, and each render's
+    kernel launches equal, a hit's a capture's (one K1 or sphere_scan
+    launch a segment; seed 0's teapot: K1 144 and threefry 720).
+    The states handed back share no tensor with the kept pool."""
+    from hobbyraytracer_tpu_torch.kernels import threefry as tf
+    job = build_scene(load_scene_desc(scene_path))
+    scene, camera = job.scene.to(dev), job.camera.to(dev)
+    assert wavefront.graph_route(scene, dev)
+    libs = (pk.KERNEL, sc.SCAN_KERNEL, tf.THREEFRY)
+    graphs = wavefront.RENDER_GRAPHS
+
+    def render(seed, clear):
+        if clear:
+            graphs.clear()
+        for lib in libs:
+            lib.launches = 0
+        st = wavefront.render_state(scene, camera, 640, 640, 16,
+                                    Sampler(seed, dev), pool=196_608)
+        return st, [lib.launches for lib in libs]
+
+    seeds = (0, 2 ** 31 + 7, 5)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kept = [render(s, clear=False) for s in seeds]
+        assert (graphs.captures, graphs.hits) == (1, 2)
+        fresh = [render(s, clear=True) for s in seeds]
+        assert (graphs.captures, graphs.hits) == (4, 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (entry,) = graphs.kept.values()
+    pool_ptrs = {getattr(entry.state, f).data_ptr() for f in ("fb", "o",
+                                                              "item")}
+    for (a, la), (b, lb) in zip(kept, fresh):
+        assert torch.equal(a.fb, b.fb) and a.it == b.it
+        assert int(a.retired) == int(b.retired) == 640 * 640 * 16
+        assert la == lb
+        assert not pool_ptrs & {a.fb.data_ptr(), a.o.data_ptr(),
+                                a.item.data_ptr()}
+        # one find launch a segment issued: blocks of 8, the last past the
+        # iteration at which the pool ran dry
+        k1, scan, _ = la
+        assert (k1 == 0) == (scene_path == BALLS) and k1 * scan == 0
+        assert (k1 + scan) % 8 == 0 and 0 <= k1 + scan - a.it < 8
+    if scene_path == TEAPOT:   # seed 0, chip_smoke.py's render
+        assert kept[0][1] == [144, 0, 720]
+
+
+def test_slot_folds_draw_the_host_streams_on_the_card(dev):
+    """On the card, a key slot with the stream purposes' folds: a slotted
+    sampler's draws under a device iteration (threefry.cu reading the
+    fold's words from the slot) equal the host key's for every purpose a
+    render uses, bit for bit."""
+    from hobbyraytracer_tpu_torch.core import rng as rng_mod
+    host = Sampler(2 ** 31 + 11, dev)
+    slot = rng_mod.KeySlot(dev, rng_mod.STREAM_TAGS)
+    slot.fill(host.key)
+    slotted = host.slotted(slot)
+    it = torch.tensor(9, dtype=torch.int32, device=dev)
+    for purpose in range(rng_mod.STREAM_TAGS):
+        assert torch.equal(slotted.uniform(purpose, it, (4099,)),
+                           host.uniform(purpose, 9, (4099,))), purpose
+        assert torch.equal(slotted.unit_sphere(purpose, it, (513,)),
+                           host.unit_sphere(purpose, 9, (513,))), purpose
 
 
 # --- the fit step through a CUDA graph (diff/fit.py:fit_materials) ----------

@@ -152,7 +152,8 @@ def test_render_span_tree(teapot):
         assert names[p] == 8 * blocks
     root = next(s for s in spans if s["name"] == "hrt.render")
     assert root["attrs"] == {"width": 12, "height": 12, "spp": 3, "pool": 40,
-                             "cap": 40, "steps": 8, "route": "eager"}
+                             "cap": 40, "steps": 8, "route": "eager",
+                             "graph": "eager"}
     phases = _of(rec.records(), "phase")
     assert Counter(p["name"] for p in phases) == {p: blocks
                                                   for p in SEGMENT_PHASES}

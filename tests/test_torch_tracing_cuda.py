@@ -3,7 +3,8 @@ card: the timing events inside a replayed block graph against CUDA events
 around the replay; the untraced block graph against the traced one, node
 type by node type; the graph's kernel nodes against the kernels a profiler
 sees a replayed segment; the fit's step graph, and its replays when a
-later fit keeps it; the profiler's copies of
+later fit keeps it; a render's kept block graph replayed from its first
+block by a later render; the profiler's copies of
 the program's spans dropped by the benchmark's reduction. Every test needs
 a CUDA card and skips without one; the file imports neither JAX nor the
 JAX package:
@@ -52,6 +53,14 @@ def empty_recorder():
     tracing.RECORDER.drain()
     yield
     tracing.RECORDER.drain()
+
+
+@pytest.fixture(autouse=True)
+def own_render_graphs(monkeypatch):
+    """Each test starts with no kept block graph (integrator/wavefront.py:
+    RENDER_GRAPHS), so its first render of a configuration captures one,
+    and leaves none behind."""
+    monkeypatch.setattr(pwf, "RENDER_GRAPHS", pwf.RenderGraphs())
 
 
 def _render(teapot, card, size=640, spp=8, seed=3):
@@ -241,6 +250,44 @@ def test_kept_fit_graph_times_its_phases(monkeypatch, card):
     assert all(p["ms"] > 0 for p in phases)
     assert _counters(records, second) == {"steps": 6}
     assert "graph.kernel" in _counters(records, roots[0]["id"])
+
+
+def test_kept_render_graph_times_its_phases(teapot, card):
+    """Three traced renders of the teapot (256x256 @ 8 spp) with the seeds
+    3, 4, 3: the second and third replay the first's kept block graph
+    (integrator/wavefront.py:RENDER_GRAPHS) from their first block, so
+    every block of theirs reads the four phases, > 0 ms, on the replay
+    route from the events the first render's capture recorded; they
+    capture nothing, so they count no graph nodes. Their lane counters,
+    re-armed, count their own lanes: the third, of the first's seed,
+    exactly the first's, the second others. hrt.render reads graph
+    "capture", "hit", "hit"."""
+    with tracing.recording() as rec:
+        for seed in (3, 4, 3):
+            _render(teapot, card, size=256, spp=8, seed=seed)
+    records = rec.records()
+    roots = [s for s in records if s["type"] == "span"
+             and s["name"] == "hrt.render"]
+    assert [r["attrs"]["graph"] for r in roots] == ["capture", "hit", "hit"]
+    assert "graph.kernel" in _counters(records, roots[0]["id"])
+    lanes = []
+    for root in roots:
+        counted = _counters(records, root["id"])
+        lanes.append({k: v for k, v in counted.items()
+                      if k.startswith(("lanes.", "rows."))})
+        if root is roots[0]:
+            continue
+        assert not any(k.startswith("graph.") for k in counted)
+        phases = [p for p in records if p["type"] == "phase"
+                  and p["job"] == root["id"]]
+        blocks = [phases[i:i + 4] for i in range(0, len(phases), 4)]
+        assert len(blocks) * 8 == counted["segments"] and len(blocks) >= 3
+        for block in blocks:
+            assert [p["name"] for p in block] == list(PHASES)
+            assert all(p["route"] == "replay" and p["ms"] > 0
+                       and p["units"] == 8 for p in block)
+    assert lanes[0]["lanes.active"] > 0
+    assert lanes[2] == lanes[0] and lanes[1] != lanes[0]
 
 
 def test_profiler_copies_of_the_spans_are_annotations(teapot, card):
